@@ -1,25 +1,43 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``ivit_tpu_torch``) on one NVIDIA GPU.
 
-Drives the port's main path — integer-only DeiT-S inference
-(``deploy.engine.build_vit_infer``, softmax_bits=8, stable ShiftGELU) at
-full width on a seeded synthetic artifact — and checks every hand-written
-kernel on it:
+Drives the port's paths through ``deploy.engine.build_vit_infer`` at the
+full width and depth of DeiT-S on seeded synthetic artifacts, and checks
+every hand-written kernel on them:
+
+* the main path: softmax_bits=8, stable ShiftGELU, K1 attention + K3
+  LayerNorm (the default kernels);
+* the reference-spec path: softmax_bits=16, row-max ShiftGELU, by three
+  routes: A = K2 attention + K4 fc1-GEMM-with-GELU + K3; B = K6 Shiftmax
+  into the base-256 split for the exact @V + K5 GELU + K3; and the K1 + K3 route as the
+  check that all three give equal logits.
+
+Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. builds the CUDA kernels from ``ivit_tpu_torch/csrc`` with nvcc;
-3. K1 (fused attention) and K3 (fused I-LayerNorm → requant) against
-   their plain torch versions, bit for bit, at the main path's shapes:
-   K3 on (25216, 384) and (197, 384), K1 on (768, 197, 64) and
-   (6, 197, 64) at out_bits 8 and 16 — on the engine's own block-0
-   inputs and on random inputs with spread scores;
-4. the engine on the card at batch 128 and batch 1: logits bit-equal to
-   the plain ops on the card, to the plain engine on the CPU (first two
-   images), batch 1 equal to row 0 of batch 128, and 12 K1 + 25 K3
-   launches per forward;
-5. times (CUDA events after warm-up): engine images/s at batch 128,
-   ms/image at batch 1, and each kernel beside its plain version; then a
-   torch.profiler table of one batch-128 forward (device time by op).
+2. builds the CUDA kernels from ``ivit_tpu_torch/csrc`` with nvcc, one
+   process per source, all at once;
+3. every kernel against its plain torch version, bit for bit
+   (tolerance 0), at its path's batch-128 and batch-1 shapes, on the
+   engine's own block-0 inputs and on random inputs that spread its
+   values: K3 (25216, 384) / (197, 384); K1 and K2 (768, 197, 64) /
+   (6, 197, 64) at out_bits 8 and 16; K4 (25216, 384) x (384, 1536) /
+   (197, ...); K5 (25216, 1536) / (197, 1536); K6 (151296, 197) /
+   (1182, 197);
+4. each path at batch 128 and batch 1, with every launch count set to 0
+   just before it and read just after: logits bit-equal to the plain ops
+   on the card, to the plain engine on the CPU (first two images), batch
+   1 equal to row 0 of batch 128, and the launches per forward stated
+   (12 K1 + 25 K3; A: 12 K2 + 12 K4 + 25 K3; B: 12 K6 + 12 K5 + 25 K3);
+   at sm16, routes A, B and K1 give equal logits;
+5. times (CUDA events after warm-up): each path's images/s at batch 128
+   and ms/image at batch 1; each kernel beside its plain version and, for
+   K4, ``torch._int_mm`` on the same GEMM (a partial yardstick the port
+   never calls); each kernel's bound (the larger of its bytes over the
+   HBM rate and its operations over the peak rates); device time by
+   kernel and the device's idle share over one profiled forward
+   (torch.profiler): the main path, routes A and B at batch 128, and
+   route A at batch 1.
 
 Any failed check raises and exits nonzero before the result lines. The
 second-to-last line is the kernels' JSON record, the last line
@@ -40,6 +58,27 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 BATCH = 128
+ROUTE_A = ("layernorm", "attention2", "linear_gelu")
+ROUTE_B = ("layernorm", "softmax", "gelu")
+
+# Published H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/ms and
+# int8 tensor-core ops/ms. 67 TFLOP/s in float32 counts an FMA as two
+# operations: one float32 instruction per lane and clock is 33.5 T/s, and
+# the chains have no FMA (-fmad=false). An SM has half as many int32 lanes
+# as float32 ones (NVIDIA's H100 architecture paper), so 16.75 T/s int32.
+HBM_PER_MS = 3.35e12 / 1e3
+INT8_PER_MS = 1979e12 / 1e3
+F32_PER_MS = 33.5e12 / 1e3
+INT32_PER_MS = 16.75e12 / 1e3
+# Elementwise instructions of each chain per element, counted from the
+# kernels' source as (float32, int32); each add, mul, div, floor, rint,
+# min, max and conversion is one, and loop-invariant terms are left out:
+REQUANT_OPS = (4, 0)     # mul, rint, max, min
+SHIFT_EXP_OPS = (17, 3)  # 2 x (div, floor), add, sub, max, div, floor, mul, 3 sub, mul, floor, 2 clip; exp2i
+SHIFTMAX_OPS = (REQUANT_OPS[0] + 2 + SHIFT_EXP_OPS[0] + 2, SHIFT_EXP_OPS[1] + 1)  # max, sub; mul, floor; int sum
+SPLIT_OPS = (7, 0)       # div, floor, mul, sub, sub, 2 x saturate
+GELU_OPS = (2 * REQUANT_OPS[0] + 2 + SHIFT_EXP_OPS[0] + 9, SHIFT_EXP_OPS[1])  # max, sub; add, clip 2, div, floor, mul, div, floor, mul
+LAYERNORM_OPS = (10, 10)  # int32 split statistics; convert, sub, mul, div, floor, add, requant
 
 
 def check(cond: bool, msg: str) -> None:
@@ -72,6 +111,21 @@ def paired_ms(kernel_fn, plain_fn, iters: int) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound_ms(nbytes: float, int8_ops: float = 0.0, elementwise: tuple = (0.0, 0.0)) -> tuple[float, str]:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations of each unit over its peak rate
+    (int8 tensor cores; float32 and int32 lanes, ``elementwise`` counts).
+    The units run at the same time, so the largest of these times bounds."""
+    t_bytes = nbytes / HBM_PER_MS
+    t_ops = max(int8_ops / INT8_PER_MS, elementwise[0] / F32_PER_MS, elementwise[1] / INT32_PER_MS)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def per_element(n: int, *chains: tuple) -> tuple:
+    """(float32, int32) operation counts of ``chains`` over n elements."""
+    return (n * sum(c[0] for c in chains), n * sum(c[1] for c in chains))
+
+
 def max_abs_err(a, b) -> int:
     return int((a.to(dtype=b.dtype).long() - b.long()).abs().max())
 
@@ -79,6 +133,7 @@ def max_abs_err(a, b) -> int:
 def main() -> int:
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -88,16 +143,26 @@ def main() -> int:
         print("chip_smoke: the ivit_tpu_torch package is not beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from ivit_tpu_torch.deploy.engine import attention_inputs, build_vit_infer, embed
+    from ivit_tpu_torch.deploy.engine import attention_half, attention_inputs, build_vit_infer, embed, int8_linear
     from ivit_tpu_torch.deploy.synthetic import nonzero_probability_share, synthetic_vit_artifact
     from ivit_tpu_torch.kernels import (
+        WRAPPERS,
         _build,
         fused_int8_attention,
         fused_int8_attention_reference,
+        fused_int8_attention_v2,
+        fused_int8_attention_v2_reference,
         fused_layernorm_requant,
         fused_layernorm_requant_reference,
+        fused_linear_shiftgelu,
+        fused_linear_shiftgelu_reference,
+        fused_requant_shiftgelu,
+        fused_requant_shiftgelu_reference,
+        fused_requant_shiftmax,
+        fused_requant_shiftmax_reference,
     )
     from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
+    from ivit_tpu_torch.kernels.attention_fused_v2 import scale_gate
 
     # 1. the card
     smi = subprocess.run(
@@ -110,158 +175,300 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.build(force=True)
+    libs = _build.build(force=True)
     _build.load()
-    print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)} -> {_build.LIB} in {time.perf_counter() - t0:.3f} s")
+    print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}, {len(libs)} sources in parallel "
+          f"-> {_build.BUILD_DIR} in {time.perf_counter() - t0:.3f} s")
 
-    # the main path's inputs
+    # the paths' inputs
     t0 = time.perf_counter()
-    artifact = synthetic_vit_artifact("deit_small", seed=SEED, softmax_bits=8, gelu_stable=True)
-    cfg = artifact["config"]
-    print(f"artifact: synthetic deit_small seed={SEED} {cfg} in {time.perf_counter() - t0:.3f} s")
+    art8 = synthetic_vit_artifact("deit_small", seed=SEED, softmax_bits=8, gelu_stable=True)
+    art16 = synthetic_vit_artifact("deit_small", seed=SEED, softmax_bits=16, gelu_stable=False)
+    cfg = art8["config"]
+    print(f"artifacts: synthetic deit_small seed={SEED} {cfg} and softmax_bits=16 gelu_stable=False "
+          f"in {time.perf_counter() - t0:.3f} s")
     rng = np.random.default_rng(SEED + 1)
-    images = torch.from_numpy(rng.standard_normal((BATCH, 224, 224, 3), dtype=np.float32))
+    size = cfg["img_size"]
+    images = torch.from_numpy(rng.standard_normal((BATCH, size, size, 3), dtype=np.float32))
     images_dev = images.to(dev)
-    infer = build_vit_infer(artifact, dev)
-    t = infer.tensors
-    blk0 = t["blocks"][0]
-    H = cfg["num_heads"]
+    D, H, depth = cfg["embed_dim"], cfg["num_heads"], cfg["depth"]
+    hd, N = D // H, (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
+    hidden = int(D * cfg["mlp_ratio"])
 
-    # 3. kernels against their plain versions at the main path's shapes
-    with torch.inference_mode():
-        x128 = embed(images_dev, t)
-        x1 = embed(images_dev[:1], t)
-    k3_cases = {
-        "(25216, 384)": x128.reshape(-1, cfg["embed_dim"]),
-        "(197, 384)": x1.reshape(-1, cfg["embed_dim"]),
+    infer = build_vit_infer(art8, dev)  # the main path: the default kernels, K1 + K3
+    routes16 = {
+        "A": build_vit_infer(art16, dev, kernels=ROUTE_A),
+        "B": build_vit_infer(art16, dev, kernels=ROUTE_B),
+        "K1": build_vit_infer(art16, dev),
     }
-    k3_err = 0
-    for shape, x in k3_cases.items():
-        args = (x, blk0["norm1"]["bias_int"], blk0["norm1"]["ratio"])
-        out = fused_layernorm_requant(*args)
-        ref = fused_layernorm_requant_reference(*args)
-        torch.cuda.synchronize()
-        err = max_abs_err(out, ref)
-        k3_err = max(k3_err, err)
-        print(f"K3 {shape}: max_abs_err {err} (tolerance 0), distinct outputs {int(ref.unique().numel())}")
-        check(err == 0, f"K3 {shape} differs from its plain version")
+    for name, r in [("main", infer), *routes16.items()]:
+        print(f"route {name}: kernels {sorted(r.kernels)}")
+    scales = [b["attn"]["scale"] for b in routes16["A"].tensors["blocks"]]
+    print(f"K2 gate N*ceil(1/scale)*2^15 < 2^31 at N={N}: softmax input scales {scales}, "
+          f"all pass {all(scale_gate(N, s) for s in scales)}")
 
-    s = {k: np.float32(artifact["blocks"][0][k]) for k in ("s_attn_qact1", "s_attn_sm_in", "s_attn_out")}
-    a0 = blk0["attn"]
+    # 3. kernels against their plain versions at the paths' shapes
+    t8, t16 = infer.tensors, routes16["A"].tensors
+    blk8, blk16 = t8["blocks"][0], t16["blocks"][0]
+    with torch.inference_mode():
+        x128, x1 = embed(images_dev, t8), embed(images_dev[:1], t8)
+        x16 = {"b128": embed(images_dev, t16), "b1": embed(images_dev[:1], t16)}
     gen = torch.Generator().manual_seed(SEED)
-    k1_err = 0
-    k1_inputs = {}
-    for shape, x in (("(768, 197, 64)", x128), ("(6, 197, 64)", x1)):
+    errs = {k: 0 for k in WRAPPERS}
+
+    def compare(name: str, label: str, out, ref) -> None:
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        err = max(max_abs_err(o, r) for o, r in zip(outs, refs))
+        errs[name] = max(errs[name], err)
+        distinct = int(refs[0].unique().numel())
+        print(f"{name} {label}: max_abs_err {err} (tolerance 0), distinct outputs {distinct}")
+        check(err == 0, f"{name} {label} differs from its plain version")
+
+    k3_cases = {f"({BATCH * N}, {D})": x128.reshape(-1, D), f"({N}, {D})": x1.reshape(-1, D)}
+    for shape, x in k3_cases.items():
+        args = (x, blk8["norm1"]["bias_int"], blk8["norm1"]["ratio"])
+        compare("K3", shape, fused_layernorm_requant(*args), fused_layernorm_requant_reference(*args))
+
+    # K1 and K2: the block-0 q, k, v of each path and random spread inputs
+    s8 = {k: np.float32(art8["blocks"][0][k]) for k in ("s_attn_qact1", "s_attn_out")}
+    spread_r1 = float(np.float32(127.0 / (3 * np.sqrt(hd) * 74.0**2)))
+    spread_scale = float(np.float32(0.07))
+    attn_inputs = {}
+    for size, xa, xb in (("b128", x128, x16["b128"]), ("b1", x1, x16["b1"])):
         with torch.inference_mode():
-            q, k, v = attention_inputs(x, blk0, H)
-        k1_inputs[shape] = (q, k, v)
-        G, N, hd = q.shape
+            attn_inputs[size] = {"sm8": attention_inputs(xa, blk8, H), "sm16": attention_inputs(xb, blk16, H)}
+    for size, ins in attn_inputs.items():
+        q8, k8, v8 = ins["sm8"]
+        G = q8.shape[0]
+        shape = f"({G}, {N}, {hd})"
         rand = [torch.randint(-128, 128, (G, N, hd), generator=gen, dtype=torch.int8).to(dev) for _ in range(3)]
         for bits in (8, 16):
-            # the block-0 ratios at this probability width (f32, as the engine forms them)
-            r_out = float(np.float32(np.float32(1.0 / 2 ** (bits - 1)) * s["s_attn_qact1"]) / s["s_attn_out"])
-            spread_r1 = float(np.float32(127.0 / (3 * np.sqrt(hd) * 74.0**2)))
-            for data, (qq, kk, vv), r1, scale in (
-                ("block0", (q, k, v), a0["r1"], a0["scale"]),
-                ("random", rand, spread_r1, float(np.float32(0.07))),
-            ):
-                out = fused_int8_attention(qq, kk, vv, r1, scale, r_out, bits)
-                ref = fused_int8_attention_reference(qq, kk, vv, r1, scale, r_out, bits)
+            # the main path's block-0 ratios at this probability width (f32, as the engine forms them)
+            r_out8 = float(np.float32(np.float32(1.0 / 2 ** (bits - 1)) * s8["s_attn_qact1"]) / s8["s_attn_out"])
+            a16 = blk16["attn"]
+            cases = [
+                ("main-path block0", ins["sm8"], blk8["attn"]["r1"], blk8["attn"]["scale"], r_out8),
+                ("random", rand, spread_r1, spread_scale, r_out8),
+            ]
+            if bits == 16:
+                cases.insert(1, ("sm16 block0", ins["sm16"], a16["r1"], a16["scale"], a16["r_out"]))
+            for data, (qq, kk, vv), r1, scale, r_out in cases:
                 probs = attention_probabilities(qq, kk, r1, scale, bits)
-                torch.cuda.synchronize()
-                err = max_abs_err(out, ref)
-                k1_err = max(k1_err, err)
-                print(
-                    f"K1 {shape} out_bits={bits} {data}: max_abs_err {err} (tolerance 0), "
-                    f"nonzero probabilities {float((probs > 0).float().mean())}, "
-                    f"distinct outputs {int(ref.unique().numel())}"
-                )
-                check(err == 0, f"K1 {shape} out_bits={bits} {data} differs from its plain version")
+                label = f"{shape} out_bits={bits} {data}, nonzero probabilities {float((probs > 0).float().mean())}"
+                compare("K1", label, fused_int8_attention(qq, kk, vv, r1, scale, r_out, bits),
+                        fused_int8_attention_reference(qq, kk, vv, r1, scale, r_out, bits))
+                if scale_gate(N, scale):
+                    compare("K2", label, fused_int8_attention_v2(qq, kk, vv, r1, scale, r_out, N, bits),
+                            fused_int8_attention_v2_reference(qq, kk, vv, r1, scale, r_out, N, bits))
 
-    # 4. the main path end to end
-    plain_infer = build_vit_infer(artifact, dev, use_kernels=False)
-    cpu_infer = build_vit_infer(artifact, "cpu")
-    fused_int8_attention.launches = 0
-    fused_layernorm_requant.launches = 0
-    logits = infer(images_dev)
-    logits1 = infer(images_dev[:1])
-    torch.cuda.synchronize()
-    k1_launches = fused_int8_attention.launches
-    k3_launches = fused_layernorm_requant.launches
-    depth = cfg["depth"]
-    print(f"launches over 2 forwards (batch {BATCH}, batch 1): K1 {k1_launches}, K3 {k3_launches}")
-    check(k1_launches == 2 * depth, f"K1 launched {k1_launches} times, expected {2 * depth}")
-    check(k3_launches == 2 * (2 * depth + 1), f"K3 launched {k3_launches} times, expected {2 * (2 * depth + 1)}")
+    # K6: the block-0 scores of the sm16 path and random spread scores
+    def scores(q, k):
+        return torch.matmul(q.double(), k.double().transpose(-1, -2)).to(torch.int32).reshape(-1, N)
 
-    check(tuple(logits.shape) == (BATCH, cfg["num_classes"]), f"logits shape {tuple(logits.shape)}")
-    check(bool(torch.isfinite(logits).all()), "non-finite logits")
-    plain = plain_infer(images_dev)
-    cpu2 = cpu_infer(images[:2])
-    e_plain = float((logits - plain).abs().max())
-    e_cpu = float((logits[:2].cpu() - cpu2).abs().max())
-    e_b1 = float((logits1 - logits[:1]).abs().max())
-    print(f"logits batch {BATCH} vs plain ops on the card: max_abs_err {e_plain} (tolerance 0)")
-    print(f"logits rows 0-1 vs plain engine on the CPU: max_abs_err {e_cpu} (tolerance 0)")
-    print(f"logits batch 1 vs row 0 of batch {BATCH}: max_abs_err {e_b1} (tolerance 0)")
-    check(torch.equal(logits, plain), "kernel path differs from the plain ops on the card")
-    check(torch.equal(logits[:2].cpu(), cpu2), "card differs from the CPU plain engine")
-    check(torch.equal(logits1, logits[:1]), "batch 1 differs from row 0 of the batch")
-    shares = nonzero_probability_share(artifact, images[:8], dev)
-    argmax = logits.argmax(-1)
-    print(
-        f"non-degeneracy: nonzero attention probabilities per block {shares}; "
-        f"distinct argmax over {BATCH} images {int(argmax.unique().numel())}; "
-        f"logit std {float(logits.std())}"
-    )
+    k6_inputs = {}
+    for size, ins in attn_inputs.items():
+        q16, k16, _ = ins["sm16"]
+        G = q16.shape[0]
+        rq, rk = (torch.randint(-128, 128, (G, N, hd), generator=gen, dtype=torch.int8).to(dev) for _ in range(2))
+        a16 = blk16["attn"]
+        k6_inputs[size] = (scores(q16, k16), a16["r1"], a16["scale"])
+        for data, (x, r1, scale) in (("sm16 block0", k6_inputs[size]), ("random", (scores(rq, rk), spread_r1, spread_scale))):
+            compare("K6", f"({x.shape[0]}, {N}) {data}", fused_requant_shiftmax(x, r1, scale, N),
+                    fused_requant_shiftmax_reference(x, r1, scale, N))
+
+    # K4 and K5: the block-0 MLP inputs of the sm16 path, and random inputs
+    # whose per-channel ratios spread the GELU inputs over int8
+    fc1, gelu = blk16["fc1"], blk16["gelu"]
+    gelu_args = (gelu["s_in"], gelu["r2"])
+    k4_inputs, k5_inputs = {}, {}
+    for size, xs in x16.items():
+        with torch.inference_mode():
+            y = fused_layernorm_requant_reference(attention_half(xs, blk16, t16["config"], ()),
+                                                  blk16["norm2"]["bias_int"], blk16["norm2"]["ratio"])
+            acc = int8_linear(y, fc1)
+        M = y.shape[0]
+        k4_inputs[size] = (y, fc1["w_t"].T, fc1["b"], fc1["ratio"], *gelu_args)
+        k5_inputs[size] = (acc, fc1["ratio"], *gelu_args)
+        ry = torch.randint(-128, 128, (M, D), generator=gen, dtype=torch.int8).to(dev)
+        spread = torch.from_numpy((np.random.default_rng(M).uniform(0.5, 2.0, hidden)).astype(np.float32)).to(dev)
+        r1_gemm = spread * float(40.0 / (74.0**2 * np.sqrt(D)))
+        racc = torch.randint(-(2**20), 2**20, (M, hidden), generator=gen, dtype=torch.int32).to(dev)
+        racc[0] = -racc[0].abs() - 1  # an all-negative row: e_max saturates
+        for data, args in (("sm16 block0", k4_inputs[size]), ("random", (ry, fc1["w_t"].T, fc1["b"], r1_gemm, *gelu_args))):
+            compare("K4", f"({M}, {D}) x ({D}, {hidden}) {data}", fused_linear_shiftgelu(*args),
+                    fused_linear_shiftgelu_reference(*args))
+        for data, args in (("sm16 block0", k5_inputs[size]), ("random", (racc, spread * 1e-4, *gelu_args))):
+            compare("K5", f"({M}, {hidden}) {data}", fused_requant_shiftgelu(*args),
+                    fused_requant_shiftgelu_reference(*args))
+
+    # 4. each path end to end, its launch counts read around its own run
+    def drive(name: str, fn, expect: dict) -> tuple:
+        for w in WRAPPERS.values():
+            w.launches = 0
+        out128 = fn(images_dev)
+        out1 = fn(images_dev[:1])
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in WRAPPERS.items()}
+        print(f"route {name}: launches over 2 forwards (batch {BATCH}, batch 1): {counts}")
+        for k, per_forward in expect.items():
+            check(counts[k] == 2 * per_forward, f"route {name}: {k} launched {counts[k]} times, expected {2 * per_forward}")
+        check(sum(counts.values()) == 2 * sum(expect.values()), f"route {name}: unexpected launches {counts}")
+        check(tuple(out128.shape) == (BATCH, cfg["num_classes"]), f"logits shape {tuple(out128.shape)}")
+        check(bool(torch.isfinite(out128).all()), f"route {name}: non-finite logits")
+        e_b1 = float((out1 - out128[:1]).abs().max())
+        print(f"route {name}: logits batch 1 vs row 0 of batch {BATCH}: max_abs_err {e_b1} (tolerance 0)")
+        check(torch.equal(out1, out128[:1]), f"route {name}: batch 1 differs from row 0 of the batch")
+        return out128, counts
+
+    def against_plain(name: str, logits, plain, cpu2) -> None:
+        e_plain = float((logits - plain).abs().max())
+        e_cpu = float((logits[:2].cpu() - cpu2).abs().max())
+        print(f"route {name}: logits vs plain ops on the card: max_abs_err {e_plain}; "
+              f"rows 0-1 vs plain engine on the CPU: max_abs_err {e_cpu} (tolerance 0)")
+        check(torch.equal(logits, plain), f"route {name}: differs from the plain ops on the card")
+        check(torch.equal(logits[:2].cpu(), cpu2), f"route {name}: differs from the CPU plain engine")
+
+    layernorms = 2 * depth + 1
+    logits, main_counts = drive("main", infer, {"K1": depth, "K3": layernorms})
+    plain8 = build_vit_infer(art8, dev, kernels=())
+    against_plain("main", logits, plain8(images_dev), build_vit_infer(art8, "cpu", kernels=())(images[:2]))
+    shares = nonzero_probability_share(art8, images[:8], dev)
+    print(f"non-degeneracy (main path): nonzero attention probabilities per block {shares}; "
+          f"distinct argmax over {BATCH} images {int(logits.argmax(-1).unique().numel())}; "
+          f"logit std {float(logits.std())}")
+
+    plain16 = build_vit_infer(art16, dev, kernels=())
+    plain16_logits = plain16(images_dev)
+    cpu16 = build_vit_infer(art16, "cpu", kernels=())(images[:2])
+    expects = {"A": {"K2": depth, "K4": depth, "K3": layernorms},
+               "B": {"K6": depth, "K5": depth, "K3": layernorms},
+               "K1": {"K1": depth, "K3": layernorms}}
+    route_logits, route_counts = {}, {}
+    for name, r in routes16.items():
+        route_logits[name], route_counts[name] = drive(name, r, expects[name])
+        against_plain(name, route_logits[name], plain16_logits, cpu16)
+    check(torch.equal(route_logits["A"], route_logits["B"]) and torch.equal(route_logits["A"], route_logits["K1"]),
+          "sm16 routes A, B and K1 disagree")
+    shares16 = nonzero_probability_share(art16, images[:8], dev)
+    print(f"sm16 routes A, B, K1: equal logits; nonzero attention probabilities per block {shares16}; "
+          f"distinct argmax over {BATCH} images {int(route_logits['A'].argmax(-1).unique().numel())}; "
+          f"logit std {float(route_logits['A'].std())}")
 
     # 5. timing
-    iters = 10
-    ms128 = cuda_ms(lambda: infer(images_dev), iters)
-    plain_ms128 = cuda_ms(lambda: plain_infer(images_dev), iters)
-    print(f"engine batch {BATCH}: {ms128} ms/forward, {BATCH / ms128 * 1e3} images/s "
-          f"(plain ops: {plain_ms128} ms, {BATCH / plain_ms128 * 1e3} images/s)")
-    lat = []
-    for i in range(60):
-        t0 = time.perf_counter()
-        infer(images_dev[:1])
-        torch.cuda.synchronize()
-        if i >= 10:
-            lat.append((time.perf_counter() - t0) * 1e3)
-    lat.sort()
-    print(f"engine batch 1: median {lat[len(lat) // 2]} ms/image, min {lat[0]}, max {lat[-1]} "
-          f"(host clock, {len(lat)} runs); device {cuda_ms(lambda: infer(images_dev[:1]), 50)} ms/forward")
+    def engine_times(name: str, fn, plain_fn=None) -> None:
+        ms128 = cuda_ms(lambda: fn(images_dev), 10)
+        line = f"engine {name} batch {BATCH}: {ms128} ms/forward, {BATCH / ms128 * 1e3} images/s"
+        if plain_fn is not None:
+            p = cuda_ms(lambda: plain_fn(images_dev), 5)
+            line += f" (plain ops: {p} ms, {BATCH / p * 1e3} images/s)"
+        print(line)
+        lat = []
+        for i in range(60):
+            t1 = time.perf_counter()
+            fn(images_dev[:1])
+            torch.cuda.synchronize()
+            if i >= 10:
+                lat.append((time.perf_counter() - t1) * 1e3)
+        lat.sort()
+        print(f"engine {name} batch 1: median {lat[len(lat) // 2]} ms/image, min {lat[0]}, max {lat[-1]} "
+              f"(host clock, {len(lat)} runs); device {cuda_ms(lambda: fn(images_dev[:1]), 50)} ms/forward")
 
-    timings = {}
+    engine_times("main (sm8, K1+K3)", infer, plain8)
+    engine_times("A (sm16, K2+K4+K3)", routes16["A"], plain16)
+    engine_times("B (sm16, K6+K5+K3)", routes16["B"])
+    engine_times("K1 (sm16, K1+K3)", routes16["K1"])
+
+    timings, bounds = {}, {}
     for shape, x in k3_cases.items():
-        args = (x, blk0["norm1"]["bias_int"], blk0["norm1"]["ratio"])
-        timings[("K3", shape)] = paired_ms(
-            lambda: fused_layernorm_requant(*args), lambda: fused_layernorm_requant_reference(*args), 20
-        )
-    for shape, (q, k, v) in k1_inputs.items():
-        args = (q, k, v, a0["r1"], a0["scale"], a0["r_out"], 8)
-        timings[("K1", shape)] = paired_ms(
-            lambda: fused_int8_attention(*args), lambda: fused_int8_attention_reference(*args), 20
-        )
-    for (name, shape), (k_ms, p_ms) in timings.items():
-        print(f"{name} {shape}: kernel {k_ms} ms, plain {p_ms} ms, plain/kernel {p_ms / k_ms}")
+        args = (x, blk8["norm1"]["bias_int"], blk8["norm1"]["ratio"])
+        timings[("K3", shape)] = paired_ms(lambda: fused_layernorm_requant(*args),
+                                           lambda: fused_layernorm_requant_reference(*args), 20)
+        M = x.shape[0]
+        bounds[("K3", shape)] = bound_ms(M * D * 3 + 8 * D, elementwise=per_element(M * D, LAYERNORM_OPS))
+    for size, ins in attn_inputs.items():
+        for name, (q, k, v), a, bits, fn, ref in (
+            ("K1", ins["sm8"], blk8["attn"], 8, fused_int8_attention, fused_int8_attention_reference),
+            ("K2", ins["sm16"], blk16["attn"], 16, fused_int8_attention_v2, fused_int8_attention_v2_reference),
+        ):
+            args = (q, k, v, a["r1"], a["scale"], a["r_out"]) + ((N,) if name == "K2" else ()) + (bits,)
+            shape = f"({q.shape[0]}, {N}, {hd})"
+            timings[(name, shape)] = paired_ms(lambda: fn(*args), lambda: ref(*args), 20)
+            G = q.shape[0]
+            pv_products = 1 if bits == 8 else 2  # 16-bit probabilities: two int8 products
+            bounds[(name, shape)] = bound_ms(4 * G * N * hd, int8_ops=2 * G * N * N * hd * (1 + pv_products),
+                                             elementwise=per_element(G * N * N, SHIFTMAX_OPS))
+    for size, (x, r1, scale) in k6_inputs.items():
+        shape = f"({x.shape[0]}, {N})"
+        timings[("K6", shape)] = paired_ms(lambda: fused_requant_shiftmax(x, r1, scale, N),
+                                           lambda: fused_requant_shiftmax_reference(x, r1, scale, N), 10)
+        bounds[("K6", shape)] = bound_ms(x.numel() * 6, elementwise=per_element(x.numel(), SHIFTMAX_OPS, SPLIT_OPS))
+    library = {}
+    for size in x16:
+        args4, args5 = k4_inputs[size], k5_inputs[size]
+        M = args4[0].shape[0]
+        shape4, shape5 = f"({M}, {D}) x ({D}, {hidden})", f"({M}, {hidden})"
+        timings[("K4", shape4)] = paired_ms(lambda: fused_linear_shiftgelu(*args4),
+                                            lambda: fused_linear_shiftgelu_reference(*args4), 10)
+        bounds[("K4", shape4)] = bound_ms(M * D + D * hidden + 8 * hidden + M * hidden,
+                                          int8_ops=2 * M * D * hidden, elementwise=per_element(M * hidden, GELU_OPS))
+        w = fc1["w"]
+        y = args4[0] if M > 16 else torch.cat([args4[0], args4[0].new_zeros((17 - M, D))])
+        library[("K4", shape4)] = cuda_ms(lambda: torch._int_mm(y, w), 20)
+        timings[("K5", shape5)] = paired_ms(lambda: fused_requant_shiftgelu(*args5),
+                                            lambda: fused_requant_shiftgelu_reference(*args5), 10)
+        bounds[("K5", shape5)] = bound_ms(M * hidden * 5 + 4 * hidden, elementwise=per_element(M * hidden, GELU_OPS))
+    for key, (k_ms, p_ms) in timings.items():
+        b, by = bounds[key]
+        lib = f", torch._int_mm GEMM alone {library[key]} ms" if key in library else ""
+        print(f"{key[0]} {key[1]}: kernel {k_ms} ms, plain {p_ms} ms, plain/kernel {p_ms / k_ms}, "
+              f"bound {b} ms ({by}), bound/kernel {b / k_ms}{lib}")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        infer(images_dev)
-        torch.cuda.synchronize()
-    print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20))
+    def device_profile(name: str, batch: int, fn, rows: int) -> None:
+        """Device time by kernel over one profiled forward, and the idle
+        share: 1 − kernel time / wall time (host clock to synchronize)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            fn(images_dev[:batch])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA), reverse=True)
+        busy = sum(k[0] for k in kernels)
+        print(f"profile of one batch-{batch} forward, {name}: kernel time {busy} ms in {wall} ms wall, "
+              f"idle share {1 - busy / wall}, {sum(k[1] for k in kernels)} kernels")
+        for ms, calls, key in kernels[:rows]:
+            print(f"  {ms} ms ({ms / busy:.4f}) {calls} calls: {key[:150]}")
 
-    record = {"kernels": [
-        {"name": "K1 fused_int8_attention", "route": "cuda",
-         "source": "ivit_tpu_torch/csrc/attention_fused.cu",
-         "replaces": "ivit_tpu/kernels/attention_fused.py:126",
-         "launches": k1_launches, "max_abs_err": k1_err,
-         "ms": timings[("K1", "(768, 197, 64)")][0], "plain_ms": timings[("K1", "(768, 197, 64)")][1]},
-        {"name": "K3 fused_layernorm_requant", "route": "cuda",
-         "source": "ivit_tpu_torch/csrc/intnorm_fused.cu",
-         "replaces": "ivit_tpu/kernels/intnorm_fused.py:74",
-         "launches": k3_launches, "max_abs_err": k3_err,
-         "ms": timings[("K3", "(25216, 384)")][0], "plain_ms": timings[("K3", "(25216, 384)")][1]},
-    ]}
+    device_profile("main path", BATCH, infer, 12)
+    device_profile("route A", BATCH, routes16["A"], 20)
+    device_profile("route A", 1, routes16["A"], 0)
+    device_profile("route B", BATCH, routes16["B"], 12)
+
+    big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",
+           "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",
+           "K5": f"({BATCH * N}, {hidden})", "K6": f"({BATCH * H * N}, {N})"}
+    sources = {"K1": ("attention_fused.cu", "attention_fused.py:126"),
+               "K2": ("attention_fused_v2.cu", "attention_fused_v2.py:140"),
+               "K3": ("intnorm_fused.cu", "intnorm_fused.py:74"),
+               "K4": ("linear_gelu_fused.cu", "linear_gelu_fused.py:87"),
+               "K5": ("shiftgelu_fused.cu", "shiftgelu_fused.py:79"),
+               "K6": ("shiftmax_fused.cu", "shiftmax_fused.py:95")}
+    launches = {"K1": main_counts["K1"], "K3": main_counts["K3"], "K2": route_counts["A"]["K2"],
+                "K4": route_counts["A"]["K4"], "K5": route_counts["B"]["K5"], "K6": route_counts["B"]["K6"]}
+    record = {"kernels": []}
+    for name, fn in WRAPPERS.items():
+        key = (name, big[name])
+        src, tpu = sources[name]
+        record["kernels"].append({
+            "name": f"{name} {fn.__name__}", "route": "cuda",
+            "source": f"ivit_tpu_torch/csrc/{src}", "replaces": f"ivit_tpu/kernels/{tpu}",
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": timings[key][0], "plain_ms": timings[key][1],
+            "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "library_ms": library.get(key),
+        })
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,0 +1,204 @@
+// The fused integer attention kernel shared by K1 (attention_fused.cu) and
+// K2 (attention_fused_v2.cu), as one template with two value modes.
+//
+// Per batch*head g and query row i:
+//   s_ij  = q_i . k_j                        int8 x int8 -> int32 (__dp4a)
+//   z_ij  = clip(rint(float(s_ij) * r1), -128, 127)
+//   e_ij  = shift_exp(z_ij - max_j z_ij)     (K0, shiftmax_common.cuh)
+//   sm_ij = floor(e_ij * norm_factor(sum_j e_ij, out_bits))
+//   c_id  = sum_j sm_ij * v_jd
+//   out   = clip(rint(float(c_id) * r_out), -128, 127)  int8
+// The (N, N) scores never leave the SM.
+//
+// kV2=false is K1 (ivit_tpu/kernels/attention_fused.py): every shift-exp
+// guard kept, the row sum an exact 64-bit integer sum rounded once, and
+// the @V sum exact in int32. kV2=true is K2
+// (ivit_tpu/kernels/attention_fused_v2.py): the per-element clip of the
+// shift-exp elided, the row sum accumulated in int32 and rounded once,
+// and the @V sum accumulated in float32. Its wrapper enforces v2's gate
+// n_valid * ceil(1/scale) * 2^n < 2^31, under which the clip cannot bind
+// and the int32 sum cannot wrap; and since the probabilities of a row sum
+// to at most (2^31-1)/2^(32-out_bits) < 2^15 and |v| <= 128, every
+// partial sum of the f32 @V stays below 2^22 and is exact. The two modes
+// therefore give the same integers wherever K2's gate holds.
+//
+// Layout: q, k, v, out are (G, N, hd) int8, contiguous and unpadded. The
+// Pallas kernels pad N to 128 lanes and mask pad columns to probability
+// 0; leaving them out is value-identical. At out_bits=8 the
+// probabilities are <= 127 and at 16 <= 2^15, and the exact sum sm.v
+// equals the JAX kernel's base-256 split (256*hi@V + lo@V + 128*sum v),
+// so one loop serves both widths. The f32 conversion of the context
+// happens once, before the r_out multiply, as in the spec.
+//
+// Bound on the H100: N <= 256 (the same bound as the JAX kernels: the
+// exact row sum there is a two-limb f32 sum, equal to an exact integer
+// sum rounded once up to 256 columns). HBM traffic is only q, k, v in and
+// the context out; the bound is on-chip work, 2*N*hd integer MACs per
+// row. K and V of one head (2*N*hd bytes, 25 KB for DeiT-S) are staged
+// once per block in shared memory and reused by every row the block owns;
+// Q.K^T uses __dp4a (4 MACs per instruction) on 4-byte words, with the K
+// rows padded by one word so 32 lanes reading 32 different rows hit 32
+// different banks. One warp owns one query row at a time: its scores sit
+// in registers (8 per lane), its probabilities in a per-warp shared row.
+// The @V loop issues two shared-memory loads per MAC and is what limits
+// this first version; int8 tensor-core MMA (mma.sync / wgmma) for both
+// products is later work. The TPU's per-image grid of K2 (all heads in
+// one 1.4 MB VMEM scratch) does not carry over to a 227 KB block: both
+// modes grid over batch*head x row tiles.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "shiftmax_common.cuh"
+
+namespace ivit {
+
+constexpr int kAttnWarps = 8;
+constexpr int kAttnMaxN = 256;
+
+template <bool kV2>
+__global__ void __launch_bounds__(kAttnWarps * 32)
+fused_attention_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
+                       const int8_t* __restrict__ v, int8_t* __restrict__ out, int N, int hd,
+                       int rows_per_block, float r1, float scale, float r_out, float n,
+                       int out_bits) {
+  constexpr int kColsPerLane = kAttnMaxN / 32;
+  extern __shared__ int smem[];
+  const int words = hd / 4;
+  const int kstride = words + 1;
+  int* sK = smem;                            // N x kstride words
+  int* sV = sK + N * kstride;                // N x words (int8 x hd)
+  int* sP = sV + N * words;                  // kAttnWarps x kAttnMaxN probabilities
+  int* sQ = sP + kAttnWarps * kAttnMaxN;     // kAttnWarps x words
+  const int8_t* sV8 = reinterpret_cast<const int8_t*>(sV);
+
+  const size_t head = static_cast<size_t>(blockIdx.x) * N * hd;
+  const int* k32 = reinterpret_cast<const int*>(k + head);
+  const int* v32 = reinterpret_cast<const int*>(v + head);
+  for (int i = threadIdx.x; i < N * words; i += blockDim.x) {
+    const int row = i / words;
+    sK[row * kstride + (i - row * words)] = k32[i];
+    sV[i] = v32[i];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const float x0 = shift_exp_x0(scale);
+  int* myP = sP + warp * kAttnMaxN;
+  int* myQ = sQ + warp * words;
+  const int row_begin = static_cast<int>(blockIdx.y) * rows_per_block;
+  const int row_end = min(N, row_begin + rows_per_block);
+
+  for (int row = row_begin + warp; row < row_end; row += kAttnWarps) {
+    const int* q32 = reinterpret_cast<const int*>(q + head + static_cast<size_t>(row) * hd);
+    for (int w = lane; w < words; w += 32) myQ[w] = q32[w];
+    __syncwarp();
+
+    // scores -> requant to the int8 softmax input -> row max
+    float z[kColsPerLane];
+    float zmax = -128.0f;  // the requantized scores lie in [-128, 127]
+#pragma unroll
+    for (int t = 0; t < kColsPerLane; ++t) {
+      const int j = lane + 32 * t;
+      z[t] = 0.0f;
+      if (j < N) {
+        const int* kr = sK + j * kstride;
+        int acc = 0;
+        for (int w = 0; w < words; ++w) acc = __dp4a(myQ[w], kr[w], acc);
+        const float zz = fminf(fmaxf(rintf(static_cast<float>(acc) * r1), -128.0f), 127.0f);
+        z[t] = zz;
+        zmax = fmaxf(zmax, zz);
+      }
+    }
+    zmax = warp_max(zmax);
+
+    // shift-exp and its row sum, rounded once to f32
+    float esum_f;
+    if constexpr (kV2) {
+      int esum = 0;
+#pragma unroll
+      for (int t = 0; t < kColsPerLane; ++t) {
+        if (lane + 32 * t < N) {
+          z[t] = shift_exp<false>(z[t] - zmax, x0, n);
+          esum += static_cast<int>(z[t]);
+        }
+      }
+      esum_f = static_cast<float>(warp_sum_i32(esum));
+    } else {
+      unsigned long long esum = 0;
+#pragma unroll
+      for (int t = 0; t < kColsPerLane; ++t) {
+        if (lane + 32 * t < N) {
+          z[t] = shift_exp(z[t] - zmax, x0, n);
+          esum += static_cast<unsigned long long>(z[t]);
+        }
+      }
+      esum_f = __ull2float_rn(warp_sum_u64(esum));
+    }
+    const float factor = norm_factor(esum_f, out_bits);
+#pragma unroll
+    for (int t = 0; t < kColsPerLane; ++t) {
+      const int j = lane + 32 * t;
+      if (j < N) myP[j] = static_cast<int>(floorf(z[t] * factor));
+    }
+    __syncwarp();
+
+    // probabilities @ V, then requant to the int8 context
+    int8_t* orow = out + head + static_cast<size_t>(row) * hd;
+    for (int d = lane; d < hd; d += 32) {
+      float c;
+      if constexpr (kV2) {
+        float acc = 0.0f;
+        for (int j = 0; j < N; ++j) {
+          acc += static_cast<float>(myP[j]) * static_cast<float>(sV8[j * hd + d]);
+        }
+        c = acc;
+      } else {
+        int acc = 0;
+        for (int j = 0; j < N; ++j) acc += myP[j] * static_cast<int>(sV8[j * hd + d]);
+        c = static_cast<float>(acc);
+      }
+      orow[d] = static_cast<int8_t>(fminf(fmaxf(rintf(c * r_out), -128.0f), 127.0f));
+    }
+    __syncwarp();  // myQ / myP are rewritten by the warp's next row
+  }
+}
+
+// Launches one mode on `stream`. Returns cudaGetLastError() (0 on success).
+template <bool kV2>
+int launch_fused_attention(const void* q, const void* k, const void* v, void* out, int G, int N,
+                           int hd, float r1, float scale, float r_out, int n, int out_bits,
+                           void* stream) {
+  if (G < 1 || N < 1 || N > kAttnMaxN || hd < 4 || hd % 4 != 0 || hd > 256 ||
+      (out_bits != 8 && out_bits != 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // enough blocks to cover the SMs at small batch: split each head's rows
+  int rows_per_block = 32;
+  while (rows_per_block > kAttnWarps &&
+         static_cast<long long>(G) * ((N + rows_per_block - 1) / rows_per_block) < 264) {
+    rows_per_block /= 2;
+  }
+  const int words = hd / 4;
+  const size_t smem =
+      sizeof(int) * (static_cast<size_t>(N) * (words + 1) + static_cast<size_t>(N) * words +
+                     kAttnWarps * kAttnMaxN + kAttnWarps * words);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_attention_kernel<kV2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid(G, (N + rows_per_block - 1) / rows_per_block);
+  fused_attention_kernel<kV2><<<grid, kAttnWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
+      static_cast<int8_t*>(out), N, hd, rows_per_block, r1, scale, r_out, static_cast<float>(n),
+      out_bits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ivit

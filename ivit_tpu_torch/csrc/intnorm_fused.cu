@@ -33,12 +33,6 @@ namespace {
 
 constexpr int kWarps = 8;
 
-__device__ __forceinline__ int warp_sum_i32(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __global__ void __launch_bounds__(kWarps * 32)
 fused_layernorm_requant_kernel(const int16_t* __restrict__ x, const float* __restrict__ bias_int,
                                const float* __restrict__ ratio, int8_t* __restrict__ out, int M,
@@ -63,15 +57,15 @@ fused_layernorm_requant_kernel(const int16_t* __restrict__ x, const float* __res
       s_ab += a * b;
     }
   }
-  s_q = warp_sum_i32(s_q);
-  s_bb = warp_sum_i32(s_bb);
+  s_q = ivit::warp_sum_i32(s_q);
+  s_bb = ivit::warp_sum_i32(s_bb);
   float sq2;
   if (merged) {
-    s_t = warp_sum_i32(s_t);
+    s_t = ivit::warp_sum_i32(s_t);
     sq2 = static_cast<float>(s_t) * 512.0f + static_cast<float>(s_bb);
   } else {
-    s_aa = warp_sum_i32(s_aa);
-    s_ab = warp_sum_i32(s_ab);
+    s_aa = ivit::warp_sum_i32(s_aa);
+    s_ab = ivit::warp_sum_i32(s_ab);
     sq2 = static_cast<float>(s_aa) * 65536.0f + static_cast<float>(s_ab) * 512.0f +
           static_cast<float>(s_bb);
   }

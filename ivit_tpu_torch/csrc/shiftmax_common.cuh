@@ -1,4 +1,5 @@
-// K0: shared Shiftmax building blocks for the fused attention kernels.
+// K0: shared Shiftmax building blocks for the fused attention and softmax
+// kernels (K1, K2, K6) and the shift-exp of the GELU kernels (K4, K5).
 //
 // Replaces ivit_tpu/kernels/_shiftmax_common.py (exp2i, shift_exp_rows,
 // exact_rowsum_2limb, norm_factor), which the Pallas kernels inline. The
@@ -32,15 +33,18 @@ __device__ __forceinline__ float shift_exp_x0(float scale) {
   return floorf(-1.0f / scale);
 }
 
-// The shift-exp chain for one row-max-subtracted score z <= 0 (every
-// guard kept: the clamp to n*x0 and the clip to [0, 2^31-1]).
+// The shift-exp chain for one integer score z, usually row-max-subtracted
+// (z <= 0), with every guard kept: the clamp to n*x0 and the clip to
+// [0, 2^31-1]. kClip=false elides the clip, which is value-identical only
+// where the caller proves p*2^n <= 2^31-1 with p = -x0 (K2's gate).
+template <bool kClip = true>
 __device__ __forceinline__ float shift_exp(float z, float x0, float n) {
   z = z + floorf(z / 2.0f) - floorf(z / 16.0f);
   z = fmaxf(z, n * x0);
   const float qt = floorf(z / x0);
   const float r = z - x0 * qt;
   const float e = floorf((r - 2.0f * x0) * exp2i(n - 1.0f - qt));
-  return fminf(fmaxf(e, 0.0f), kI32Max);
+  return kClip ? fminf(fmaxf(e, 0.0f), kI32Max) : e;
 }
 
 // Per-row normalization factor with the 2^-(32-out_bits) shift folded in
@@ -56,6 +60,12 @@ __device__ __forceinline__ float norm_factor(float esum, int out_bits) {
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum_i32(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 

@@ -10,8 +10,10 @@ or builds a seeded stand-in (``deploy.synthetic``).
 every requantization ratio once, in float32 tensor ops in the order the
 JAX engine's XLA path divides them on its device
 (``ivit_tpu/deploy/engine.py:126, 381, 395-398, 622, 740``). The fused
-attention ratios ``r1``/``r_out`` and the softmax input scale come back
-as Python floats holding float32 values (kernel arguments).
+attention ratios ``r1``/``r_out``, the softmax input scale, and the GELU
+input scale ``s_in`` and output ratio ``r2`` also come back as Python
+floats holding float32 values (kernel arguments); fc1 also carries its
+weight K-contiguous as ``w_t`` (C, K), the layout K4 reads.
 """
 
 from __future__ import annotations
@@ -100,7 +102,11 @@ def validate_artifact(artifact: dict) -> None:
 
 def artifact_to_torch(artifact: dict, device) -> dict:
     """Carry a frozen artifact onto ``device``: int8 weights (K, N),
-    int32 biases, float32 scales and the precomputed float32 ratios."""
+    int32 biases, float32 scales and the precomputed float32 ratios.
+    Raises ``RuntimeError`` for a CUDA device on a machine without one."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
     validate_artifact(artifact)
     cfg = dict(artifact["config"])
     D, H = cfg["embed_dim"], cfg["num_heads"]
@@ -145,6 +151,9 @@ def artifact_to_torch(artifact: dict, device) -> dict:
     for blk in artifact["blocks"]:
         s = {name: f32(blk[name]) for name in _BLOCK_SCALARS}
         sa1, ssm = s["s_attn_qact1"], s["s_attn_sm_in"]
+        gelu_ratio = div(s["s_gelu_in"] * g_shift, s["s_gelu_out"])
+        fc1 = linear(blk["fc1"], s["s_gelu_in"])
+        fc1["w_t"] = fc1["w"].T.contiguous()  # K-contiguous for K4
         blocks.append({
             "norm1": norm(blk["norm1"], s["s_qact1"]),
             "qkv": linear(blk["qkv"], sa1),
@@ -157,9 +166,9 @@ def artifact_to_torch(artifact: dict, device) -> dict:
             "res1": {"branch": dev(div(s["s_attn_proj"], s["s_res1"])),
                      "skip": dev(div(s_x, s["s_res1"]))},
             "norm2": norm(blk["norm2"], s["s_qact3"]),
-            "fc1": linear(blk["fc1"], s["s_gelu_in"]),
-            "gelu": {"scale": dev(s["s_gelu_in"]),
-                     "ratio": dev(div(s["s_gelu_in"] * g_shift, s["s_gelu_out"]))},
+            "fc1": fc1,
+            "gelu": {"scale": dev(s["s_gelu_in"]), "ratio": dev(gelu_ratio),
+                     "s_in": float(s["s_gelu_in"]), "r2": float(gelu_ratio)},
             "fc2": linear(blk["fc2"], s["s_mlp_out"]),
             "res2": {"branch": dev(div(s["s_mlp_out"], s["s_res2"])),
                      "skip": dev(div(s["s_res1"], s["s_res2"]))},

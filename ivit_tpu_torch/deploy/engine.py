@@ -1,24 +1,52 @@
 """Integer-only ViT inference engine (PyTorch).
 
-Counterpart of ``ivit_tpu/deploy/engine.py:build_vit_infer``, the
-pure-XLA path's arithmetic, with two kernels in place of its attention
-and LayerNorm chains:
+Counterpart of ``ivit_tpu/deploy/engine.py:build_vit_infer``: the
+pure-XLA path's arithmetic, with the JAX engine's kernel selection
+(``pallas_ops``) as ``kernels=``, by the same names:
 
-* every I-LayerNorm → requant runs through K3
-  (``kernels.fused_layernorm_requant``): 2·depth + 1 launches a forward;
-* every attention (int8 Q·Kᵀ → requant → Shiftmax → @V → requant) runs
-  through K1 (``kernels.fused_int8_attention``): depth launches a forward,
-  at every batch size.
+* ``"layernorm"``: every I-LayerNorm → requant runs through K3
+  (``kernels.fused_layernorm_requant``), 2·depth + 1 launches a forward;
+* ``"attention"``: every attention (int8 Q·Kᵀ → requant → Shiftmax →
+  @V → requant) runs through K1 (``kernels.fused_int8_attention``);
+* ``"attention2"``: the same chain through K2
+  (``kernels.fused_int8_attention_v2``, v2's value semantics);
+* ``"softmax"``: int8 Q·Kᵀ, then K6 (``kernels.fused_requant_shiftmax``)
+  into the base-256 (hi, lo) split, then two @V products and the rank-1
+  ``128·Σv`` term, exact;
+* ``"linear_gelu"``: the fc1 GEMM with the requant → row-max ShiftGELU
+  → requant chain as its epilogue, K4 (``kernels.fused_linear_shiftgelu``);
+* ``"gelu"``: the fc1 GEMM, then that chain through K5
+  (``kernels.fused_requant_shiftgelu``).
 
-The GEMMs (patch embed, qkv, proj, fc1, fc2, head) lie outside every
-Pallas kernel in JAX too (XLA int8 ``dot_general``); here they are
-``torch._int_mm`` (int8 → int32) with their requant, ShiftGELU and
-residual epilogues as plain tensor ops. The residual stream is int16.
+Each attention and GELU kernel launches depth times a forward, at every
+batch size. The default is ``("attention", "layernorm")``. Precedence is
+the JAX engine's (``ivit_tpu/deploy/engine.py:204-209``): ``attention``
+over ``attention2`` over ``softmax``, and ``linear_gelu`` over ``gelu``.
+Where one of JAX's gates would turn a requested kernel off, the engine
+raises ``ValueError`` at build time instead, so that a launch count
+proves each requested kernel ran: ``softmax`` at 8-bit probabilities
+(it splits 16-bit ones); either GELU kernel under ``gelu_stable`` (they
+run the row-max form only); more than 256 tokens with any attention
+kernel (the exact row-sum bound); and, with ``attention2``, a block
+whose softmax input scale fails K2's gate.
+
+JAX's ``attn_v_mode`` has no counterpart: "f32" and "exact" give the
+same integers (a row's probabilities sum to less than 2^15 and
+|v| ≤ 128, so every partial sum of the @V stays below 2^22, exact in
+float32 in any order), and the plain path runs one exact @V for both.
+
+The GEMMs (patch embed, qkv, proj, fc1 outside K4, fc2, head) lie
+outside every Pallas kernel in JAX too (XLA int8 ``dot_general``); here
+they are ``torch._int_mm`` (int8 → int32) with their requant and
+residual epilogues as plain tensor ops. So are the ``softmax`` route's
+Q·Kᵀ and @V products, in float64 (exact: |q·k| ≤ 2^20, and each @V
+partial sum is below 2^22): torch has no batched int8 matmul on CUDA,
+and a float32 product could run in TF32. The residual stream is int16.
 The only float op is the final logit dequantization.
 
-Not ported: ``attn_v_mode="f32"``, ``strict_dyadic``, ``pallas_ops``
-selection, and the TPU layout/HBM probes and XLA barriers. Models with
-more than 256 tokens raise (the K1 bound); there is no fallback.
+Entry points run on the card unless the caller passes ``device="cpu"``,
+where each kernel's wrapper runs its plain version. Not ported:
+``strict_dyadic`` and the TPU layout/HBM probes and XLA barriers.
 """
 
 from __future__ import annotations
@@ -28,16 +56,53 @@ import torch
 from ..kernels import (
     fused_int8_attention,
     fused_int8_attention_reference,
+    fused_int8_attention_v2,
     fused_layernorm_requant,
     fused_layernorm_requant_reference,
+    fused_linear_shiftgelu,
+    fused_requant_shiftgelu,
+    fused_requant_shiftmax,
 )
 from ..kernels.attention_fused import MAX_TOKENS
+from ..kernels.attention_fused_v2 import scale_gate
 from ..ops import INT8, INT16, requant, shiftgelu
-from ..ops.interp import div
+from ..ops.interp import div, f32
 from .artifact import artifact_to_torch
+
+KERNEL_NAMES = ("attention", "attention2", "softmax", "gelu", "linear_gelu", "layernorm")
+DEFAULT_KERNELS = ("attention", "layernorm")
+_ATTENTION_KERNELS = {"attention", "attention2", "softmax"}
 
 # torch._int_mm on CUDA takes only more than 16 rows
 _INT_MM_MIN_ROWS = 17
+
+
+def select_kernels(cfg: dict, kernels=DEFAULT_KERNELS) -> frozenset:
+    """The kernels a model of config ``cfg`` runs when ``kernels`` are
+    asked for: the JAX engine's precedence; raises ``ValueError`` where a
+    gate turns a requested kernel off (module docstring)."""
+    unknown = set(kernels) - set(KERNEL_NAMES)
+    if unknown:
+        raise ValueError(f"unknown kernels {sorted(unknown)}; known: {KERNEL_NAMES}")
+    on = set(kernels)
+    if "attention" in on:
+        on -= {"attention2", "softmax"}
+    elif "attention2" in on:
+        on.discard("softmax")
+    if "linear_gelu" in on:
+        on.discard("gelu")
+    if "softmax" in on and int(cfg["softmax_bits"]) == 8:
+        raise ValueError("softmax: K6 splits 16-bit probabilities; this model has softmax_bits=8")
+    gelus = sorted(on & {"gelu", "linear_gelu"})
+    if gelus and cfg["gelu_stable"]:
+        raise ValueError(f"{gelus}: the GELU kernels run the row-max ShiftGELU; this model has gelu_stable=True")
+    n_tokens = (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
+    if on & _ATTENTION_KERNELS and n_tokens > MAX_TOKENS:
+        raise ValueError(
+            f"N={n_tokens} tokens exceeds the fused attention bound of {MAX_TOKENS} "
+            f"(kernels {sorted(on & _ATTENTION_KERNELS)})"
+        )
+    return frozenset(on)
 
 
 def int8_linear(x: torch.Tensor, layer: dict) -> torch.Tensor:
@@ -51,8 +116,8 @@ def int8_linear(x: torch.Tensor, layer: dict) -> torch.Tensor:
     return acc + layer["b"]
 
 
-def _layernorm(x: torch.Tensor, norm: dict, use_kernels: bool) -> torch.Tensor:
-    fn = fused_layernorm_requant if use_kernels else fused_layernorm_requant_reference
+def _layernorm(x: torch.Tensor, norm: dict, kernels: frozenset) -> torch.Tensor:
+    fn = fused_layernorm_requant if "layernorm" in kernels else fused_layernorm_requant_reference
     return fn(x, norm["bias_int"], norm["ratio"])
 
 
@@ -79,12 +144,12 @@ def embed(images: torch.Tensor, t: dict) -> torch.Tensor:
     return x.to(torch.int16)
 
 
-def attention_inputs(x: torch.Tensor, blk: dict, num_heads: int, use_kernels: bool = True):
+def attention_inputs(x: torch.Tensor, blk: dict, num_heads: int, kernels=DEFAULT_KERNELS):
     """LayerNorm → qkv GEMM → requant → head split of the int16 stream
     (B, N, C); returns contiguous int8 q, k, v of shape (B·H, N, hd)."""
     B, N, C = x.shape
     hd = C // num_heads
-    y = _layernorm(x.reshape(B * N, C), blk["norm1"], use_kernels)
+    y = _layernorm(x.reshape(B * N, C), blk["norm1"], kernels)
     qkv = blk["qkv"]
     z = requant(int8_linear(y, qkv), qkv["ratio"], *INT8).to(torch.int8)
     z = z.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4).contiguous()
@@ -92,57 +157,103 @@ def attention_inputs(x: torch.Tensor, blk: dict, num_heads: int, use_kernels: bo
     return z[0], z[1], z[2]
 
 
-def vit_block(x: torch.Tensor, blk: dict, cfg: dict, use_kernels: bool = True) -> torch.Tensor:
-    """One pre-norm transformer block on the int16 stream (B, N, C)."""
+def split_softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, a: dict) -> torch.Tensor:
+    """The ``"softmax"`` route on (G, N, hd) int8 q, k, v at 16-bit
+    probabilities (``ivit_tpu/deploy/engine.py:473-497, 566-580``): int8
+    Q·Kᵀ, K6 into (hi, lo), then ``256·hi@V + lo@V + 128·Σv`` exact in
+    int32, and the int8 requant."""
+    G, N, _ = q.shape
+    vd = v.to(torch.float64)
+    scores = torch.matmul(q.to(torch.float64), k.to(torch.float64).transpose(-1, -2))
+    hi, lo = fused_requant_shiftmax(
+        scores.to(torch.int32).view(G * N, N), a["r1"], a["scale"], N, out_bits=16
+    )
+    ctx_hi = torch.matmul(hi.view(G, N, N).to(torch.float64), vd).to(torch.int32)
+    ctx_lo = torch.matmul(lo.view(G, N, N).to(torch.float64), vd).to(torch.int32)
+    v_sum = v.to(torch.int32).sum(1, keepdim=True, dtype=torch.int32)
+    ctx = 256 * ctx_hi + ctx_lo + 128 * v_sum
+    return requant(ctx, f32(a["r_out"], q.device), *INT8).to(torch.int8)
+
+
+def _attention(q, k, v, a: dict, bits: int, kernels: frozenset) -> torch.Tensor:
+    if "attention" in kernels:
+        return fused_int8_attention(q, k, v, a["r1"], a["scale"], a["r_out"], bits)
+    if "attention2" in kernels:
+        return fused_int8_attention_v2(q, k, v, a["r1"], a["scale"], a["r_out"], q.shape[1], bits)
+    if "softmax" in kernels:
+        return split_softmax_attention(q, k, v, a)
+    return fused_int8_attention_reference(q, k, v, a["r1"], a["scale"], a["r_out"], bits)
+
+
+def _mlp_hidden(y: torch.Tensor, blk: dict, cfg: dict, kernels: frozenset) -> torch.Tensor:
+    """fc1 GEMM → requant → ShiftGELU → requant: the int8 fc2 input."""
+    fc1, gelu = blk["fc1"], blk["gelu"]
+    if "linear_gelu" in kernels:
+        return fused_linear_shiftgelu(y, fc1["w_t"].T, fc1["b"], fc1["ratio"], gelu["s_in"], gelu["r2"])
+    acc = int8_linear(y, fc1)
+    if "gelu" in kernels:
+        return fused_requant_shiftgelu(acc, fc1["ratio"], gelu["s_in"], gelu["r2"])
+    g, _ = shiftgelu(requant(acc, fc1["ratio"], *INT8), gelu["scale"], out_bits=8,
+                     stable=bool(cfg["gelu_stable"]))
+    return requant(g, gelu["ratio"], *INT8).to(torch.int8)
+
+
+def attention_half(x: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNELS) -> torch.Tensor:
+    """The attention half of a block on the int16 stream (B, N, C):
+    returns the (B·N, C) int16 stream after the first residual."""
     B, N, C = x.shape
     H = cfg["num_heads"]
-    q, k, v = attention_inputs(x, blk, H, use_kernels)
-    attn = fused_int8_attention if use_kernels else fused_int8_attention_reference
-    a = blk["attn"]
-    ctx = attn(q, k, v, a["r1"], a["scale"], a["r_out"], out_bits=int(cfg["softmax_bits"]))
+    q, k, v = attention_inputs(x, blk, H, kernels)
+    ctx = _attention(q, k, v, blk["attn"], int(cfg["softmax_bits"]), kernels)
     ctx = ctx.reshape(B, H, N, C // H).permute(0, 2, 1, 3).reshape(B * N, C)
-
     proj = blk["proj"]
     branch = requant(int8_linear(ctx, proj), proj["ratio"], *INT16)
-    x = _residual(branch, x.reshape(B * N, C), blk["res1"])
+    return _residual(branch, x.reshape(B * N, C), blk["res1"])
 
-    y = _layernorm(x, blk["norm2"], use_kernels)
-    fc1 = blk["fc1"]
-    gq = requant(int8_linear(y, fc1), fc1["ratio"], *INT8)
-    g, _ = shiftgelu(gq, blk["gelu"]["scale"], out_bits=8, stable=bool(cfg["gelu_stable"]))
-    g8 = requant(g, blk["gelu"]["ratio"], *INT8).to(torch.int8)
+
+def vit_block(x: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNELS) -> torch.Tensor:
+    """One pre-norm transformer block on the int16 stream (B, N, C)."""
+    h = attention_half(x, blk, cfg, kernels)
+    g8 = _mlp_hidden(_layernorm(h, blk["norm2"], kernels), blk, cfg, kernels)
     fc2 = blk["fc2"]
     m = requant(int8_linear(g8, fc2), fc2["ratio"], *INT16)
-    return _residual(m, x, blk["res2"]).reshape(B, N, C)
+    return _residual(m, h, blk["res2"]).reshape(x.shape)
 
 
-def build_vit_infer(artifact: dict, device="cpu", use_kernels: bool = True):
+def build_vit_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS):
     """Build the int8 inference function: NHWC float images → logits.
 
-    ``artifact`` is a ``freeze_vit`` dict (numpy arrays). On a CUDA
-    ``device`` the attention and LayerNorm chains launch K1 and K3;
-    ``use_kernels=False`` runs their plain torch versions instead (the
-    oracle, like the JAX engine's ``use_pallas=False``). On the CPU both
-    run the plain versions.
+    ``artifact`` is a ``freeze_vit`` dict (numpy arrays). ``kernels``
+    names the chains that run through hand-written kernels (module
+    docstring); ``kernels=()`` is the plain path, the oracle, like the
+    JAX engine's ``use_pallas=False``. The engine runs on the card unless
+    ``device`` says otherwise, and raises if there is none; on the CPU
+    every kernel's wrapper runs its plain version. The kernels in use are
+    ``infer.kernels``.
     """
     t = artifact_to_torch(artifact, device)
     cfg = t["config"]
-    n_tokens = (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
-    if n_tokens > MAX_TOKENS:
-        raise ValueError(
-            f"N={n_tokens} tokens exceeds the fused attention bound of {MAX_TOKENS}"
-        )
+    active = select_kernels(cfg, kernels)
+    if "attention2" in active:
+        n_tokens = (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
+        for i, blk in enumerate(t["blocks"]):
+            if not scale_gate(n_tokens, blk["attn"]["scale"]):
+                raise ValueError(
+                    f"attention2: block {i}'s softmax input scale {blk['attn']['scale']} fails "
+                    f"K2's gate N*ceil(1/scale)*2^15 < 2^31 at N={n_tokens}"
+                )
 
     @torch.inference_mode()
     def infer(images: torch.Tensor) -> torch.Tensor:
         x = embed(images.to(device=device, dtype=torch.float32), t)
         for blk in t["blocks"]:
-            x = vit_block(x, blk, cfg, use_kernels)
+            x = vit_block(x, blk, cfg, active)
         # final norm on the CLS rows only (row-wise: the other rows'
         # values never reach the head)
-        y = _layernorm(x[:, 0].contiguous(), t["norm"], use_kernels)
+        y = _layernorm(x[:, 0].contiguous(), t["norm"], active)
         head = t["head"]
         return int8_linear(y, head).to(torch.float32) * head["out_scale"]
 
     infer.tensors = t
+    infer.kernels = active
     return infer

@@ -209,19 +209,19 @@ def synthetic_vit_artifact(
     return a
 
 
-def nonzero_probability_share(artifact: dict, images: torch.Tensor, device="cpu") -> list[float]:
+def nonzero_probability_share(artifact: dict, images: torch.Tensor, device="cuda") -> list[float]:
     """Per block, the share of attention probabilities that are nonzero
-    when the plain engine runs ``images`` — a degeneracy check: at 8-bit
-    probabilities, a diffuse row floors to all zeros."""
+    when the plain engine runs ``images`` on ``device`` — a degeneracy
+    check: at 8-bit probabilities, a diffuse row floors to all zeros."""
     t = artifact_to_torch(artifact, device)
     cfg = t["config"]
     shares = []
     with torch.inference_mode():
         x = embed(images.to(device=device, dtype=torch.float32), t)
         for blk in t["blocks"]:
-            q, k, _ = attention_inputs(x, blk, cfg["num_heads"], use_kernels=False)
+            q, k, _ = attention_inputs(x, blk, cfg["num_heads"], kernels=())
             a = blk["attn"]
             sm = attention_probabilities(q, k, a["r1"], a["scale"], int(cfg["softmax_bits"]))
             shares.append(float((sm > 0).to(torch.float32).mean()))
-            x = vit_block(x, blk, cfg, use_kernels=False)
+            x = vit_block(x, blk, cfg, kernels=())
     return shares

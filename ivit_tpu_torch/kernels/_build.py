@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Counterpart of ``ivit_tpu/native/build.py``: ``nvcc`` compiles every
-``csrc/*.cu`` for Hopper (``sm_90a``) into one shared library with a
-plain C interface, which is loaded with ``ctypes``. It builds at first
-use into ``build/`` at the repository root (listed in ``.gitignore``)
-and rebuilds when a source or header is newer than the library.
+Counterpart of ``ivit_tpu/native/build.py``: ``nvcc`` compiles each
+``csrc/*.cu`` for Hopper (``sm_90a``) into its own shared library with a
+plain C interface, which is loaded with ``ctypes``. The compilers run in
+parallel, one process per source, all started together. Libraries are
+built at first use into ``build/`` at the repository root (listed in
+``.gitignore``), and one is rebuilt when its source or any header is
+newer than it.
 
 The flags are part of the numerics: ``-fmad=false`` keeps nvcc from
 contracting ``a*b+c`` into one FMA (which rounds once instead of twice),
@@ -20,13 +22,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-LIB = os.path.join(BUILD_DIR, "libivit_tpu_torch_kernels.so")
-SOURCES = ("attention_fused.cu", "intnorm_fused.cu")
-HEADERS = ("shiftmax_common.cuh",)
+HEADERS = ("shiftmax_common.cuh", "attention_fused.cuh", "gelu_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -36,13 +37,39 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# name -> argtypes of each C entry point (all return cudaError_t as int)
+# source -> {C entry point: argtypes}; every entry point returns cudaError_t as int
 _ENTRY_POINTS = {
-    # q, k, v, out, G, N, hd, r1, scale, r_out, n, out_bits, stream
-    "ivit_fused_int8_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P),
-    # x, bias_int, ratio, out, M, C, stream
-    "ivit_fused_layernorm_requant": (_P, _P, _P, _P, _I, _I, _P),
+    "attention_fused.cu": {
+        # q, k, v, out, G, N, hd, r1, scale, r_out, n, out_bits, stream
+        "ivit_fused_int8_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P),
+    },
+    "attention_fused_v2.cu": {
+        # q, k, v, out, G, N, hd, r1, scale, r_out, n, out_bits, stream
+        "ivit_fused_int8_attention_v2": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P),
+    },
+    "intnorm_fused.cu": {
+        # x, bias_int, ratio, out, M, C, stream
+        "ivit_fused_layernorm_requant": (_P, _P, _P, _P, _I, _I, _P),
+    },
+    "shiftgelu_fused.cu": {
+        # x, r1, out, M, C, s_in, r2, n, stream
+        "ivit_fused_requant_shiftgelu": (_P, _P, _P, _I, _I, _F, _F, _I, _P),
+    },
+    "linear_gelu_fused.cu": {
+        # x, w_t, b, r1, out, M, K, C, s_in, r2, n, stream
+        "ivit_fused_linear_shiftgelu": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
+    },
+    "shiftmax_fused.cu": {
+        # x, hi, lo, M, N, n_valid, r1, scale, n, out_bits, stream
+        "ivit_fused_requant_shiftmax": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
+    },
 }
+SOURCES = tuple(_ENTRY_POINTS)
+
+
+def lib_path(source: str) -> str:
+    """The shared library built from ``csrc/<source>``."""
+    return os.path.join(BUILD_DIR, f"libivit_{os.path.splitext(source)[0]}.so")
 
 
 def nvcc_path() -> str:
@@ -54,53 +81,66 @@ def nvcc_path() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def nvcc_command(out_path: str = LIB, nvcc: str | None = None) -> list[str]:
-    """The nvcc command line that builds the kernel library."""
-    srcs = [os.path.join(CSRC, s) for s in SOURCES]
-    return [nvcc or nvcc_path(), *NVCC_FLAGS, "-o", out_path, *srcs]
+def nvcc_command(source: str, out_path: str, nvcc: str | None = None) -> list[str]:
+    """The nvcc command line that builds ``source`` into ``out_path``."""
+    return [nvcc or nvcc_path(), *NVCC_FLAGS, "-o", out_path, os.path.join(CSRC, source)]
 
 
-def _stale() -> bool:
-    if not os.path.exists(LIB):
+def _stale(source: str) -> bool:
+    lib = lib_path(source)
+    if not os.path.exists(lib):
         return True
-    built = os.path.getmtime(LIB)
-    return any(
-        os.path.getmtime(os.path.join(CSRC, f)) > built for f in SOURCES + HEADERS
-    )
+    built = os.path.getmtime(lib)
+    return any(os.path.getmtime(os.path.join(CSRC, f)) > built for f in (source, *HEADERS))
 
 
-def build(force: bool = False) -> str:
-    """Compile the kernels if the library is missing or stale; returns its
-    path. The library is written under a temporary name and renamed, so a
-    concurrent loader never sees a partial file."""
-    if not force and not _stale():
-        return LIB
+def build(force: bool = False) -> list[str]:
+    """Compile every missing or stale library, all nvcc processes at once;
+    returns the library paths. Each library is written under a temporary
+    name and renamed, so a concurrent loader never sees a partial file."""
+    todo = [s for s in SOURCES if force or _stale(s)]
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = nvcc_command(tmp)
+    jobs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, LIB)
+        for source in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = nvcc_command(source, tmp)
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((source, tmp, cmd, proc))
+        failed = []
+        for source, tmp, cmd, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+            else:
+                os.replace(tmp, lib_path(source))
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return LIB
+        for _, tmp, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return [lib_path(s) for s in SOURCES]
 
 
 @functools.cache
-def load() -> ctypes.CDLL:
-    """Build if needed, then load the library once per process."""
-    lib = ctypes.CDLL(build())
-    for name, argtypes in _ENTRY_POINTS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+def load() -> types.SimpleNamespace:
+    """Build if needed, then load every library once per process; returns
+    the C entry points as attributes."""
+    build()
+    fns = {}
+    for source, entry_points in _ENTRY_POINTS.items():
+        lib = ctypes.CDLL(lib_path(source))
+        for name, argtypes in entry_points.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return types.SimpleNamespace(**fns)
 
 
 def check(err: int, name: str) -> None:

@@ -1,7 +1,7 @@
 """K0: the shared in-kernel Shiftmax building blocks, plain torch twin.
 
 Counterpart of ``ivit_tpu/kernels/_shiftmax_common.py``. The CUDA form is
-``csrc/shiftmax_common.cuh``, inlined into K1 (and later K2, K6, K7);
+``csrc/shiftmax_common.cuh``, inlined into K1, K2 and K6 (and later K7);
 the functions here state the same arithmetic on tensors, element for
 element, so the header can be read against them. ``exact_rowsum_2limb``
 is what the CUDA side computes as an exact 64-bit integer sum rounded
@@ -18,16 +18,21 @@ from ..ops.interp import I32_MAX, div, exp2_int
 exp2i = exp2_int
 
 
-def shift_exp_rows(z: torch.Tensor, scale: torch.Tensor, n: int, valid: torch.Tensor) -> torch.Tensor:
+def shift_exp_rows(
+    z: torch.Tensor, scale: torch.Tensor, n: int, valid: torch.Tensor, clip_e: bool = True
+) -> torch.Tensor:
     """The shift-exp chain on row-max-subtracted integer scores ``z``
-    (≤ 0); columns where ``valid`` is False come out as exactly 0."""
+    (≤ 0); columns where ``valid`` is False come out as exactly 0.
+    ``clip_e=False`` elides the per-element clip to [0, 2^31−1], which is
+    value-identical only under K2's gate (``p·2^n ≤ 2^31−1``)."""
     z = z + torch.floor(z / 2.0) - torch.floor(z / 16.0)
     x0 = torch.floor(div(-1.0, scale))
     z = torch.maximum(z, n * x0)
     qt = torch.floor(div(z, x0))
     r = z - x0 * qt
     e = torch.floor((r - 2.0 * x0) * exp2i(n - 1.0 - qt))
-    e = torch.clamp(e, 0.0, I32_MAX)
+    if clip_e:
+        e = torch.clamp(e, 0.0, I32_MAX)
     return torch.where(valid, e, torch.zeros_like(e))
 
 

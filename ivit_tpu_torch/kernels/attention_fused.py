@@ -29,14 +29,11 @@ from __future__ import annotations
 import torch
 
 from ..ops import INT8, requant, shiftmax
+from ..ops.interp import f32
 from . import _build
 
 MAX_TOKENS = 256
 SHIFTMAX_N = 15  # the shift-exp precision of the attention Shiftmax
-
-
-def _f32(value: float, device) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=device)
 
 
 def attention_probabilities(
@@ -46,8 +43,8 @@ def attention_probabilities(
     at scale ``1/2^(out_bits−1)``: int8 Q·Kᵀ, requant by ``r1`` into the
     softmax input scale ``scale``, then Shiftmax."""
     attn = torch.matmul(q.to(torch.float64), k.to(torch.float64).transpose(-1, -2))
-    a8 = requant(attn.to(torch.int32), _f32(r1, q.device), *INT8)
-    sm, _ = shiftmax(a8, _f32(scale, q.device), out_bits=out_bits, n=SHIFTMAX_N)
+    a8 = requant(attn.to(torch.int32), f32(r1, q.device), *INT8)
+    sm, _ = shiftmax(a8, f32(scale, q.device), out_bits=out_bits, n=SHIFTMAX_N)
     return sm
 
 
@@ -63,7 +60,7 @@ def fused_int8_attention_reference(
     """Plain torch K1 on (G, N, hd) int8 q, k, v; returns int8 (G, N, hd)."""
     sm = attention_probabilities(q, k, r1, scale, out_bits)
     ctx = torch.matmul(sm.to(torch.float64), v.to(torch.float64))
-    return requant(ctx.to(torch.int32), _f32(r_out, q.device), *INT8).to(torch.int8)
+    return requant(ctx.to(torch.int32), f32(r_out, q.device), *INT8).to(torch.int8)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out_bits: int) -> None:

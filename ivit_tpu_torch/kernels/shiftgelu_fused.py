@@ -1,0 +1,69 @@
+"""K5: fused per-channel requant → row-max ShiftGELU → requant to int8.
+
+Replaces ``ivit_tpu/kernels/shiftgelu_fused.py:fused_requant_shiftgelu``
+(``pl.pallas_call`` at :79). The CUDA kernel is
+``csrc/shiftgelu_fused.cu`` on the shared chain of
+``csrc/gelu_common.cuh``: one warp per row (the row max spans every
+channel), 16-byte vector loads, the int32 accumulator read from HBM
+once. It is bound by HBM bytes: 4 B in and 1 B out per element.
+
+``fused_requant_shiftgelu_reference`` is the plain version (``ops.requant``
+then the ``_gelu_common`` twin); the wrapper runs it for CPU tensors and
+launches the kernel for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import INT8, requant
+from . import _build
+from ._gelu_common import GELU_N, shiftgelu_rowmax_requant
+
+
+def fused_requant_shiftgelu_reference(
+    x: torch.Tensor, r1: torch.Tensor, s_in: float, r2: float
+) -> torch.Tensor:
+    """Plain torch K5 on the (M, C) int32 accumulator; returns int8 (M, C)."""
+    return shiftgelu_rowmax_requant(requant(x, r1, *INT8), s_in, r2)
+
+
+def _check(x: torch.Tensor, r1: torch.Tensor) -> None:
+    if x.dtype != torch.int32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous (M, C) int32 tensor, got {tuple(x.shape)} {x.dtype}")
+    M, C = x.shape
+    if M < 1 or C < 4 or C % 4:
+        raise ValueError(f"x shape {tuple(x.shape)}: need M >= 1 and C a multiple of 4 (16-byte loads)")
+    if r1.dtype != torch.float32 or r1.shape != (C,) or not r1.is_contiguous():
+        raise ValueError(f"r1 must be a contiguous ({C},) float32 tensor, got {tuple(r1.shape)} {r1.dtype}")
+    if r1.device != x.device:
+        raise ValueError(f"r1 is on {r1.device}, x on {x.device}")
+
+
+def fused_requant_shiftgelu(x: torch.Tensor, r1: torch.Tensor, s_in: float, r2: float) -> torch.Tensor:
+    """x: (M, C) int32 fc1 accumulator; ``r1``: (C,) float32 per-channel
+    ratio into the int8 GELU input scale ``s_in``; ``r2``: ratio from the
+    GELU output scale (``s_in/2^7``) to the fc2 input scale. ``s_in`` and
+    ``r2`` are float32 values (a Python float is rounded to float32).
+    Returns int8 (M, C)."""
+    _check(x, r1)
+    if x.device.type == "cpu":
+        return fused_requant_shiftgelu_reference(x, r1, s_in, r2)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.data_ptr() % 16 or r1.data_ptr() % 16:
+        raise ValueError("x and r1 must start on 16-byte boundaries (the kernel loads 16-byte vectors)")
+    lib = _build.load()
+    M, C = x.shape
+    out = torch.empty((M, C), dtype=torch.int8, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.ivit_fused_requant_shiftgelu(
+            x.data_ptr(), r1.data_ptr(), out.data_ptr(), M, C, s_in, r2, GELU_N, stream
+        )
+    _build.check(err, "fused_requant_shiftgelu")
+    fused_requant_shiftgelu.launches += 1
+    return out
+
+
+fused_requant_shiftgelu.launches = 0

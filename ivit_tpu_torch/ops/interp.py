@@ -39,3 +39,9 @@ def div(num, den) -> torch.Tensor:
     if not isinstance(den, torch.Tensor):
         den = torch.tensor(den, dtype=torch.float32, device=like.device)
     return torch.div(num, den)
+
+
+def f32(value: float, device) -> torch.Tensor:
+    """A float32 scalar tensor on ``device`` (a Python float is rounded
+    to float32, as a kernel's float argument is)."""
+    return torch.tensor(value, dtype=torch.float32, device=device)

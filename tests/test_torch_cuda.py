@@ -17,10 +17,19 @@ import torch
 from ivit_tpu_torch.deploy.engine import build_vit_infer
 from ivit_tpu_torch.deploy.synthetic import synthetic_vit_artifact
 from ivit_tpu_torch.kernels import (
+    WRAPPERS,
     fused_int8_attention,
     fused_int8_attention_reference,
+    fused_int8_attention_v2,
+    fused_int8_attention_v2_reference,
     fused_layernorm_requant,
     fused_layernorm_requant_reference,
+    fused_linear_shiftgelu,
+    fused_linear_shiftgelu_reference,
+    fused_requant_shiftgelu,
+    fused_requant_shiftgelu_reference,
+    fused_requant_shiftmax,
+    fused_requant_shiftmax_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -85,4 +94,108 @@ def test_engine_kernel_path_matches_cpu(dev, softmax_bits, gelu_stable):
     torch.cuda.synchronize()
     assert fused_int8_attention.launches - k1 == 2
     assert fused_layernorm_requant.launches - k3 == 5
-    torch.testing.assert_close(logits.cpu(), build_vit_infer(artifact)(images), rtol=0, atol=0)
+    torch.testing.assert_close(logits.cpu(), build_vit_infer(artifact, "cpu")(images), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("out_bits", [8, 16])
+@pytest.mark.parametrize("shape", [(6, 197, 64), (3, 256, 128), (5, 17, 8)])
+def test_attention_v2_kernel_matches_reference(dev, shape, out_bits):
+    qkv, ratios = _attention_case(*shape, out_bits, seed=10 + out_bits)
+    N = shape[1]
+    before = fused_int8_attention_v2.launches
+    out = fused_int8_attention_v2(*(a.to(dev) for a in qkv), *ratios, N, out_bits)
+    torch.cuda.synchronize()
+    assert fused_int8_attention_v2.launches == before + 1
+    ref = fused_int8_attention_v2_reference(*qkv, *ratios, N, out_bits)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+    # under K2's gate: K1's integers
+    torch.testing.assert_close(ref, fused_int8_attention_reference(*qkv, *ratios, out_bits), rtol=0, atol=0)
+
+
+def _gelu_case(M, C, seed):
+    """int32 accumulators with an all-negative row and rows at the int8 clip
+    edges, and per-channel ratios that spread the rest over int8."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-(2**20), 2**20, (M, C)).astype(np.int32)
+    r1 = (rng.uniform(0.5, 2.0, (C,)) * 1e-4).astype(np.float32)
+    x[0] = -np.abs(x[0]) - 1
+    if M > 2:
+        x[1, ::2], x[1, 1::2] = 2**30, -(2**30)
+        x[2] = -(2**30)
+    return torch.from_numpy(x), torch.from_numpy(r1)
+
+
+GELU_SCALES = (float(np.float32(0.031)), float(np.float32(0.7)))
+
+
+@pytest.mark.parametrize("shape", [(197, 1536), (33, 256), (5, 100)])
+def test_shiftgelu_kernel_matches_reference(dev, shape):
+    x, r1 = _gelu_case(*shape, seed=shape[1])
+    before = fused_requant_shiftgelu.launches
+    out = fused_requant_shiftgelu(x.to(dev), r1.to(dev), *GELU_SCALES)
+    torch.cuda.synchronize()
+    assert fused_requant_shiftgelu.launches == before + 1
+    ref = fused_requant_shiftgelu_reference(x, r1, *GELU_SCALES)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(197, 384, 1536), (64, 48, 128), (45, 100, 200)])
+def test_linear_gelu_kernel_matches_reference(dev, shape):
+    M, K, C = shape
+    rng = np.random.default_rng(M)
+    x = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8))
+    w_t = torch.from_numpy(rng.integers(-128, 128, (C, K)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-(2**15), 2**15, (C,)).astype(np.int32))
+    # ratios that spread x@w (std ~ 74^2 * sqrt(K)) over about a third of int8
+    r1 = torch.from_numpy((rng.uniform(0.5, 2.0, (C,)) * 40.0 / (74.0**2 * np.sqrt(K))).astype(np.float32))
+    x[0] = 0
+    args = (b, r1, *GELU_SCALES)
+    before = fused_linear_shiftgelu.launches
+    out = fused_linear_shiftgelu(x.to(dev), w_t.to(dev).T, *(a.to(dev) for a in args[:2]), *GELU_SCALES)
+    torch.cuda.synchronize()
+    assert fused_linear_shiftgelu.launches == before + 1
+    ref = fused_linear_shiftgelu_reference(x, w_t.T, *args)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+    assert ref.unique().numel() > 20
+
+
+@pytest.mark.parametrize("shape", [(1182, 197, 197), (64, 256, 200), (7, 5, 5)])
+def test_shiftmax_kernel_matches_reference(dev, shape):
+    M, N, n_valid = shape
+    rng = np.random.default_rng(N)
+    x = rng.integers(-(2**20), 2**20, (M, N)).astype(np.int32)
+    x[0] = 0
+    x[1, 0] = 2**30
+    x = torch.from_numpy(x)
+    r1, scale = float(np.float32(3.1e-5)), float(np.float32(0.021))
+    before = fused_requant_shiftmax.launches
+    hi, lo = fused_requant_shiftmax(x.to(dev), r1, scale, n_valid)
+    torch.cuda.synchronize()
+    assert fused_requant_shiftmax.launches == before + 1
+    rhi, rlo = fused_requant_shiftmax_reference(x, r1, scale, n_valid)
+    torch.testing.assert_close(hi.cpu(), rhi, rtol=0, atol=0)
+    torch.testing.assert_close(lo.cpu(), rlo, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "kernels,counts",
+    [
+        (("layernorm", "attention2", "linear_gelu"), {"K2": 2, "K4": 2, "K3": 5}),
+        (("layernorm", "softmax", "gelu"), {"K6": 2, "K5": 2, "K3": 5}),
+    ],
+    ids=["A", "B"],
+)
+def test_engine_sm16_routes_match_cpu(dev, kernels, counts):
+    artifact = synthetic_vit_artifact(
+        "deit_tiny", seed=1, softmax_bits=16, gelu_stable=False,
+        img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2, num_classes=16,
+    )
+    images = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 32, 32, 3)).astype(np.float32))
+    infer = build_vit_infer(artifact, dev, kernels=kernels)
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    logits = infer(images)
+    torch.cuda.synchronize()
+    assert {name: fn.launches for name, fn in WRAPPERS.items() if fn.launches} == counts
+    cpu = build_vit_infer(artifact, "cpu", kernels=())(images)
+    torch.testing.assert_close(logits.cpu(), cpu, rtol=0, atol=0)

@@ -29,7 +29,9 @@ def _imported_roots(path):
 
 def test_package_has_modules():
     files = set(_py_files())
-    for f in ("deploy/engine.py", "kernels/attention_fused.py", "kernels/intnorm_fused.py"):
+    for f in ("deploy/engine.py", "kernels/attention_fused.py", "kernels/intnorm_fused.py",
+              "kernels/attention_fused_v2.py", "kernels/linear_gelu_fused.py",
+              "kernels/shiftgelu_fused.py", "kernels/shiftmax_fused.py", "kernels/_gelu_common.py"):
         assert f in files
 
 

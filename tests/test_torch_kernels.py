@@ -1,11 +1,18 @@
 """Port kernels' plain versions ≡ the JAX Pallas kernels (interpret mode)
 and the JAX XLA composition, bit for bit (tolerance 0), on the CPU; the
-wrappers' input checks; the nvcc build line.
+wrappers' input checks; the nvcc build lines.
+
+The Pallas GELU kernels (K4, K5) form ``s_in·1.702`` and the softmax
+kernels (K2, K6) ``−1/scale`` in float64 at trace time, the XLA ops and
+the port in float32; every scale used here is float32-valued and one at
+which the floors of the two quotients agree (``_same_x0`` asserts it).
 
 The CUDA kernels themselves run only on a GPU: their tests are in
 ``tests/test_torch_cuda.py``, which imports no JAX.
 """
 
+import ctypes
+import math
 import os
 
 import jax.numpy as jnp
@@ -14,17 +21,31 @@ import pytest
 import torch
 
 from ivit_tpu.kernels import fused_layernorm_requant as jax_fused_layernorm_requant
+from ivit_tpu.kernels import fused_requant_shiftgelu as jax_fused_requant_shiftgelu
+from ivit_tpu.kernels import fused_requant_shiftmax as jax_fused_requant_shiftmax
 from ivit_tpu.kernels import _shiftmax_common as jax_k0
 from ivit_tpu.kernels.attention_fused import fused_int8_attention as jax_fused_int8_attention
+from ivit_tpu.kernels.attention_fused_v2 import fused_int8_attention_v2 as jax_fused_int8_attention_v2
+from ivit_tpu.kernels.linear_gelu_fused import fused_linear_shiftgelu as jax_fused_linear_shiftgelu
 from ivit_tpu.ops import DEPLOY
+from ivit_tpu.ops import shiftgelu as jax_shiftgelu
 from ivit_tpu.ops import shiftmax as jax_shiftmax
 from ivit_tpu_torch.kernels import (
     _build,
+    _gelu_common,
     _shiftmax_common as k0,
     fused_int8_attention,
     fused_int8_attention_reference,
+    fused_int8_attention_v2,
+    fused_int8_attention_v2_reference,
     fused_layernorm_requant,
     fused_layernorm_requant_reference,
+    fused_linear_shiftgelu,
+    fused_linear_shiftgelu_reference,
+    fused_requant_shiftgelu,
+    fused_requant_shiftgelu_reference,
+    fused_requant_shiftmax,
+    fused_requant_shiftmax_reference,
 )
 
 
@@ -172,13 +193,255 @@ def test_k0_twin_matches_jax(out_bits):
 def test_cuda_sources_and_build_line():
     for f in _build.SOURCES + _build.HEADERS:
         assert os.path.isfile(os.path.join(_build.CSRC, f)), f
-    cmd = " ".join(_build.nvcc_command("/tmp/x.so", nvcc="nvcc"))
-    assert cmd.startswith(
-        "nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false "
-        "-shared -Xcompiler -fPIC -o /tmp/x.so "
-    )
-    assert "--use_fast_math" not in cmd
-    assert cmd.endswith("csrc/attention_fused.cu " + os.path.join(_build.CSRC, "intnorm_fused.cu"))
+    assert set(_build.SOURCES) == {
+        "attention_fused.cu", "attention_fused_v2.cu", "intnorm_fused.cu",
+        "linear_gelu_fused.cu", "shiftgelu_fused.cu", "shiftmax_fused.cu",
+    }
+    for source in _build.SOURCES:
+        cmd = " ".join(_build.nvcc_command(source, "/tmp/x.so", nvcc="nvcc"))
+        assert cmd == (
+            "nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false "
+            f"-shared -Xcompiler -fPIC -o /tmp/x.so {os.path.join(_build.CSRC, source)}"
+        )
+        assert _build.lib_path(source).startswith(_build.BUILD_DIR)
+    # every pointer argument is a c_void_p (a c_int would cut it to 32 bits)
+    for entry_points in _build._ENTRY_POINTS.values():
+        for name, argtypes in entry_points.items():
+            assert argtypes[-1] is ctypes.c_void_p, name  # the stream
+            assert argtypes.count(ctypes.c_void_p) >= 3, name
     # the build directory is ignored by git
     gitignore = open(os.path.join(os.path.dirname(_build.CSRC), "..", ".gitignore")).read()
     assert "build/" in gitignore.split()
+
+
+# ---- K5 / K4: the row-max ShiftGELU chain (n = 23) ----------------------
+
+
+def _same_x0(scale_f32, factor=1.0):
+    """The Pallas kernels' float64 x0 equals the float32 one at this scale."""
+    s64 = float(scale_f32) * factor
+    s32 = np.float32(scale_f32) * np.float32(factor)
+    assert math.floor(-1.0 / s64) == math.floor(float(np.float32(-1.0) / s32))
+
+
+def _gelu_rows(M, C, seed):
+    """int32 fc1 accumulators (M, C) and per-channel ratios: spread rows, an
+    all-negative row, and rows pinned at the int8 clip edges."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-(2**20), 2**20, (M, C)).astype(np.int32)
+    r1 = (rng.uniform(0.5, 2.0, (C,)) * 1e-4).astype(np.float32)
+    x[0] = -np.abs(x[0]) - 1  # all negative: e_max saturates
+    x[1, ::2], x[1, 1::2] = 2**30, -(2**30)  # +127 / −128
+    x[2] = -(2**30)  # all −128
+    return x, r1
+
+
+S_IN, R2 = float(np.float32(0.031)), float(np.float32(0.7))
+
+
+def _jax_gelu_xla(q, s_in, r2):
+    g, _ = jax_shiftgelu(jnp.asarray(q), jnp.float32(s_in), out_bits=8, interp=DEPLOY)
+    return np.clip(np.round(np.asarray(g) * np.float32(r2)), -128, 127).astype(np.int8)
+
+
+@pytest.mark.parametrize("s_in", [0.0021, 0.031, 0.4, 1.9])
+def test_gelu_twin_matches_jax_ops(s_in):
+    s_in = float(np.float32(s_in))
+    rng = np.random.default_rng(7)
+    q = rng.integers(-128, 128, (6, 96)).astype(np.float32)
+    q[0] = -np.abs(q[0]) - 1
+    q[1] = -128.0
+    q[2] = 127.0
+    ours = _gelu_common.shiftgelu_rowmax_requant(_t(q), s_in, R2).numpy()
+    np.testing.assert_array_equal(ours, _jax_gelu_xla(q, s_in, R2))
+
+
+def test_shiftgelu_reference_matches_jax_kernel():
+    M, C = 48, 256
+    x, r1 = _gelu_rows(M, C, 2)
+    _same_x0(S_IN, 1.702)
+    ours = fused_requant_shiftgelu_reference(_t(x), _t(r1), S_IN, R2).numpy()
+    theirs = jax_fused_requant_shiftgelu(jnp.asarray(x), jnp.asarray(r1), S_IN, R2, out_bits=8, interpret=True)
+    np.testing.assert_array_equal(ours, np.asarray(theirs))
+    q = np.clip(np.round(x.astype(np.float32) * r1), -128, 127)
+    np.testing.assert_array_equal(ours, _jax_gelu_xla(q, S_IN, R2))
+    assert len(np.unique(ours)) > 20 and (ours[0] <= 0).all()
+    np.testing.assert_array_equal(fused_requant_shiftgelu(_t(x), _t(r1), S_IN, R2).numpy(), ours)
+
+
+def test_linear_gelu_reference_matches_jax_kernel():
+    M, K, C = 64, 48, 128  # the size of tests/test_kernels.py's K4 test
+    rng = np.random.default_rng(0)
+    x = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    w = rng.integers(-128, 128, (K, C)).astype(np.int8)
+    b = rng.integers(-(2**15), 2**15, (C,)).astype(np.int32)
+    r1 = (rng.uniform(0.5, 2.0, (C,)) * 1e-4).astype(np.float32)
+    x[0] = 0  # all-zero row: acc = b
+    x[1], w[:, :64] = 127, 127  # clips at the int8 edge
+    s_in, r2 = float(np.float32(0.031)), float(np.float32(0.52))
+    _same_x0(s_in, 1.702)
+    w_k = _t(np.ascontiguousarray(w.T)).T  # (K, C), K-contiguous
+    ours = fused_linear_shiftgelu_reference(_t(x), w_k, _t(b), _t(r1), s_in, r2).numpy()
+    theirs = jax_fused_linear_shiftgelu(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), jnp.asarray(r1),
+        s_in=s_in, r2=r2, out_bits=8, interpret=True,
+    )
+    np.testing.assert_array_equal(ours, np.asarray(theirs))
+    assert len(np.unique(ours)) > 20
+    np.testing.assert_array_equal(fused_linear_shiftgelu(_t(x), w_k, _t(b), _t(r1), s_in, r2).numpy(), ours)
+
+
+@pytest.mark.parametrize("case", ["int8_input", "odd_width", "r1_shape", "r1_dtype", "r1_device", "non_contiguous"])
+def test_shiftgelu_wrapper_rejects(case):
+    x, r1 = torch.zeros((4, 16), dtype=torch.int32), torch.ones(16)
+    if case == "int8_input":
+        x = x.to(torch.int8)
+    elif case == "odd_width":
+        x, r1 = torch.zeros((4, 18), dtype=torch.int32), torch.ones(18)
+    elif case == "r1_shape":
+        r1 = torch.ones(15)
+    elif case == "r1_dtype":
+        r1 = r1.double()
+    elif case == "r1_device":
+        r1 = r1.to("meta")
+    elif case == "non_contiguous":
+        x = torch.zeros((16, 4), dtype=torch.int32).T
+    with pytest.raises(ValueError):
+        fused_requant_shiftgelu(x, r1, S_IN, R2)
+
+
+@pytest.mark.parametrize("case", ["row_major_w", "k_mismatch", "k_not_multiple_of_4", "b_dtype", "r1_shape", "too_wide"])
+def test_linear_gelu_wrapper_rejects(case):
+    M, K, C = 4, 32, 16
+    x = torch.zeros((M, K), dtype=torch.int8)
+    w = torch.zeros((C, K), dtype=torch.int8).T
+    b, r1 = torch.zeros(C, dtype=torch.int32), torch.ones(C)
+    if case == "row_major_w":
+        w = torch.zeros((K, C), dtype=torch.int8)
+    elif case == "k_mismatch":
+        w = torch.zeros((C, K + 4), dtype=torch.int8).T
+    elif case == "k_not_multiple_of_4":
+        x, w = torch.zeros((M, 30), dtype=torch.int8), torch.zeros((C, 30), dtype=torch.int8).T
+    elif case == "b_dtype":
+        b = b.to(torch.int64)
+    elif case == "r1_shape":
+        r1 = torch.ones(C + 1)
+    elif case == "too_wide":
+        w, b, r1 = torch.zeros((8192, K), dtype=torch.int8).T, torch.zeros(8192, dtype=torch.int32), torch.ones(8192)
+    with pytest.raises(ValueError):
+        fused_linear_shiftgelu(x, w, b, r1, S_IN, R2)
+
+
+# ---- K6: requant → masked Shiftmax → (hi, lo) ---------------------------
+
+
+def _decode(hi, lo):
+    return 256 * np.asarray(hi, np.int32) + np.asarray(lo, np.int32) + 128
+
+
+@pytest.mark.parametrize("N,n_valid,out_bits", [(197, 197, 16), (40, 33, 16), (40, 40, 8)])
+def test_shiftmax_reference_matches_jax_kernel(N, n_valid, out_bits):
+    M, Npad = 24, 256
+    rng = np.random.default_rng(N + n_valid)
+    x = rng.integers(-(2**20), 2**20, (M, N)).astype(np.int32)
+    x[0] = 0  # a uniform row
+    x[1, :n_valid] = -(2**20)  # every valid score at −128
+    x[2, 0] = 2**30  # one-hot
+    r1, scale = float(np.float32(3.1e-5)), float(np.float32(0.021))
+    _same_x0(scale)
+    hi, lo = fused_requant_shiftmax_reference(_t(x), r1, scale, n_valid, out_bits)
+    jhi, jlo = jax_fused_requant_shiftmax(
+        jnp.asarray(np.pad(x, ((0, 0), (0, Npad - N)))), r1, scale,
+        n_valid=n_valid, out_bits=out_bits, interpret=True,
+    )
+    sm, jsm = _decode(hi.numpy(), lo.numpy()), _decode(jhi, jlo)
+    np.testing.assert_array_equal(sm, jsm[:, :N])
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi)[:, :N])
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo)[:, :N])
+    # masked and pad columns decode to exactly 0; the probabilities spread
+    assert (sm[:, n_valid:] == 0).all() and (jsm[:, N:] == 0).all()
+    assert len(np.unique(sm)) > (5 if out_bits == 8 else 20)
+    got = fused_requant_shiftmax(_t(x), r1, scale, n_valid, out_bits)
+    np.testing.assert_array_equal(got[0].numpy(), hi.numpy())
+    np.testing.assert_array_equal(got[1].numpy(), lo.numpy())
+
+
+@pytest.mark.parametrize("case", ["int8_input", "three_dims", "n_above_256", "n_valid_0", "n_valid_above_n", "out_bits_12"])
+def test_shiftmax_wrapper_rejects(case):
+    x, n_valid, bits = torch.zeros((4, 16), dtype=torch.int32), 16, 16
+    if case == "int8_input":
+        x = x.to(torch.int8)
+    elif case == "three_dims":
+        x = x.reshape(2, 2, 16)
+    elif case == "n_above_256":
+        x, n_valid = torch.zeros((2, 257), dtype=torch.int32), 257
+    elif case == "n_valid_0":
+        n_valid = 0
+    elif case == "n_valid_above_n":
+        n_valid = 17
+    elif case == "out_bits_12":
+        bits = 12
+    with pytest.raises(ValueError):
+        fused_requant_shiftmax(x, 1e-4, 0.05, n_valid, out_bits=bits)
+
+
+# ---- K2: fused attention, v2 value semantics ----------------------------
+
+
+@pytest.mark.parametrize("out_bits", [8, 16])
+def test_attention_v2_reference_matches_jax_kernel(out_bits):
+    B, H, N, hd, Mpad, Npad = 2, 3, 17, 8, 32, 128
+    q, k, v = _attention_inputs(B * H, N, hd, 10 + out_bits)
+    r1, scale, r_out = _ratios(hd, out_bits)
+    _same_x0(scale)
+    ours = fused_int8_attention_v2_reference(_t(q), _t(k), _t(v), r1, scale, r_out, N, out_bits).numpy()
+
+    def heads(a):
+        return a.reshape(B, H, N, hd)
+
+    qp = np.pad(heads(q), ((0, 0), (0, 0), (0, Mpad - N), (0, 0)))
+    kp = np.pad(heads(k).transpose(0, 1, 3, 2), ((0, 0), (0, 0), (0, 0), (0, Npad - N)))
+    vp = np.pad(heads(v), ((0, 0), (0, 0), (0, Npad - N), (0, 0)))
+    theirs = jax_fused_int8_attention_v2(
+        jnp.asarray(qp), jnp.asarray(kp), jnp.asarray(vp), r1=r1, scale=scale, r_out=r_out,
+        n_valid=N, out_bits=out_bits, interpret=True,
+    )
+    np.testing.assert_array_equal(ours, np.asarray(theirs)[:, :, :N].reshape(B * H, N, hd))
+    # under the gate v2's shortcuts are exact: K1's integers
+    k1 = fused_int8_attention_reference(_t(q), _t(k), _t(v), r1, scale, r_out, out_bits).numpy()
+    np.testing.assert_array_equal(ours, k1)
+    assert len(np.unique(ours)) > 20
+    got = fused_int8_attention_v2(_t(q), _t(k), _t(v), r1, scale, r_out, N, out_bits)
+    np.testing.assert_array_equal(got.numpy(), ours)
+
+
+def test_attention_v2_gate_raises():
+    N, hd, scale = 17, 8, 1e-4  # N * ceil(1/scale) * 2^15 = 5.6e9 > 2^31
+    q, k, v = _attention_inputs(2, N, hd, 3)
+    with pytest.raises(ValueError, match="gate"):
+        fused_int8_attention_v2(_t(q), _t(k), _t(v), 1e-3, scale, 1e-2, N, 16)
+    # the JAX kernel refuses the same scale
+    z = jnp.zeros((1, 1, 32, hd), jnp.int8)
+    with pytest.raises(AssertionError):
+        jax_fused_int8_attention_v2(
+            z, jnp.zeros((1, 1, hd, 128), jnp.int8), jnp.zeros((1, 1, 128, hd), jnp.int8),
+            r1=1e-3, scale=scale, r_out=1e-2, n_valid=N, out_bits=16, interpret=True,
+        )
+
+
+@pytest.mark.parametrize("case", ["int16_dtype", "shape_mismatch", "n_valid_short", "out_bits_12", "non_contiguous"])
+def test_attention_v2_wrapper_rejects(case):
+    q = torch.zeros((2, 17, 8), dtype=torch.int8)
+    k, v, n_valid, bits = q.clone(), q.clone(), 17, 16
+    if case == "int16_dtype":
+        q = q.to(torch.int16)
+    elif case == "shape_mismatch":
+        k = torch.zeros((2, 16, 8), dtype=torch.int8)
+    elif case == "n_valid_short":
+        n_valid = 16
+    elif case == "out_bits_12":
+        bits = 12
+    elif case == "non_contiguous":
+        v = torch.zeros((2, 8, 17), dtype=torch.int8).transpose(1, 2)
+    with pytest.raises(ValueError):
+        fused_int8_attention_v2(q, k, v, 1e-3, 0.07, 1e-2, n_valid, out_bits=bits)
