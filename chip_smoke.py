@@ -2,15 +2,20 @@
 """Smoke run of the PyTorch port (``ivit_tpu_torch``) on one NVIDIA GPU.
 
 Drives the port's paths through ``deploy.engine.build_vit_infer`` at the
-full width and depth of DeiT-S on seeded synthetic artifacts, and checks
-every hand-written kernel on them:
+full width and depth of DeiT-S and through
+``deploy.swin_engine.build_swin_infer`` at the full width and depth of
+Swin-T, on seeded synthetic artifacts, and checks every hand-written
+kernel on them:
 
 * the main path: softmax_bits=8, stable ShiftGELU, K1 attention + K3
   LayerNorm (the default kernels);
 * the reference-spec path: softmax_bits=16, row-max ShiftGELU, by three
   routes: A = K2 attention + K4 fc1-GEMM-with-GELU + K3; B = K6 Shiftmax
   into the base-256 split for the exact @V + K5 GELU + K3; and the K1 + K3 route as the
-  check that all three give equal logits.
+  check that all three give equal logits;
+* the Swin-T serving path (``synthetic_swin_artifact("swin_tiny")``,
+  row-max ShiftGELU as the JAX model defaults): K7 window attention + K3
+  LayerNorm (the Swin engine's default kernels).
 
 Phases:
 
@@ -23,21 +28,26 @@ Phases:
    values: K3 (25216, 384) / (197, 384); K1 and K2 (768, 197, 64) /
    (6, 197, 64) at out_bits 8 and 16; K4 (25216, 384) x (384, 1536) /
    (197, ...); K5 (25216, 1536) / (197, 1536); K6 (151296, 197) /
-   (1182, 197);
+   (1182, 197); K7 at each Swin-T stage's (B·nW·H, 49, 32) shape,
+   unshifted (block 0) and shifted with the window mask (block 1, stages
+   1-3), on the Swin path's own inputs and on random spread ones; K3 at
+   Swin-T's norm inputs, (401408, 96) to (6272, 1536) and their batch-1
+   rows;
 4. each path at batch 128 and batch 1, with every launch count set to 0
    just before it and read just after: logits bit-equal to the plain ops
    on the card, to the plain engine on the CPU (first two images), batch
    1 equal to row 0 of batch 128, and the launches per forward stated
-   (12 K1 + 25 K3; A: 12 K2 + 12 K4 + 25 K3; B: 12 K6 + 12 K5 + 25 K3);
-   at sm16, routes A, B and K1 give equal logits;
+   (12 K1 + 25 K3; A: 12 K2 + 12 K4 + 25 K3; B: 12 K6 + 12 K5 + 25 K3;
+   Swin-T: 12 K7 + 28 K3); at sm16, routes A, B and K1 give equal logits;
+   the nonzero share of the 8-bit attention probabilities per block;
 5. times (CUDA events after warm-up): each path's images/s at batch 128
    and ms/image at batch 1; each kernel beside its plain version and, for
    K4, ``torch._int_mm`` on the same GEMM (a partial yardstick the port
    never calls); each kernel's bound (the larger of its bytes over the
    HBM rate and its operations over the peak rates); device time by
    kernel and the device's idle share over one profiled forward
-   (torch.profiler): the main path, routes A and B at batch 128, and
-   route A at batch 1.
+   (torch.profiler): the main path, routes A and B and Swin-T at batch
+   128, and route A at batch 1.
 
 Any failed check raises and exits nonzero before the result lines. The
 second-to-last line is the kernels' JSON record, the last line
@@ -79,6 +89,8 @@ SHIFTMAX_OPS = (REQUANT_OPS[0] + 2 + SHIFT_EXP_OPS[0] + 2, SHIFT_EXP_OPS[1] + 1)
 SPLIT_OPS = (7, 0)       # div, floor, mul, sub, sub, 2 x saturate
 GELU_OPS = (2 * REQUANT_OPS[0] + 2 + SHIFT_EXP_OPS[0] + 9, SHIFT_EXP_OPS[1])  # max, sub; add, clip 2, div, floor, mul, div, floor, mul
 LAYERNORM_OPS = (10, 10)  # int32 split statistics; convert, sub, mul, div, floor, add, requant
+WINDOW_MERGE_OPS = (5, 0)  # K7's bias merge: mul, rint, add, max, min
+MASK_OPS = (1, 0)          # K7's shifted-window mask add
 
 
 def check(cond: bool, msg: str) -> None:
@@ -144,6 +156,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from ivit_tpu_torch.deploy.engine import attention_half, attention_inputs, build_vit_infer, embed, int8_linear
+    from ivit_tpu_torch.deploy.swin_engine import (
+        build_swin_infer,
+        merge_gather,
+        patch_embed,
+        swin_trunk,
+        window_attention_inputs,
+    )
+    from ivit_tpu_torch.deploy.swin_synthetic import swin_nonzero_probability_share, synthetic_swin_artifact
     from ivit_tpu_torch.deploy.synthetic import nonzero_probability_share, synthetic_vit_artifact
     from ivit_tpu_torch.kernels import (
         WRAPPERS,
@@ -152,6 +172,8 @@ def main() -> int:
         fused_int8_attention_reference,
         fused_int8_attention_v2,
         fused_int8_attention_v2_reference,
+        fused_int8_window_attention,
+        fused_int8_window_attention_reference,
         fused_layernorm_requant,
         fused_layernorm_requant_reference,
         fused_linear_shiftgelu,
@@ -163,6 +185,7 @@ def main() -> int:
     )
     from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
     from ivit_tpu_torch.kernels.attention_fused_v2 import scale_gate
+    from ivit_tpu_torch.kernels.window_attention_fused import window_attention_probabilities
 
     # 1. the card
     smi = subprocess.run(
@@ -201,7 +224,12 @@ def main() -> int:
         "B": build_vit_infer(art16, dev, kernels=ROUTE_B),
         "K1": build_vit_infer(art16, dev),
     }
-    for name, r in [("main", infer), *routes16.items()]:
+    t0 = time.perf_counter()
+    art_swin = synthetic_swin_artifact("swin_tiny", seed=SEED)
+    scfg = art_swin["config"]
+    print(f"artifact: synthetic swin_tiny seed={SEED} {scfg} in {time.perf_counter() - t0:.3f} s")
+    swin = build_swin_infer(art_swin, dev)  # the Swin path: its default kernels, K7 + K3
+    for name, r in [("main", infer), *routes16.items(), ("swin", swin)]:
         print(f"route {name}: kernels {sorted(r.kernels)}")
     scales = [b["attn"]["scale"] for b in routes16["A"].tensors["blocks"]]
     print(f"K2 gate N*ceil(1/scale)*2^15 < 2^31 at N={N}: softmax input scales {scales}, "
@@ -303,6 +331,49 @@ def main() -> int:
             compare("K5", f"({M}, {hidden}) {data}", fused_requant_shiftgelu(*args),
                     fused_requant_shiftgelu_reference(*args))
 
+    # K7 and K3 on the Swin path's own inputs at batch 128 and batch 1:
+    # each stage's block 0 (unshifted) and block 1 (shifted, masked in
+    # stages 1-3) window q, k, v, and the norm inputs of each stage's
+    # first block and of each patch merging
+    ts = swin.tensors
+    where = {}
+    for i, st in enumerate(ts["stages"]):
+        where.update({id(b): (i, j) for j, b in enumerate(st["blocks"])})
+        if "downsample" in st:
+            where[id(st["downsample"])] = (i, "merge")
+    window_inputs, swin_norm_inputs = {}, {}
+    for size, imgs in (("b128", images_dev), ("b1", images_dev[:1])):
+        def visit(layer, x, size=size):
+            i, j = where[id(layer)]
+            if j == "merge":
+                swin_norm_inputs[(size, f"merge {i + 1}")] = (merge_gather(x, layer["res"]), layer["norm"])
+                return
+            if j == 0:
+                swin_norm_inputs[(size, f"stage {i + 1}")] = (x.reshape(-1, x.shape[-1]), layer["norm1"])
+            if j < 2:
+                window_inputs[(size, i, j)] = (layer, window_attention_inputs(x, layer, kernels=()))
+
+        with torch.inference_mode():
+            swin_trunk(patch_embed(imgs, ts), ts, (), on_layer=visit)
+    for (size, label), (x, norm) in swin_norm_inputs.items():
+        args = (x, norm["bias_int"], norm["ratio"])
+        compare("K3", f"Swin-T {label} {tuple(x.shape)}", fused_layernorm_requant(*args),
+                fused_layernorm_requant_reference(*args))
+    spread_r1_w = float(np.float32(127.0 / (3 * np.sqrt(32) * 74.0**2)))
+
+    def window_shape(q, a) -> str:
+        return f"({', '.join(map(str, q.shape))}) {'masked' if a['mask'] is not None else 'unmasked'}"
+
+    for (size, i, j), (blk, (q, k, v)) in window_inputs.items():
+        a, heads = blk["attn"], blk["heads"]
+        rand = [torch.randint(-128, 128, q.shape, generator=gen, dtype=torch.int8).to(dev) for _ in range(3)]
+        for data, (qq, kk, vv), r1 in (("Swin-T block inputs", (q, k, v), a["r1"]), ("random", rand, spread_r1_w)):
+            args = (qq, kk, vv, a["bias"], a["mask"], r1, a["rb"], a["scale"], a["r_out"], heads)
+            probs = window_attention_probabilities(qq, kk, a["bias"], a["mask"], r1, a["rb"], a["scale"], heads)
+            label = (f"stage {i + 1} block {j} {window_shape(q, a)} {data}, "
+                     f"nonzero probabilities {float((probs > 0).float().mean())}")
+            compare("K7", label, fused_int8_window_attention(*args), fused_int8_window_attention_reference(*args))
+
     # 4. each path end to end, its launch counts read around its own run
     def drive(name: str, fn, expect: dict) -> tuple:
         for w in WRAPPERS.values():
@@ -356,6 +427,16 @@ def main() -> int:
           f"distinct argmax over {BATCH} images {int(route_logits['A'].argmax(-1).unique().numel())}; "
           f"logit std {float(route_logits['A'].std())}")
 
+    swin_blocks = sum(scfg["depths"])
+    swin_norms = 2 * swin_blocks + len(scfg["depths"])  # two per block, one per merging, the final norm
+    swin_logits, swin_counts = drive("swin", swin, {"K7": swin_blocks, "K3": swin_norms})
+    swin_plain = build_swin_infer(art_swin, dev, kernels=())
+    against_plain("swin", swin_logits, swin_plain(images_dev), build_swin_infer(art_swin, "cpu", kernels=())(images[:2]))
+    shares_swin = swin_nonzero_probability_share(art_swin, images[:8], dev)
+    print(f"non-degeneracy (swin): nonzero 8-bit window attention probabilities per block {shares_swin}; "
+          f"distinct argmax over {BATCH} images {int(swin_logits.argmax(-1).unique().numel())}; "
+          f"logit std {float(swin_logits.std())}")
+
     # 5. timing
     def engine_times(name: str, fn, plain_fn=None) -> None:
         ms128 = cuda_ms(lambda: fn(images_dev), 10)
@@ -379,6 +460,7 @@ def main() -> int:
     engine_times("A (sm16, K2+K4+K3)", routes16["A"], plain16)
     engine_times("B (sm16, K6+K5+K3)", routes16["B"])
     engine_times("K1 (sm16, K1+K3)", routes16["K1"])
+    engine_times("swin (Swin-T, K7+K3)", swin, swin_plain)
 
     timings, bounds = {}, {}
     for shape, x in k3_cases.items():
@@ -399,6 +481,26 @@ def main() -> int:
             pv_products = 1 if bits == 8 else 2  # 16-bit probabilities: two int8 products
             bounds[(name, shape)] = bound_ms(4 * G * N * hd, int8_ops=2 * G * N * N * hd * (1 + pv_products),
                                              elementwise=per_element(G * N * N, SHIFTMAX_OPS))
+    for (size, label), (x, norm) in swin_norm_inputs.items():
+        args = (x, norm["bias_int"], norm["ratio"])
+        shape = f"{tuple(x.shape)} Swin-T {label}"
+        timings[("K3", shape)] = paired_ms(lambda: fused_layernorm_requant(*args),
+                                           lambda: fused_layernorm_requant_reference(*args), 20)
+        M, C = x.shape
+        bounds[("K3", shape)] = bound_ms(M * C * 3 + 8 * C, elementwise=per_element(M * C, LAYERNORM_OPS))
+    for (size, i, j), (blk, (q, k, v)) in window_inputs.items():
+        if j != (0 if i == len(scfg["depths"]) - 1 else 1):
+            continue  # one block a stage: the masked one where the stage shifts
+        a, heads = blk["attn"], blk["heads"]
+        args = (q, k, v, a["bias"], a["mask"], a["r1"], a["rb"], a["scale"], a["r_out"], heads)
+        shape = window_shape(q, a)
+        timings[("K7", shape)] = paired_ms(lambda: fused_int8_window_attention(*args),
+                                           lambda: fused_int8_window_attention_reference(*args), 20)
+        G, Nw, hdw = q.shape
+        planes = heads + (0 if a["mask"] is None else a["mask"].shape[0])
+        merge = (WINDOW_MERGE_OPS,) + ((MASK_OPS,) if a["mask"] is not None else ())
+        bounds[("K7", shape)] = bound_ms(4 * G * Nw * hdw + 4 * planes * Nw * Nw, int8_ops=4 * G * Nw * Nw * hdw,
+                                         elementwise=per_element(G * Nw * Nw, SHIFTMAX_OPS, *merge))
     for size, (x, r1, scale) in k6_inputs.items():
         shape = f"({x.shape[0]}, {N})"
         timings[("K6", shape)] = paired_ms(lambda: fused_requant_shiftmax(x, r1, scale, N),
@@ -445,18 +547,22 @@ def main() -> int:
     device_profile("route A", BATCH, routes16["A"], 20)
     device_profile("route A", 1, routes16["A"], 0)
     device_profile("route B", BATCH, routes16["B"], 12)
+    device_profile("swin (Swin-T, K7+K3)", BATCH, swin, 16)
 
     big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",
            "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",
-           "K5": f"({BATCH * N}, {hidden})", "K6": f"({BATCH * H * N}, {N})"}
+           "K5": f"({BATCH * N}, {hidden})", "K6": f"({BATCH * H * N}, {N})",
+           "K7": window_shape(window_inputs[("b128", 0, 1)][1][0], window_inputs[("b128", 0, 1)][0]["attn"])}
     sources = {"K1": ("attention_fused.cu", "attention_fused.py:126"),
                "K2": ("attention_fused_v2.cu", "attention_fused_v2.py:140"),
                "K3": ("intnorm_fused.cu", "intnorm_fused.py:74"),
                "K4": ("linear_gelu_fused.cu", "linear_gelu_fused.py:87"),
                "K5": ("shiftgelu_fused.cu", "shiftgelu_fused.py:79"),
-               "K6": ("shiftmax_fused.cu", "shiftmax_fused.py:95")}
+               "K6": ("shiftmax_fused.cu", "shiftmax_fused.py:95"),
+               "K7": ("window_attention_fused.cu", "window_attention_fused.py:132")}
     launches = {"K1": main_counts["K1"], "K3": main_counts["K3"], "K2": route_counts["A"]["K2"],
-                "K4": route_counts["A"]["K4"], "K5": route_counts["B"]["K5"], "K6": route_counts["B"]["K6"]}
+                "K4": route_counts["A"]["K4"], "K5": route_counts["B"]["K5"], "K6": route_counts["B"]["K6"],
+                "K7": swin_counts["K7"]}
     record = {"kernels": []}
     for name, fn in WRAPPERS.items():
         key = (name, big[name])

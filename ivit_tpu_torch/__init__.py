@@ -8,11 +8,13 @@ its module paths and function names so each counterpart is easy to find:
   Shiftmax, ShiftGELU, I-LayerNorm, requantization). Runs on any device
   and is what every kernel is checked against.
 * ``kernels/`` — wrappers around the hand-written CUDA kernels in
-  ``csrc/`` (K1 fused attention, K3 fused I-LayerNorm → requant, and the
-  shared K0 Shiftmax header), each beside its plain torch version.
-* ``deploy/``  — the frozen-artifact carry-over, a seeded synthetic
-  artifact builder, and the integer-only ViT inference engine.
-* ``models/``  — the ViT/DeiT configuration table.
+  ``csrc/`` (K1–K7: fused attention, window attention, Shiftmax,
+  ShiftGELU and I-LayerNorm chains, on the shared K0 Shiftmax header),
+  each beside its plain torch version.
+* ``deploy/``  — the frozen-artifact carry-overs, seeded synthetic
+  artifacts, and the integer-only ViT and Swin inference engines.
+* ``models/``  — the ViT/DeiT and Swin configuration tables and Swin's
+  window geometry.
 * ``utils/``   — artifact pickling.
 
 Nothing here imports JAX, flax, optax or ``ivit_tpu``.

@@ -1,9 +1,11 @@
-// The fused integer attention kernel shared by K1 (attention_fused.cu) and
-// K2 (attention_fused_v2.cu), as one template with two value modes.
+// The fused integer attention kernel shared by K1 (attention_fused.cu), K2
+// (attention_fused_v2.cu) and K7 (window_attention_fused.cu), as one
+// template with three modes.
 //
-// Per batch*head g and query row i:
+// Per cell g (batch*head, or batch*window*head for K7) and query row i:
 //   s_ij  = q_i . k_j                        int8 x int8 -> int32 (__dp4a)
 //   z_ij  = clip(rint(float(s_ij) * r1), -128, 127)
+//   K7 only: z_ij = clip(rint(z_ij * rb) + bias_ij, -128, 127) [+ mask_ij]
 //   e_ij  = shift_exp(z_ij - max_j z_ij)     (K0, shiftmax_common.cuh)
 //   sm_ij = floor(e_ij * norm_factor(sum_j e_ij, out_bits))
 //   c_id  = sum_j sm_ij * v_jd
@@ -20,7 +22,14 @@
 // and the int32 sum cannot wrap; and since the probabilities of a row sum
 // to at most (2^31-1)/2^(32-out_bits) < 2^15 and |v| <= 128, every
 // partial sum of the f32 @V stays below 2^22 and is exact. The two modes
-// therefore give the same integers wherever K2's gate holds.
+// therefore give the same integers wherever K2's gate holds. kWindow is
+// K7 (ivit_tpu/kernels/window_attention_fused.py): K1's exact chain at
+// 8-bit probabilities with Swin's relative-position bias merge between
+// the requant and the Shiftmax. Cell g reads bias head g % heads and, for
+// a shifted window, mask window (g / heads) % n_windows. The mask addend
+// (-100/s_bias) is non-integral and far below -128, and it is added in
+// f32 after the int8 clip, so the row max starts at -inf in this mode and
+// the shift-exp sees non-integral values, as in the spec.
 //
 // Layout: q, k, v, out are (G, N, hd) int8, contiguous and unpadded. The
 // Pallas kernels pad N to 128 lanes and mask pad columns to probability
@@ -50,6 +59,8 @@
 
 #include <cuda_runtime.h>
 
+#include <math_constants.h>
+
 #include <cstdint>
 
 #include "shiftmax_common.cuh"
@@ -59,12 +70,25 @@ namespace ivit {
 constexpr int kAttnWarps = 8;
 constexpr int kAttnMaxN = 256;
 
-template <bool kV2>
+enum class AttnMode { kK1, kK2, kWindow };
+
+// K7's extra operands: the relative-position bias and the shifted-window mask.
+struct WindowArgs {
+  const float* bias = nullptr;  // (heads, N, N) integer-valued f32
+  const float* mask = nullptr;  // (n_windows, N, N) f32, or nullptr
+  int heads = 1;
+  int n_windows = 1;
+  float rb = 0.0f;  // the merge ratio s_attn1 / s_bias
+};
+
+template <AttnMode kMode>
 __global__ void __launch_bounds__(kAttnWarps * 32)
 fused_attention_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
                        const int8_t* __restrict__ v, int8_t* __restrict__ out, int N, int hd,
                        int rows_per_block, float r1, float scale, float r_out, float n,
-                       int out_bits) {
+                       int out_bits, WindowArgs win) {
+  constexpr bool kV2 = kMode == AttnMode::kK2;
+  constexpr bool kWindow = kMode == AttnMode::kWindow;
   constexpr int kColsPerLane = kAttnMaxN / 32;
   extern __shared__ int smem[];
   const int words = hd / 4;
@@ -92,15 +116,23 @@ fused_attention_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ 
   int* myQ = sQ + warp * words;
   const int row_begin = static_cast<int>(blockIdx.y) * rows_per_block;
   const int row_end = min(N, row_begin + rows_per_block);
+  const float* bias = nullptr;
+  const float* mask = nullptr;
+  if constexpr (kWindow) {
+    const size_t plane = static_cast<size_t>(N) * N;
+    bias = win.bias + (blockIdx.x % win.heads) * plane;
+    if (win.mask != nullptr) mask = win.mask + ((blockIdx.x / win.heads) % win.n_windows) * plane;
+  }
 
   for (int row = row_begin + warp; row < row_end; row += kAttnWarps) {
     const int* q32 = reinterpret_cast<const int*>(q + head + static_cast<size_t>(row) * hd);
     for (int w = lane; w < words; w += 32) myQ[w] = q32[w];
     __syncwarp();
 
-    // scores -> requant to the int8 softmax input -> row max
+    // scores -> requant to the int8 softmax input (-> K7's merge) -> row max
     float z[kColsPerLane];
-    float zmax = -128.0f;  // the requantized scores lie in [-128, 127]
+    // the requantized scores lie in [-128, 127]; K7's masked ones below
+    float zmax = kWindow ? -CUDART_INF_F : -128.0f;
 #pragma unroll
     for (int t = 0; t < kColsPerLane; ++t) {
       const int j = lane + 32 * t;
@@ -109,7 +141,12 @@ fused_attention_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ 
         const int* kr = sK + j * kstride;
         int acc = 0;
         for (int w = 0; w < words; ++w) acc = __dp4a(myQ[w], kr[w], acc);
-        const float zz = fminf(fmaxf(rintf(static_cast<float>(acc) * r1), -128.0f), 127.0f);
+        float zz = fminf(fmaxf(rintf(static_cast<float>(acc) * r1), -128.0f), 127.0f);
+        if constexpr (kWindow) {
+          const size_t at = static_cast<size_t>(row) * N + j;
+          zz = fminf(fmaxf(rintf(zz * win.rb) + bias[at], -128.0f), 127.0f);
+          if (mask != nullptr) zz = zz + mask[at];
+        }
         z[t] = zz;
         zmax = fmaxf(zmax, zz);
       }
@@ -169,12 +206,17 @@ fused_attention_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ 
 }
 
 // Launches one mode on `stream`. Returns cudaGetLastError() (0 on success).
-template <bool kV2>
+template <AttnMode kMode>
 int launch_fused_attention(const void* q, const void* k, const void* v, void* out, int G, int N,
                            int hd, float r1, float scale, float r_out, int n, int out_bits,
-                           void* stream) {
+                           void* stream, const WindowArgs& win = WindowArgs{}) {
   if (G < 1 || N < 1 || N > kAttnMaxN || hd < 4 || hd % 4 != 0 || hd > 256 ||
       (out_bits != 8 && out_bits != 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (kMode == AttnMode::kWindow &&
+      (out_bits != 8 || win.bias == nullptr || win.heads < 1 || win.n_windows < 1 ||
+       G % win.heads != 0 || (win.mask != nullptr && G % (win.heads * win.n_windows) != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // enough blocks to cover the SMs at small batch: split each head's rows
@@ -189,15 +231,15 @@ int launch_fused_attention(const void* q, const void* k, const void* v, void* ou
                      kAttnWarps * kAttnMaxN + kAttnWarps * words);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_attention_kernel<kV2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_attention_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(G, (N + rows_per_block - 1) / rows_per_block);
-  fused_attention_kernel<kV2><<<grid, kAttnWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  fused_attention_kernel<kMode><<<grid, kAttnWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
       static_cast<int8_t*>(out), N, hd, rows_per_block, r1, scale, r_out, static_cast<float>(n),
-      out_bits);
+      out_bits, win);
   return static_cast<int>(cudaGetLastError());
 }
 

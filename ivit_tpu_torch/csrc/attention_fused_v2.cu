@@ -23,6 +23,6 @@ extern "C" int ivit_fused_int8_attention_v2(const void* q, const void* k, const 
                                             void* out, int G, int N, int hd, float r1,
                                             float scale, float r_out, int n, int out_bits,
                                             void* stream) {
-  return ivit::launch_fused_attention<true>(q, k, v, out, G, N, hd, r1, scale, r_out, n,
+  return ivit::launch_fused_attention<ivit::AttnMode::kK2>(q, k, v, out, G, N, hd, r1, scale, r_out, n,
                                             out_bits, stream);
 }

@@ -1,5 +1,5 @@
 // K0: shared Shiftmax building blocks for the fused attention and softmax
-// kernels (K1, K2, K6) and the shift-exp of the GELU kernels (K4, K5).
+// kernels (K1, K2, K6, K7) and the shift-exp of the GELU kernels (K4, K5).
 //
 // Replaces ivit_tpu/kernels/_shiftmax_common.py (exp2i, shift_exp_rows,
 // exact_rowsum_2limb, norm_factor), which the Pallas kernels inline. The

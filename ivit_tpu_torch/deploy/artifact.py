@@ -68,18 +68,26 @@ def artifact_spec(cfg: dict) -> dict:
     }
 
 
-def _validate(value, spec, path: str) -> None:
+def check_schema(value, spec, path: str) -> None:
+    """Hold ``value`` to ``spec``: a dict or list of specs, a
+    ``(dtype, shape)`` array leaf, an exact integer, or ``None``."""
     if isinstance(spec, dict):
         if not isinstance(value, dict) or set(value) != set(spec):
             got = sorted(value) if isinstance(value, dict) else type(value).__name__
             raise ValueError(f"artifact{path}: expected keys {sorted(spec)}, got {got}")
         for key, sub in spec.items():
-            _validate(value[key], sub, f"{path}[{key!r}]")
+            check_schema(value[key], sub, f"{path}[{key!r}]")
     elif isinstance(spec, list):
         if not isinstance(value, (list, tuple)) or len(value) != len(spec):
             raise ValueError(f"artifact{path}: expected a list of {len(spec)} blocks")
         for i, (v, s) in enumerate(zip(value, spec)):
-            _validate(v, s, f"{path}[{i}]")
+            check_schema(v, s, f"{path}[{i}]")
+    elif spec is None:
+        if value is not None:
+            raise ValueError(f"artifact{path}: expected None, got {type(value).__name__}")
+    elif isinstance(spec, int):
+        if isinstance(value, bool) or not isinstance(value, (int, np.integer)) or value != spec:
+            raise ValueError(f"artifact{path}: expected the integer {spec}, got {value!r}")
     else:
         dtype, shape = spec
         arr = np.asarray(value)
@@ -97,16 +105,47 @@ def validate_artifact(artifact: dict) -> None:
         raise ValueError(f"softmax_bits must be 8 or 16, got {cfg['softmax_bits']}")
     if cfg["embed_dim"] % cfg["num_heads"]:
         raise ValueError("embed_dim must be a multiple of num_heads")
-    _validate({k: v for k, v in artifact.items() if k != "config"}, artifact_spec(cfg), "")
+    check_schema({k: v for k, v in artifact.items() if k != "config"}, artifact_spec(cfg), "")
+
+
+def host_f32(v) -> torch.Tensor:
+    """A float32 tensor on the host, where every ratio is divided."""
+    return torch.from_numpy(np.array(v, dtype=np.float32))
+
+
+def target_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises ``RuntimeError`` for a
+    CUDA device on a machine without one."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
+    return device
+
+
+def carry_linear(layer: dict, device, s_next=None) -> dict:
+    """A frozen linear on ``device``: int8 ``w`` (K, N), the int32 ``b``
+    where the layer has one, and either the requant ``ratio``
+    ``out_scale / s_next`` or, without ``s_next``, the ``out_scale``."""
+    out = {k: torch.tensor(np.asarray(layer[k])).to(device) for k in ("w", "b") if k in layer}
+    if s_next is None:
+        out["out_scale"] = host_f32(layer["out_scale"]).to(device)
+    else:
+        out["ratio"] = div(host_f32(layer["out_scale"]), s_next).to(device)
+    return out
+
+
+def carry_norm(nrm: dict, device, s_next) -> dict:
+    """A frozen I-LayerNorm on ``device``: the folded β and the requant
+    ratio ``out_scale / s_next``."""
+    return {"bias_int": host_f32(nrm["bias_int"]).to(device),
+            "ratio": div(host_f32(nrm["out_scale"]), s_next).to(device)}
 
 
 def artifact_to_torch(artifact: dict, device) -> dict:
     """Carry a frozen artifact onto ``device``: int8 weights (K, N),
     int32 biases, float32 scales and the precomputed float32 ratios.
     Raises ``RuntimeError`` for a CUDA device on a machine without one."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
+    device = target_device(device)
     validate_artifact(artifact)
     cfg = dict(artifact["config"])
     D, H = cfg["embed_dim"], cfg["num_heads"]
@@ -116,65 +155,49 @@ def artifact_to_torch(artifact: dict, device) -> dict:
     s_sm = torch.tensor(np.float32(1.0 / 2.0 ** (sm_bits - 1)))
     g_shift = torch.tensor(np.float32(1.0 / 2.0**7))
 
-    def f32(v) -> torch.Tensor:  # on the host: every ratio is divided there
-        return torch.from_numpy(np.array(v, dtype=np.float32))
-
     def dev(t: torch.Tensor) -> torch.Tensor:
         return t.to(device).contiguous()
 
-    def linear(layer, s_next=None):
-        out = {"w": dev(torch.tensor(np.asarray(layer["w"]))),
-               "b": dev(torch.tensor(np.asarray(layer["b"])))}
-        if s_next is None:
-            out["out_scale"] = dev(f32(layer["out_scale"]))
-        else:
-            out["ratio"] = dev(div(f32(layer["out_scale"]), s_next))
-        return out
-
-    def norm(nrm, s_next):
-        return {"bias_int": dev(f32(nrm["bias_int"])),
-                "ratio": dev(div(f32(nrm["out_scale"]), s_next))}
-
-    s_embed = f32(artifact["embed_scale"])
-    s_tok = f32(artifact["tokens_scale"])
+    s_embed = host_f32(artifact["embed_scale"])
+    s_tok = host_f32(artifact["tokens_scale"])
     out = {
         "config": cfg,
-        "input_scale": dev(f32(artifact["input_scale"])),
-        "patch_embed": linear(artifact["patch_embed"], s_embed),
-        "cls_q": dev(f32(artifact["cls_q"])),
+        "input_scale": dev(host_f32(artifact["input_scale"])),
+        "patch_embed": carry_linear(artifact["patch_embed"], device, s_embed),
+        "cls_q": dev(host_f32(artifact["cls_q"])),
         "embed_to_tokens": dev(div(s_embed, s_tok)),
-        "pos": dev(torch.round(f32(artifact["pos_q"]) * div(f32(artifact["pos_scale"]), s_tok))),
+        "pos": dev(torch.round(host_f32(artifact["pos_q"]) * div(host_f32(artifact["pos_scale"]), s_tok))),
     }
 
     blocks = []
     s_x = s_tok
     for blk in artifact["blocks"]:
-        s = {name: f32(blk[name]) for name in _BLOCK_SCALARS}
+        s = {name: host_f32(blk[name]) for name in _BLOCK_SCALARS}
         sa1, ssm = s["s_attn_qact1"], s["s_attn_sm_in"]
         gelu_ratio = div(s["s_gelu_in"] * g_shift, s["s_gelu_out"])
-        fc1 = linear(blk["fc1"], s["s_gelu_in"])
+        fc1 = carry_linear(blk["fc1"], device, s["s_gelu_in"])
         fc1["w_t"] = fc1["w"].T.contiguous()  # K-contiguous for K4
         blocks.append({
-            "norm1": norm(blk["norm1"], s["s_qact1"]),
-            "qkv": linear(blk["qkv"], sa1),
+            "norm1": carry_norm(blk["norm1"], device, s["s_qact1"]),
+            "qkv": carry_linear(blk["qkv"], device, sa1),
             "attn": {
                 "r1": float(div((sa1 * sa1) * qk_scale, ssm)),
                 "scale": float(ssm),
                 "r_out": float(div(s_sm * sa1, s["s_attn_out"])),
             },
-            "proj": linear(blk["proj"], s["s_attn_proj"]),
+            "proj": carry_linear(blk["proj"], device, s["s_attn_proj"]),
             "res1": {"branch": dev(div(s["s_attn_proj"], s["s_res1"])),
                      "skip": dev(div(s_x, s["s_res1"]))},
-            "norm2": norm(blk["norm2"], s["s_qact3"]),
+            "norm2": carry_norm(blk["norm2"], device, s["s_qact3"]),
             "fc1": fc1,
             "gelu": {"scale": dev(s["s_gelu_in"]), "ratio": dev(gelu_ratio),
                      "s_in": float(s["s_gelu_in"]), "r2": float(gelu_ratio)},
-            "fc2": linear(blk["fc2"], s["s_mlp_out"]),
+            "fc2": carry_linear(blk["fc2"], device, s["s_mlp_out"]),
             "res2": {"branch": dev(div(s["s_mlp_out"], s["s_res2"])),
                      "skip": dev(div(s["s_res1"], s["s_res2"]))},
         })
         s_x = s["s_res2"]
     out["blocks"] = blocks
-    out["norm"] = norm(artifact["norm"], f32(artifact["head_in_scale"]))
-    out["head"] = linear(artifact["head"])
+    out["norm"] = carry_norm(artifact["norm"], device, host_f32(artifact["head_in_scale"]))
+    out["head"] = carry_linear(artifact["head"], device)
     return out

@@ -73,8 +73,11 @@ KERNEL_NAMES = ("attention", "attention2", "softmax", "gelu", "linear_gelu", "la
 DEFAULT_KERNELS = ("attention", "layernorm")
 _ATTENTION_KERNELS = {"attention", "attention2", "softmax"}
 
-# torch._int_mm on CUDA takes only more than 16 rows
-_INT_MM_MIN_ROWS = 17
+# torch._int_mm on CUDA refuses 16 rows or fewer, and fewer than 800 rows
+# when K < 128 (CUBLAS_STATUS_NOT_SUPPORTED; measured on the H100 with
+# torch 2.11.0+cu128 over K 16-128, M 17-3136): int8_linear pads the rows
+def _int_mm_min_rows(k: int) -> int:
+    return 17 if k >= 128 else 800
 
 
 def select_kernels(cfg: dict, kernels=DEFAULT_KERNELS) -> frozenset:
@@ -106,14 +109,16 @@ def select_kernels(cfg: dict, kernels=DEFAULT_KERNELS) -> frozenset:
 
 
 def int8_linear(x: torch.Tensor, layer: dict) -> torch.Tensor:
-    """(M, K) int8 @ w (K, N) int8 + b → (M, N) int32, exact."""
-    M = x.shape[0]
-    if x.is_cuda and M < _INT_MM_MIN_ROWS:
-        pad = x.new_zeros((_INT_MM_MIN_ROWS - M, x.shape[1]))
+    """(M, K) int8 @ w (K, N) int8 [+ b] → (M, N) int32, exact; the
+    bias is added where the layer has one (Swin's patch-merging
+    ``reduction`` has none)."""
+    M, K = x.shape
+    if x.is_cuda and M < _int_mm_min_rows(K):
+        pad = x.new_zeros((_int_mm_min_rows(K) - M, K))
         acc = torch._int_mm(torch.cat([x, pad]), layer["w"])[:M]
     else:
         acc = torch._int_mm(x.contiguous(), layer["w"])
-    return acc + layer["b"]
+    return acc + layer["b"] if "b" in layer else acc
 
 
 def _layernorm(x: torch.Tensor, norm: dict, kernels: frozenset) -> torch.Tensor:
@@ -148,9 +153,14 @@ def attention_inputs(x: torch.Tensor, blk: dict, num_heads: int, kernels=DEFAULT
     """LayerNorm → qkv GEMM → requant → head split of the int16 stream
     (B, N, C); returns contiguous int8 q, k, v of shape (B·H, N, hd)."""
     B, N, C = x.shape
-    hd = C // num_heads
-    y = _layernorm(x.reshape(B * N, C), blk["norm1"], kernels)
-    qkv = blk["qkv"]
+    return qkv_heads(_layernorm(x.reshape(B * N, C), blk["norm1"], kernels), blk["qkv"], B, num_heads)
+
+
+def qkv_heads(y: torch.Tensor, qkv: dict, B: int, num_heads: int):
+    """qkv GEMM → requant → head split of int8 rows (B·N, C) holding B
+    sequences; returns contiguous int8 q, k, v of shape (B·H, N, hd)."""
+    C = y.shape[1]
+    N, hd = y.shape[0] // B, C // num_heads
     z = requant(int8_linear(y, qkv), qkv["ratio"], *INT8).to(torch.int8)
     z = z.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4).contiguous()
     z = z.view(3, B * num_heads, N, hd)
@@ -211,13 +221,18 @@ def attention_half(x: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNEL
     return _residual(branch, x.reshape(B * N, C), blk["res1"])
 
 
-def vit_block(x: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNELS) -> torch.Tensor:
-    """One pre-norm transformer block on the int16 stream (B, N, C)."""
-    h = attention_half(x, blk, cfg, kernels)
+def mlp_half(h: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNELS) -> torch.Tensor:
+    """The MLP half of a block on the (M, C) int16 stream after the first
+    residual: norm2 → fc1 → ShiftGELU → fc2 → the second residual."""
     g8 = _mlp_hidden(_layernorm(h, blk["norm2"], kernels), blk, cfg, kernels)
     fc2 = blk["fc2"]
     m = requant(int8_linear(g8, fc2), fc2["ratio"], *INT16)
-    return _residual(m, h, blk["res2"]).reshape(x.shape)
+    return _residual(m, h, blk["res2"])
+
+
+def vit_block(x: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNELS) -> torch.Tensor:
+    """One pre-norm transformer block on the int16 stream (B, N, C)."""
+    return mlp_half(attention_half(x, blk, cfg, kernels), blk, cfg, kernels).reshape(x.shape)
 
 
 def build_vit_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS):

@@ -76,14 +76,14 @@ class _Init:
         return 1.0 + self.normal((d,), 0.1), self.normal((d,), 0.02)
 
 
-def _freeze_linear(kernel: torch.Tensor, bias: torch.Tensor, in_scale: torch.Tensor) -> dict:
+def _freeze_linear(kernel: torch.Tensor, bias: torch.Tensor | None, in_scale: torch.Tensor) -> dict:
+    """int8 weights, the int32 bias where there is one, and the output scale."""
     w_scale = weight_scale(kernel.T, 8)
     out_scale = w_scale * in_scale
-    return {
-        "w": _np(quantize(kernel, w_scale, 8), np.int8),
-        "b": _np(quantize(bias, out_scale, 32), np.float64).astype(np.int32),
-        "out_scale": _np(out_scale, np.float32),
-    }
+    layer = {"w": _np(quantize(kernel, w_scale, 8), np.int8), "out_scale": _np(out_scale, np.float32)}
+    if bias is not None:
+        layer["b"] = _np(quantize(bias, out_scale, 32), np.float64).astype(np.int32)
+    return layer
 
 
 def _freeze_norm(gamma: torch.Tensor, beta: torch.Tensor) -> dict:
@@ -95,7 +95,50 @@ def _freeze_norm(gamma: torch.Tensor, beta: torch.Tensor) -> dict:
 
 
 def _linear_t(layer: dict) -> dict:
-    return {"w": torch.from_numpy(layer["w"]), "b": torch.from_numpy(layer["b"])}
+    return {k: torch.from_numpy(layer[k]) for k in ("w", "b") if k in layer}
+
+
+def _qact(real: torch.Tensor, bits: int, key: str, into: dict) -> torch.Tensor:
+    """A ``QuantAct``'s first batch: the scale of ``real`` at ``bits``,
+    written to ``into[key]`` as a float32 scalar."""
+    s = _act_scale(real, bits)
+    into[key] = np.float32(s.item())
+    return s
+
+
+def _calib_linear(x_q: torch.Tensor, params, in_scale: torch.Tensor, key: str, into: dict):
+    """Freeze ``params`` (kernel, bias or None) into ``into[key]`` and run
+    it on the integer rows ``x_q``: the int32 accumulator (as float32)
+    and its per-channel scale."""
+    into[key] = layer = _freeze_linear(*params, in_scale)
+    acc = int8_linear(x_q.to(torch.int8), _linear_t(layer)).to(torch.float32)
+    return acc, torch.from_numpy(layer["out_scale"])
+
+
+def _calib_norm(x_q: torch.Tensor, params, key: str, into: dict):
+    """Freeze the LayerNorm ``params`` (γ, β) into ``into[key]`` and run
+    the I-LayerNorm on ``x_q``."""
+    into[key] = _freeze_norm(*params)
+    return int_layernorm(x_q, *params)
+
+
+def _calib_mlp_half(x: torch.Tensor, s_x: torch.Tensor, bp: dict, blk: dict, gelu_stable: bool):
+    """The MLP half of a block on the stream ``x`` at ``s_x``: norm2 →
+    fc1 → ShiftGELU → fc2 → the second residual, scales set in graph
+    order into ``blk``; returns the new stream and its scale."""
+    C = x.shape[-1]
+    y, s_y = _calib_norm(x, bp["norm2"], "norm2", blk)
+    s3 = _qact(y * s_y, 8, "s_qact3", blk)
+    y = requantize(y, s_y, s3, 8)
+    acc, s_acc = _calib_linear(y.reshape(-1, C), bp["fc1"], s3, "fc1", blk)
+    sg_in = _qact(acc * s_acc, 8, "s_gelu_in", blk)
+    g, s_g = shiftgelu(requantize(acc, s_acc, sg_in, 8), sg_in, out_bits=8, stable=gelu_stable)
+    sg_out = _qact(g * s_g, 8, "s_gelu_out", blk)
+    acc, s_acc = _calib_linear(requantize(g, s_g, sg_out, 8), bp["fc2"], sg_out, "fc2", blk)
+    smo = _qact(acc * s_acc, 16, "s_mlp_out", blk)
+    m = requantize(acc, s_acc, smo, 16).reshape(x.shape)
+    sr2 = _qact(m * smo + x * s_x, 16, "s_res2", blk)
+    return requantize(m, smo, sr2, 16, x, s_x), sr2
 
 
 def synthetic_vit_artifact(
@@ -131,79 +174,52 @@ def synthetic_vit_artifact(
 
     a: dict = {"config": cfg}
 
-    def qact(real: torch.Tensor, bits: int, key: str, into: dict) -> torch.Tensor:
-        s = _act_scale(real, bits)
-        into[key] = np.float32(s.item())
-        return s
-
-    def linear(x_q: torch.Tensor, params, in_scale: torch.Tensor, key: str, into: dict):
-        into[key] = layer = _freeze_linear(*params, in_scale)
-        acc = int8_linear(x_q.to(torch.int8), _linear_t(layer)).to(torch.float32)
-        return acc, torch.from_numpy(layer["out_scale"])
-
-    def layernorm(x_q: torch.Tensor, params, key: str, into: dict):
-        into[key] = _freeze_norm(*params)
-        return int_layernorm(x_q, *params)
-
     B = _CALIB_IMAGES
-    s_in = qact(images, 8, "input_scale", a)
+    s_in = _qact(images, 8, "input_scale", a)
     x = quantize(images, s_in, 8)
     x = x.reshape(B, gh, p, gh, p, 3).permute(0, 1, 3, 2, 4, 5).reshape(B * gh * gh, p * p * 3)
-    acc, s_acc = linear(x, (pe_k, pe_b), s_in, "patch_embed", a)
-    s_embed = qact(acc * s_acc, 16, "embed_scale", a)
+    acc, s_acc = _calib_linear(x, (pe_k, pe_b), s_in, "patch_embed", a)
+    s_embed = _qact(acc * s_acc, 16, "embed_scale", a)
     x = requantize(acc, s_acc, s_embed, 16).reshape(B, gh * gh, D)
     a["cls_q"] = _np(torch.round(div(cls_token, s_embed)), np.float32)
     x = torch.cat([torch.from_numpy(a["cls_q"]).expand(B, 1, D), x], dim=1)
-    s_pos = qact(pos_embed, 16, "pos_scale", a)
+    s_pos = _qact(pos_embed, 16, "pos_scale", a)
     pos_q = quantize(pos_embed, s_pos, 16)
     a["pos_q"] = _np(pos_q, np.float32)
-    s_x = qact(x * s_embed + pos_q * s_pos, 16, "tokens_scale", a)
+    s_x = _qact(x * s_embed + pos_q * s_pos, 16, "tokens_scale", a)
     x = requantize(x, s_embed, s_x, 16, pos_q, s_pos)
 
     blocks = []
     for bp in block_params:
         blk: dict = {}
         # attention half
-        y, s_y = layernorm(x, bp["norm1"], "norm1", blk)
-        s1 = qact(y * s_y, 8, "s_qact1", blk)
+        y, s_y = _calib_norm(x, bp["norm1"], "norm1", blk)
+        s1 = _qact(y * s_y, 8, "s_qact1", blk)
         y = requantize(y, s_y, s1, 8)
-        acc, s_acc = linear(y.reshape(-1, D), bp["qkv"], s1, "qkv", blk)
-        sa1 = qact(acc * s_acc, 8, "s_attn_qact1", blk)
+        acc, s_acc = _calib_linear(y.reshape(-1, D), bp["qkv"], s1, "qkv", blk)
+        sa1 = _qact(acc * s_acc, 8, "s_attn_qact1", blk)
         z = requantize(acc, s_acc, sa1, 8).reshape(B, -1, 3, H, hd).permute(2, 0, 3, 1, 4)
         q, k, v = z[0], z[1], z[2]
         attn = _matmul_exact(q, k.transpose(-1, -2))
         s_attn = (sa1 * sa1) * np.float32(hd**-0.5)
-        ssm = qact(attn * s_attn, 8, "s_attn_sm_in", blk)
+        ssm = _qact(attn * s_attn, 8, "s_attn_sm_in", blk)
         sm, s_sm = shiftmax(requantize(attn, s_attn, ssm, 8), ssm, out_bits=softmax_bits)
         ctx = _matmul_exact(sm, v)
         s_ctx = s_sm * sa1
-        sao = qact(ctx * s_ctx, 8, "s_attn_out", blk)
+        sao = _qact(ctx * s_ctx, 8, "s_attn_out", blk)
         ctx = requantize(ctx, s_ctx, sao, 8).permute(0, 2, 1, 3).reshape(-1, D)
-        acc, s_acc = linear(ctx, bp["proj"], sao, "proj", blk)
-        sap = qact(acc * s_acc, 16, "s_attn_proj", blk)
+        acc, s_acc = _calib_linear(ctx, bp["proj"], sao, "proj", blk)
+        sap = _qact(acc * s_acc, 16, "s_attn_proj", blk)
         branch = requantize(acc, s_acc, sap, 16).reshape(x.shape)
-        sr1 = qact(branch * sap + x * s_x, 16, "s_res1", blk)
+        sr1 = _qact(branch * sap + x * s_x, 16, "s_res1", blk)
         x = requantize(branch, sap, sr1, 16, x, s_x)
-        # MLP half
-        y, s_y = layernorm(x, bp["norm2"], "norm2", blk)
-        s3 = qact(y * s_y, 8, "s_qact3", blk)
-        y = requantize(y, s_y, s3, 8)
-        acc, s_acc = linear(y.reshape(-1, D), bp["fc1"], s3, "fc1", blk)
-        sg_in = qact(acc * s_acc, 8, "s_gelu_in", blk)
-        g, s_g = shiftgelu(requantize(acc, s_acc, sg_in, 8), sg_in, out_bits=8, stable=gelu_stable)
-        sg_out = qact(g * s_g, 8, "s_gelu_out", blk)
-        acc, s_acc = linear(requantize(g, s_g, sg_out, 8), bp["fc2"], sg_out, "fc2", blk)
-        smo = qact(acc * s_acc, 16, "s_mlp_out", blk)
-        m = requantize(acc, s_acc, smo, 16).reshape(x.shape)
-        sr2 = qact(m * smo + x * sr1, 16, "s_res2", blk)
-        x = requantize(m, smo, sr2, 16, x, sr1)
-        s_x = sr2
+        x, s_x = _calib_mlp_half(x, sr1, bp, blk, gelu_stable)
         blocks.append(blk)
     a["blocks"] = blocks
 
-    y, s_y = layernorm(x, norm_params, "norm", a)
+    y, s_y = _calib_norm(x, norm_params, "norm", a)
     cls = y[:, 0]
-    s_head = qact(cls * s_y, 8, "head_in_scale", a)
+    s_head = _qact(cls * s_y, 8, "head_in_scale", a)
     a["head"] = _freeze_linear(*head_params, s_head)
     validate_artifact(a)
     return a

@@ -12,6 +12,7 @@ from .intnorm_fused import fused_layernorm_requant, fused_layernorm_requant_refe
 from .linear_gelu_fused import fused_linear_shiftgelu, fused_linear_shiftgelu_reference
 from .shiftgelu_fused import fused_requant_shiftgelu, fused_requant_shiftgelu_reference
 from .shiftmax_fused import fused_requant_shiftmax, fused_requant_shiftmax_reference
+from .window_attention_fused import fused_int8_window_attention, fused_int8_window_attention_reference
 
 # every kernel wrapper, by the name of its TPU kernel's number
 WRAPPERS = {
@@ -21,6 +22,7 @@ WRAPPERS = {
     "K4": fused_linear_shiftgelu,
     "K5": fused_requant_shiftgelu,
     "K6": fused_requant_shiftmax,
+    "K7": fused_int8_window_attention,
 }
 
 __all__ = [
@@ -29,6 +31,8 @@ __all__ = [
     "fused_int8_attention_reference",
     "fused_int8_attention_v2",
     "fused_int8_attention_v2_reference",
+    "fused_int8_window_attention",
+    "fused_int8_window_attention_reference",
     "fused_layernorm_requant",
     "fused_layernorm_requant_reference",
     "fused_linear_shiftgelu",

@@ -63,6 +63,10 @@ _ENTRY_POINTS = {
         # x, hi, lo, M, N, n_valid, r1, scale, n, out_bits, stream
         "ivit_fused_requant_shiftmax": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
     },
+    "window_attention_fused.cu": {
+        # q, k, v, bias, mask (or None), out, G, N, hd, heads, n_windows, r1, rb, scale, r_out, n, stream
+        "ivit_fused_int8_window_attention": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    },
 }
 SOURCES = tuple(_ENTRY_POINTS)
 

@@ -1,7 +1,7 @@
 """K0: the shared in-kernel Shiftmax building blocks, plain torch twin.
 
 Counterpart of ``ivit_tpu/kernels/_shiftmax_common.py``. The CUDA form is
-``csrc/shiftmax_common.cuh``, inlined into K1, K2 and K6 (and later K7);
+``csrc/shiftmax_common.cuh``, inlined into K1, K2, K6 and K7;
 the functions here state the same arithmetic on tensors, element for
 element, so the header can be read against them. ``exact_rowsum_2limb``
 is what the CUDA side computes as an exact 64-bit integer sum rounded

@@ -1,0 +1,128 @@
+"""K7: fully fused integer Swin window attention.
+
+Replaces ``ivit_tpu/kernels/window_attention_fused.py:fused_int8_window_attention``
+(``pl.pallas_call`` at :132). The CUDA kernel is
+``csrc/window_attention_fused.cu``, the window mode of the attention
+template it shares with K1 and K2 (``csrc/attention_fused.cuh``): per
+batch·window·head cell, int8 Q·Kᵀ with ``__dp4a``, the requant by ``r1``,
+the relative-position bias merge ``clip(round(a8·rb) + bias)``, the
+optional shifted-window mask addend (non-integral f32, added after the
+clip), the 8-bit Shiftmax with every guard (K0), one exact int32 @V, and
+the requant to int8. The (N, N) scores never reach HBM. What bounds it on
+the H100 is on-chip work; at Swin's N = 49 one warp per query row leaves
+15 of its 64 score slots idle (``csrc/window_attention_fused.cu``).
+
+The layout is unpadded (G, N, hd) with G = B·nW·heads and the head
+innermost: cell i reads bias head ``i % heads`` and mask window
+``(i // heads) % nW``, as the Pallas kernel's index maps do. Its 128-lane
+padding and ``n_valid`` column mask are TPU tiling, value-identical to
+leaving the pads out. N is bounded by 256 (the exact row-sum bound).
+
+``fused_int8_window_attention_reference`` is the plain version: the JAX
+XLA engine's chain (``ivit_tpu/deploy/swin_engine.py:465-551``) on the
+port's ops, with the integer products in float64 (exact). The wrapper runs
+it for CPU tensors and launches the kernel for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import INT8, requant, shiftmax
+from ..ops.interp import f32
+from . import _build
+from .attention_fused import SHIFTMAX_N
+from .attention_fused import _check as _check_qkv
+
+
+def window_attention_probabilities(
+    q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor, mask: torch.Tensor | None,
+    r1: float, rb: float, scale: float, heads: int,
+) -> torch.Tensor:
+    """The 8-bit window attention probabilities (G, N, N), integer-valued
+    float32 at scale 1/128: int8 Q·Kᵀ, requant by ``r1``, the bias merge
+    at ``rb``, the mask addend, then Shiftmax at the input scale ``scale``."""
+    G, N, _ = q.shape
+    dev = q.device
+    attn = torch.matmul(q.to(torch.float64), k.to(torch.float64).transpose(-1, -2))
+    a8 = requant(attn.to(torch.int32), f32(r1, dev), *INT8)
+    z = torch.clamp(torch.round(a8 * f32(rb, dev)).view(G // heads, heads, N, N) + bias, *INT8)
+    if mask is not None:
+        n_windows = mask.shape[0]
+        z = z.view(G // (n_windows * heads), n_windows, heads, N, N) + mask[None, :, None]
+    sm, _ = shiftmax(z.reshape(G, N, N), f32(scale, dev), out_bits=8, n=SHIFTMAX_N)
+    return sm
+
+
+def fused_int8_window_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    mask: torch.Tensor | None, r1: float, rb: float, scale: float, r_out: float, heads: int,
+) -> torch.Tensor:
+    """Plain torch K7 on (G, N, hd) int8 q, k, v; returns int8 (G, N, hd)."""
+    sm = window_attention_probabilities(q, k, bias, mask, r1, rb, scale, heads)
+    ctx = torch.matmul(sm.to(torch.float64), v.to(torch.float64))
+    return requant(ctx.to(torch.int32), f32(r_out, q.device), *INT8).to(torch.int8)
+
+
+def _check(q, k, v, bias, mask, heads: int) -> None:
+    _check_qkv(q, k, v, 8)
+    G, N, _ = q.shape
+    if heads < 1 or G % heads:
+        raise ValueError(f"G={G} cells is not a multiple of heads={heads}")
+    planes = [("bias", bias, heads)] + ([] if mask is None else [("mask", mask, mask.shape[0])])
+    for name, t, count in planes:
+        if t.dtype != torch.float32 or t.shape != (count, N, N) or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous ({count}, {N}, {N}) float32 tensor, got "
+                f"{tuple(t.shape)} {t.dtype}"
+            )
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if mask is not None and (mask.shape[0] < 1 or G % (mask.shape[0] * heads)):
+        raise ValueError(f"G={G} cells is not a whole number of {mask.shape[0]} windows x {heads} heads")
+
+
+def fused_int8_window_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    mask: torch.Tensor | None,
+    r1: float,
+    rb: float,
+    scale: float,
+    r_out: float,
+    heads: int,
+) -> torch.Tensor:
+    """q/k/v: (G, N, hd) int8, G = B·nW·heads with the head innermost,
+    N ≤ 256 unpadded. ``bias``: (heads, N, N) float32, the frozen integer
+    relative-position bias at the softmax input scale; ``mask``: the
+    (nW, N, N) float32 shifted-window addend, or None. ``r1``: score →
+    ``s_attn1`` ratio; ``rb``: ``s_attn1 → s_bias`` merge ratio;
+    ``scale``: the softmax input scale ``s_bias``; ``r_out``: context →
+    int8 output ratio (float32 values). Returns the int8 (G, N, hd)
+    context."""
+    _check(q, k, v, bias, mask, heads)
+    if q.device.type == "cpu":
+        return fused_int8_window_attention_reference(q, k, v, bias, mask, r1, rb, scale, r_out, heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if any(t.data_ptr() % 4 for t in (q, k, v)):
+        raise ValueError("q, k, v must start on 4-byte boundaries (the kernel loads words)")
+    lib = _build.load()
+    G, N, hd = q.shape
+    n_windows = 1 if mask is None else mask.shape[0]
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.ivit_fused_int8_window_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            G, N, hd, heads, n_windows, r1, rb, scale, r_out, SHIFTMAX_N, stream,
+        )
+    _build.check(err, "fused_int8_window_attention")
+    fused_int8_window_attention.launches += 1
+    return out
+
+
+fused_int8_window_attention.launches = 0

@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from ivit_tpu_torch.deploy.engine import build_vit_infer
+from ivit_tpu_torch.deploy.swin_engine import build_swin_infer
+from ivit_tpu_torch.deploy.swin_synthetic import synthetic_swin_artifact
 from ivit_tpu_torch.deploy.synthetic import synthetic_vit_artifact
 from ivit_tpu_torch.kernels import (
     WRAPPERS,
@@ -22,6 +24,8 @@ from ivit_tpu_torch.kernels import (
     fused_int8_attention_reference,
     fused_int8_attention_v2,
     fused_int8_attention_v2_reference,
+    fused_int8_window_attention,
+    fused_int8_window_attention_reference,
     fused_layernorm_requant,
     fused_layernorm_requant_reference,
     fused_linear_shiftgelu,
@@ -31,6 +35,7 @@ from ivit_tpu_torch.kernels import (
     fused_requant_shiftmax,
     fused_requant_shiftmax_reference,
 )
+from ivit_tpu_torch.models.swin import sw_attn_mask
 
 pytestmark = pytest.mark.cuda
 
@@ -67,7 +72,7 @@ def test_attention_kernel_matches_reference(dev, shape, out_bits):
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("shape", [(197, 384), (33, 100), (40, 1024)])
+@pytest.mark.parametrize("shape", [(197, 384), (33, 100), (40, 1024), (3136, 96), (784, 192), (49, 1536)])
 def test_layernorm_kernel_matches_reference(dev, shape):
     rng = np.random.default_rng(shape[1])
     x = rng.integers(-(2**15), 2**15, shape).astype(np.int16)
@@ -199,3 +204,47 @@ def test_engine_sm16_routes_match_cpu(dev, kernels, counts):
     assert {name: fn.launches for name, fn in WRAPPERS.items() if fn.launches} == counts
     cpu = build_vit_infer(artifact, "cpu", kernels=())(images)
     torch.testing.assert_close(logits.cpu(), cpu, rtol=0, atol=0)
+
+
+# (G, N, hd, heads, mask geometry (res, ws, shift) or None): Swin-T's
+# stage-1 batch-1 shape with its shifted-window mask, stage 4 at batch 1
+# (unmasked), and a ragged window
+WINDOW_CASES = {
+    "stage1_masked": (192, 49, 32, 3, (56, 7, 3)),
+    "stage4_unmasked": (24, 49, 32, 24, None),
+    "ragged_masked": (12, 16, 8, 3, (8, 4, 2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WINDOW_CASES))
+def test_window_attention_kernel_matches_reference(dev, case):
+    G, N, hd, heads, geometry = WINDOW_CASES[case]
+    qkv, (r1, scale, r_out) = _attention_case(G, N, hd, 8, seed=G)
+    rng = np.random.default_rng(N)
+    bias = torch.from_numpy(rng.integers(-30, 31, (heads, N, N)).astype(np.float32))
+    mask = None if geometry is None else torch.from_numpy(sw_attn_mask(geometry[0], geometry[0], *geometry[1:]) / np.float32(scale))
+    args = (r1, float(np.float32(0.9)), scale, r_out, heads)
+    before = fused_int8_window_attention.launches
+    out = fused_int8_window_attention(*(a.to(dev) for a in qkv), bias.to(dev), None if mask is None else mask.to(dev), *args)
+    torch.cuda.synchronize()
+    assert fused_int8_window_attention.launches == before + 1
+    ref = fused_int8_window_attention_reference(*qkv, bias, mask, *args)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+    assert ref.unique().numel() > 20
+
+
+def test_swin_engine_kernel_path_matches_cpu(dev):
+    artifact = synthetic_swin_artifact(
+        "swin_tiny", seed=1, img_size=56, patch_size=4, embed_dim=32, depths=(2, 2), num_heads=(2, 4),
+        num_classes=16,
+    )  # stage 1: 14x14 tokens in 7x7 windows, block 1 shifted; stage 2: one window
+    images = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 56, 56, 3)).astype(np.float32))
+    infer = build_swin_infer(artifact, dev)
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    logits = infer(images)
+    torch.cuda.synchronize()
+    assert {name: fn.launches for name, fn in WRAPPERS.items() if fn.launches} == {"K7": 4, "K3": 10}
+    cpu = build_swin_infer(artifact, "cpu", kernels=())(images)
+    torch.testing.assert_close(logits.cpu(), cpu, rtol=0, atol=0)
+    torch.testing.assert_close(build_swin_infer(artifact, dev, kernels=())(images).cpu(), cpu, rtol=0, atol=0)

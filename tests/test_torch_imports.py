@@ -31,7 +31,9 @@ def test_package_has_modules():
     files = set(_py_files())
     for f in ("deploy/engine.py", "kernels/attention_fused.py", "kernels/intnorm_fused.py",
               "kernels/attention_fused_v2.py", "kernels/linear_gelu_fused.py",
-              "kernels/shiftgelu_fused.py", "kernels/shiftmax_fused.py", "kernels/_gelu_common.py"):
+              "kernels/shiftgelu_fused.py", "kernels/shiftmax_fused.py", "kernels/_gelu_common.py",
+              "kernels/window_attention_fused.py", "models/swin.py", "deploy/swin_artifact.py",
+              "deploy/swin_engine.py", "deploy/swin_synthetic.py"):
         assert f in files
 
 

@@ -1,0 +1,304 @@
+"""Port Swin engine ≡ JAX Swin engine, bit for bit (tolerance 0), on the CPU.
+
+A tiny Swin (the configuration of ``tests/test_swin_deploy.py``: img 16,
+patch 2, embed 16, depths (2, 2), heads (2, 4), window 4) is initialized
+with JAX and frozen with ``freeze_swin``, once per ``gelu_stable`` value.
+Its stage-1 block 1 is shifted and masked; stage 2 has one window
+(ws = res = 4, no shift). The same numpy images go through
+``ivit_tpu.deploy.swin_engine.build_swin_infer(use_pallas=False)`` and the
+port's ``build_swin_infer``. K7's plain version is held to the Pallas
+kernel in interpret mode, the helpers to ``ivit_tpu.models.swin``'s, and
+the token-mean pool to ``jnp.mean`` at 49 tokens.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ivit_tpu.deploy.swin_engine import build_swin_infer as jax_build_swin_infer
+from ivit_tpu.deploy.swin_engine import freeze_swin
+from ivit_tpu.kernels.window_attention_fused import fused_int8_window_attention as pallas_window_attention
+from ivit_tpu.models import SwinTransformer
+from ivit_tpu.models import swin as jax_swin
+from ivit_tpu_torch.deploy.engine import int8_linear
+from ivit_tpu_torch.deploy.swin_artifact import swin_artifact_spec, swin_artifact_to_torch, validate_swin_artifact
+from ivit_tpu_torch.deploy.swin_engine import DEFAULT_KERNELS, build_swin_infer, select_swin_kernels, token_mean
+from ivit_tpu_torch.deploy.swin_synthetic import swin_nonzero_probability_share, synthetic_swin_artifact
+from ivit_tpu_torch.kernels import fused_int8_window_attention, fused_int8_window_attention_reference
+from ivit_tpu_torch.models import create_config
+from ivit_tpu_torch.models import swin
+
+TINY = dict(img_size=16, patch_size=2, num_classes=8, embed_dim=16, depths=(2, 2), num_heads=(2, 4), window_size=4)
+KERNEL_SETS = {"plain": (), "default": DEFAULT_KERNELS, "attention": ("attention",), "layernorm": ("layernorm",)}
+
+
+def _images(n, size=16, seed=42):
+    return np.random.default_rng(seed).standard_normal((n, size, size, 3)).astype(np.float32)
+
+
+def _jax_logits(artifact, images):
+    infer = jax.jit(jax_build_swin_infer(artifact, use_pallas=False))
+    return {b: np.asarray(infer(jnp.asarray(images[:b]))) for b in (len(images), 1)}
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["rowmax_gelu", "stable_gelu"])
+def frozen(request):
+    """A JAX-frozen tiny Swin, images, and the JAX engine's logits at
+    batch 2 and batch 1."""
+    model = SwinTransformer(**TINY, drop_path_rate=0.0, gelu_stable=request.param)
+    init = jax.jit(lambda rng, x: model.init(rng, x, train=True))
+    variables = init(jax.random.PRNGKey(1), jnp.asarray(_images(2, seed=0)))
+    artifact = freeze_swin(model, jax.tree.map(np.asarray, variables))
+    images = _images(2)
+    return artifact, images, _jax_logits(artifact, images)
+
+
+def _structure(tree):
+    """An artifact as its schema: ``swin_artifact_spec``'s leaves."""
+    if isinstance(tree, dict):
+        return {k: _structure(v) for k, v in tree.items() if k != "config"}
+    if isinstance(tree, list):
+        return [_structure(v) for v in tree]
+    if tree is None or isinstance(tree, int):
+        return tree
+    arr = np.asarray(tree)
+    return (arr.dtype, arr.shape)
+
+
+# ---- the model module's helpers -------------------------------------------
+
+
+@pytest.mark.parametrize("ws", [2, 4, 7])
+def test_relative_position_index_matches_jax(ws):
+    np.testing.assert_array_equal(swin.relative_position_index(ws), jax_swin.relative_position_index(ws))
+
+
+@pytest.mark.parametrize("geometry", [(8, 4, 2), (56, 7, 3), (14, 7, 3), (8, 4, 0)])
+def test_sw_attn_mask_matches_jax(geometry):
+    res, ws, shift = geometry
+    ours, ref = swin.sw_attn_mask(res, res, ws, shift), jax_swin.sw_attn_mask(res, res, ws, shift)
+    if shift == 0:
+        assert ours is None and ref is None
+    else:
+        np.testing.assert_array_equal(ours, ref)
+        assert ours.dtype == ref.dtype == np.float32
+
+
+@pytest.mark.parametrize("ws", [2, 4])
+def test_window_partition_and_reverse_match_jax(ws):
+    x = np.random.default_rng(ws).integers(-128, 128, (2, 8, 8, 5)).astype(np.int8)
+    windows = swin.window_partition(torch.from_numpy(x), ws)
+    np.testing.assert_array_equal(windows.numpy(), np.asarray(jax_swin.window_partition(jnp.asarray(x), ws)))
+    back = swin.window_reverse(windows, ws, 8, 8)
+    np.testing.assert_array_equal(back.numpy(), np.asarray(jax_swin.window_reverse(jnp.asarray(windows.numpy()), ws, 8, 8)))
+    np.testing.assert_array_equal(back.numpy(), x)
+
+
+@pytest.mark.parametrize("name", ["swin_tiny", "swin_small", "swin_base"])
+def test_config_factories_match_jax(name):
+    model = getattr(jax_swin, {"swin_tiny": "swin_tiny_patch4_window7_224", "swin_small": "swin_small_patch4_window7_224",
+                               "swin_base": "swin_base_patch4_window7_224"}[name])()
+    expected = dict(
+        img_size=model.img_size, patch_size=model.patch_size, embed_dim=model.embed_dim,
+        depths=tuple(model.depths), num_heads=tuple(model.num_heads), window_size=model.window_size,
+        mlp_ratio=model.mlp_ratio, num_classes=model.num_classes, gelu_stable=model.gelu_stable,
+    )
+    assert create_config(name) == expected
+
+
+# ---- the artifact -----------------------------------------------------------
+
+
+def test_spec_matches_the_frozen_artifact(frozen):
+    artifact, _, _ = frozen
+    validate_swin_artifact(artifact)
+    assert _structure(artifact) == swin_artifact_spec(artifact["config"])
+    blocks = [b for st in artifact["stages"] for b in st["blocks"]]
+    assert [b["shift"] for b in blocks] == [0, 2, 0, 0]
+    assert [b["mask_int"] is None for b in blocks] == [True, False, True, True]
+    assert "b" not in artifact["stages"][0]["downsample"]["reduction"]
+
+
+def test_artifact_to_torch_scalars(frozen):
+    artifact, _, _ = frozen
+    t = swin_artifact_to_torch(artifact, "cpu")
+    blk = t["stages"][0]["blocks"][1]
+    for key in ("r1", "rb", "scale", "r_out"):
+        value = blk["attn"][key]
+        assert isinstance(value, float) and float(np.float32(value)) == value
+    assert blk["attn"]["mask"].shape == (4, 16, 16) and t["stages"][0]["blocks"][0]["attn"]["mask"] is None
+    assert blk["attn"]["bias"].shape == (2, 16, 16)
+    assert set(t["stages"][0]["downsample"]["reduction"]) == {"w", "ratio"}
+
+
+def test_broken_swin_artifact_raises(frozen):
+    artifact, _, _ = frozen
+    stages = [dict(st, blocks=[dict(b) for b in st["blocks"]]) for st in artifact["stages"]]
+    stages[0]["blocks"][1]["mask_int"] = None  # a shifted block without its mask
+    with pytest.raises(ValueError, match="mask_int"):
+        validate_swin_artifact(dict(artifact, stages=stages))
+    stages[0]["blocks"][1]["mask_int"] = artifact["stages"][0]["blocks"][1]["mask_int"]
+    stages[1]["blocks"][0]["shift"] = 2  # geometry that disagrees with the config
+    with pytest.raises(ValueError, match="shift"):
+        build_swin_infer(dict(artifact, stages=stages), "cpu")
+
+
+# ---- the engine ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kernels", sorted(KERNEL_SETS))
+def test_engine_matches_jax_engine(frozen, kernels):
+    artifact, images, logits = frozen
+    infer = build_swin_infer(artifact, "cpu", kernels=KERNEL_SETS[kernels])
+    assert infer.kernels == frozenset(KERNEL_SETS[kernels])
+    out = infer(torch.from_numpy(images)).numpy()
+    assert out.shape == (2, 8) and np.all(np.isfinite(out))
+    np.testing.assert_array_equal(out, logits[2])
+    np.testing.assert_array_equal(infer(torch.from_numpy(images[:1])).numpy(), logits[1])
+
+
+def test_synthetic_artifact_matches_freeze_schema_and_jax(frozen):
+    artifact, _, _ = frozen
+    stable = artifact["config"]["gelu_stable"]
+    synth = synthetic_swin_artifact("swin_tiny", seed=3, gelu_stable=stable, **TINY)
+    assert synth["config"] == artifact["config"]
+    assert _structure(synth) == _structure(artifact)
+    assert type(synth["input_scale"]) is type(artifact["input_scale"])
+    images = _images(3, seed=9)
+    logits = _jax_logits(synth, images)
+    for kernels in ((), DEFAULT_KERNELS):
+        infer = build_swin_infer(synth, "cpu", kernels=kernels)
+        np.testing.assert_array_equal(infer(torch.from_numpy(images)).numpy(), logits[3])
+        np.testing.assert_array_equal(infer(torch.from_numpy(images[:1])).numpy(), logits[1])
+    # not degenerate: logits vary, and most window probabilities are nonzero
+    assert np.std(logits[3]) > 0 and not np.allclose(logits[3][0], logits[3][1])
+    shares = swin_nonzero_probability_share(synth, torch.from_numpy(images), device="cpu")
+    assert len(shares) == 4 and min(shares) > 0.5, shares
+
+
+def test_synthetic_artifact_is_seeded():
+    a, b, c = (synthetic_swin_artifact("swin_tiny", seed=s, **TINY) for s in (5, 5, 6))
+    np.testing.assert_array_equal(a["stages"][0]["blocks"][1]["bias_req"], b["stages"][0]["blocks"][1]["bias_req"])
+    assert a["stages"][1]["blocks"][0]["s_bias"] == b["stages"][1]["blocks"][0]["s_bias"]
+    assert not np.array_equal(a["stages"][0]["blocks"][0]["qkv"]["w"], c["stages"][0]["blocks"][0]["qkv"]["w"])
+    with pytest.raises(ValueError, match="not a Swin"):
+        synthetic_swin_artifact("deit_tiny")
+
+
+def test_swin_tiny_schema():
+    spec = swin_artifact_spec(create_config("swin_tiny"))
+    blocks = [b for st in spec["stages"] for b in st["blocks"]]
+    assert len(blocks) == 12 and [b["res"] for b in blocks[::2]] == [56, 28, 14, 14, 14, 7]
+    assert sum(b["mask_int"] is not None for b in blocks) == 5
+    assert blocks[1]["mask_int"][1] == (64, 49, 49) and blocks[11]["bias_req"][1] == (24, 49, 49)
+    assert spec["stages"][2]["downsample"]["reduction"]["w"][1] == (1536, 768)
+    assert spec["head"]["w"][1] == (768, 1000) and spec["patch_embed"]["w"][1] == (48, 96)
+
+
+def test_token_mean_matches_jnp_mean_at_49_tokens():
+    """The pool is the exact sum times float32(1/49), as ``jnp.mean``
+    computes it (jitted or not); ``torch.mean`` rounds the quotient
+    correctly and differs in about a quarter of the values."""
+    y = np.random.default_rng(0).integers(-128, 128, (4000, 49, 16)).astype(np.int8)
+    ours = token_mean(torch.from_numpy(y)).numpy()
+    yf = jnp.asarray(y.astype(np.float32))
+    np.testing.assert_array_equal(ours, np.asarray(jnp.mean(yf, axis=1)))
+    np.testing.assert_array_equal(ours, np.asarray(jax.jit(lambda a: jnp.mean(a, axis=1))(yf)))
+    plain = torch.from_numpy(y.astype(np.float32)).mean(1).numpy()
+    assert 0.1 < np.mean(plain != ours) < 0.5
+
+
+# ---- K7 -------------------------------------------------------------------------
+
+
+def _window_case(G, N, hd, heads, n_windows, seed):
+    """int8 q, k, v spread over a third of int8 scores, an integer bias, a
+    mask of −100/s_bias off the diagonal, and a saturated row."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.integers(-128, 128, (G, N, hd)).astype(np.int8) for _ in range(3))
+    q[0, 1], k[0] = 127, np.where(np.arange(N)[:, None] % 2 == 0, 127, -128)
+    bias = rng.integers(-30, 31, (heads, N, N)).astype(np.float32)
+    scale = np.float32(0.07)
+    mask = np.where(rng.random((n_windows, N, N)) < 0.4, np.float32(-100.0) / scale, 0).astype(np.float32)
+    for m in mask:
+        np.fill_diagonal(m, 0.0)
+    ratios = (np.float32(127.0 / (3 * np.sqrt(hd) * 74.0**2)), np.float32(0.9), scale, np.float32(0.05 / 128 / 0.021))
+    return (q, k, v, bias, mask), tuple(float(r) for r in ratios)
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+def test_window_attention_reference_matches_pallas(masked):
+    G, N, hd, heads, n_windows = 24, 16, 8, 3, 4
+    (q, k, v, bias, mask), (r1, rb, scale, r_out) = _window_case(G, N, hd, heads, n_windows, seed=int(masked))
+    mask = mask if masked else None
+    npad = 128
+
+    def pad(a, axes):
+        return jnp.asarray(np.pad(a, [(0, npad - s) if i in axes else (0, 0) for i, s in enumerate(a.shape)]))
+
+    ref = pallas_window_attention(
+        pad(q, {1}), pad(k, {1}), pad(v, {1}), pad(bias, {1, 2}), None if mask is None else pad(mask, {1, 2}),
+        r1=r1, rb=rb, scale=scale, r_out=r_out, n_valid=N, heads=heads, interpret=True,
+    )
+    args = [torch.from_numpy(a) for a in (q, k, v, bias)] + [None if mask is None else torch.from_numpy(mask)]
+    ours = fused_int8_window_attention_reference(*args, r1, rb, scale, r_out, heads)
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref)[:, :N])
+    assert ours.unique().numel() > 100
+    # the wrapper takes the plain version for CPU tensors and counts no launch
+    before = fused_int8_window_attention.launches
+    np.testing.assert_array_equal(fused_int8_window_attention(*args, r1, rb, scale, r_out, heads).numpy(), ours.numpy())
+    assert fused_int8_window_attention.launches == before
+
+
+@pytest.mark.parametrize(
+    "shape,heads,n_windows,match",
+    [((24, 16, 8), 5, None, "multiple of heads"), ((24, 16, 8), 3, 3, "windows"),
+     ((24, 16, 6), 3, None, "hd"), ((3, 257, 8), 3, None, "256")],
+    ids=["heads", "windows", "hd", "tokens"],
+)
+def test_window_attention_rejects(shape, heads, n_windows, match):
+    G, N, hd = shape
+    q = torch.zeros(shape, dtype=torch.int8)
+    bias = torch.zeros((heads, N, N))
+    mask = None if n_windows is None else torch.zeros((n_windows, N, N))
+    with pytest.raises(ValueError, match=match):
+        fused_int8_window_attention(q, q, q, bias, mask, 0.1, 0.9, 0.07, 0.01, heads)
+
+
+# ---- kernel selection and devices -------------------------------------------
+
+
+@pytest.mark.parametrize("kernels", [("softmax",), ("gelu",), ("attention2",), ("attention", "linear_gelu")])
+def test_unknown_kernel_names_raise(kernels):
+    with pytest.raises(ValueError, match="unknown"):
+        select_swin_kernels(create_config("swin_tiny"), kernels)
+
+
+def test_attention_kernel_on_a_window_over_16_raises():
+    cfg = create_config("swin_tiny", img_size=272, patch_size=4, window_size=17)  # N = 289
+    with pytest.raises(ValueError, match="256"):
+        select_swin_kernels(cfg, ("attention",))
+    assert select_swin_kernels(cfg, ("layernorm",)) == {"layernorm"}
+    assert select_swin_kernels(create_config("swin_tiny"), DEFAULT_KERNELS) == {"attention", "layernorm"}
+
+
+def test_engine_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works here")
+    artifact = synthetic_swin_artifact("swin_tiny", seed=5, **TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_swin_infer(artifact)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        swin_nonzero_probability_share(artifact, torch.from_numpy(_images(1)))
+
+
+def test_int8_linear_adds_the_bias_only_where_there_is_one():
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(-128, 128, (5, 16)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (16, 8)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-1000, 1000, (8,)).astype(np.int32))
+    exact = x.to(torch.int32) @ w.to(torch.int32)
+    assert torch.equal(int8_linear(x, {"w": w}), exact)
+    assert torch.equal(int8_linear(x, {"w": w, "b": b}), exact + b)
