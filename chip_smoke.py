@@ -26,8 +26,12 @@ Phases:
    (tolerance 0), at its path's batch-128 and batch-1 shapes, on the
    engine's own block-0 inputs and on random inputs that spread its
    values: K3 (25216, 384) / (197, 384); K1 and K2 (768, 197, 64) /
-   (6, 197, 64) at out_bits 8 and 16; K4 (25216, 384) x (384, 1536) /
-   (197, ...); K5 (25216, 1536) / (197, 1536); K6 (151296, 197) /
+   (6, 197, 64) at out_bits 8 and 16, also on edge inputs (cells of equal
+   scores, cells whose every score clips at -128 or +127 against
+   V = -128, and a power-of-two 1/scale), one-token rows at a
+   power-of-two 1/scale (probabilities 128 and 32768) at G = 768 and 6,
+   and N in ATTN_N x hd in ATTN_HD on the edge inputs; K4 (25216, 384) x
+   (384, 1536) / (197, ...); K5 (25216, 1536) / (197, 1536); K6 (151296, 197) /
    (1182, 197); K7 at each Swin-T stage's (B·nW·H, 49, 32) shape,
    unshifted (block 0) and shifted with the window mask (block 1, stages
    1-3), on the Swin path's own inputs and on random spread ones; K3 at
@@ -44,8 +48,9 @@ Phases:
    and ms/image at batch 1; each kernel beside its plain version and, for
    K4, ``torch._int_mm`` on the same GEMM (a partial yardstick the port
    never calls); each kernel's bound (the larger of its bytes over the
-   HBM rate and its operations over the peak rates); device time by
-   kernel and the device's idle share over one profiled forward
+   HBM rate and its operations over the peak rates; K1 and K2 count
+   the per-score work of their shift-exp table, ATTN_TABLE_OPS); device
+   time by kernel and the device's idle share over one profiled forward
    (torch.profiler): the main path, routes A and B and Swin-T at batch
    128, and route A at batch 1.
 
@@ -61,6 +66,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +76,9 @@ SEED = 0
 BATCH = 128
 ROUTE_A = ("layernorm", "attention2", "linear_gelu")
 ROUTE_B = ("layernorm", "softmax", "gelu")
+POW2_SCALE = 0.125  # 1/scale a power of two: a one-token row's probability is 2^(out_bits-1)
+ATTN_N = (1, 17, 32, 33, 197, 256)  # K1/K2 edge shapes: tokens ...
+ATTN_HD = (8, 32, 64, 128)          # ... against head widths
 
 # Published H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/ms and
 # int8 tensor-core ops/ms. 67 TFLOP/s in float32 counts an FMA as two
@@ -86,6 +95,11 @@ INT32_PER_MS = 16.75e12 / 1e3
 REQUANT_OPS = (4, 0)     # mul, rint, max, min
 SHIFT_EXP_OPS = (17, 3)  # 2 x (div, floor), add, sub, max, div, floor, mul, 3 sub, mul, floor, 2 clip; exp2i
 SHIFTMAX_OPS = (REQUANT_OPS[0] + 2 + SHIFT_EXP_OPS[0] + 2, SHIFT_EXP_OPS[1] + 1)  # max, sub; mul, floor; int sum
+# K1 and K2 look the shift-exp up in a 256-entry table of the integer
+# z - zmax (filled once per block), so per score the least work is the
+# requant, the max, the multiply and the floor (float32) and the
+# subtract, the lookup and the sum (int32)
+ATTN_TABLE_OPS = (REQUANT_OPS[0] + 3, 3)
 SPLIT_OPS = (7, 0)       # div, floor, mul, sub, sub, 2 x saturate
 GELU_OPS = (2 * REQUANT_OPS[0] + 2 + SHIFT_EXP_OPS[0] + 9, SHIFT_EXP_OPS[1])  # max, sub; add, clip 2, div, floor, mul, div, floor, mul
 LAYERNORM_OPS = (10, 10)  # int32 split statistics; convert, sub, mul, div, floor, add, requant
@@ -202,6 +216,18 @@ def main() -> int:
     _build.load()
     print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}, {len(libs)} sources in parallel "
           f"-> {_build.BUILD_DIR} in {time.perf_counter() - t0:.3f} s")
+    # registers, spill stack and static shared memory of K1's and K2's
+    # kernels, as built (they set how many blocks an SM holds)
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    for name, source in (("K1", "attention_fused.cu"), ("K2", "attention_fused_v2.cu")):
+        usage = subprocess.run([cuobjdump, "--dump-resource-usage", _build.lib_path(source)],
+                               capture_output=True, text=True, check=True).stdout.splitlines()
+        for fn, res in zip(usage, usage[1:]):
+            args = re.search(r"attention_mma_kernelILb(\d)ELb(\d)ELi(\d)E", fn)
+            if args and "REG:" in res:
+                v2, wide, depth = args.groups()
+                print(f"{name} resources: attention_mma_kernel<kV2={v2}, out_bits={16 if wide == '1' else 8}, "
+                      f"depth={depth}>: {' '.join(res.split()[:4])}")
 
     # the paths' inputs
     t0 = time.perf_counter()
@@ -244,14 +270,15 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     errs = {k: 0 for k in WRAPPERS}
 
-    def compare(name: str, label: str, out, ref) -> None:
+    def compare(name: str, label: str, out, ref, quiet: bool = False) -> None:
         torch.cuda.synchronize()
         outs = out if isinstance(out, tuple) else (out,)
         refs = ref if isinstance(ref, tuple) else (ref,)
         err = max(max_abs_err(o, r) for o, r in zip(outs, refs))
         errs[name] = max(errs[name], err)
-        distinct = int(refs[0].unique().numel())
-        print(f"{name} {label}: max_abs_err {err} (tolerance 0), distinct outputs {distinct}")
+        if not quiet:
+            distinct = int(refs[0].unique().numel())
+            print(f"{name} {label}: max_abs_err {err} (tolerance 0), distinct outputs {distinct}")
         check(err == 0, f"{name} {label} differs from its plain version")
 
     k3_cases = {f"({BATCH * N}, {D})": x128.reshape(-1, D), f"({N}, {D})": x1.reshape(-1, D)}
@@ -259,10 +286,39 @@ def main() -> int:
         args = (x, blk8["norm1"]["bias_int"], blk8["norm1"]["ratio"])
         compare("K3", shape, fused_layernorm_requant(*args), fused_layernorm_requant_reference(*args))
 
-    # K1 and K2: the block-0 q, k, v of each path and random spread inputs
+    # K1 and K2: the block-0 q, k, v of each path, random spread inputs and
+    # edge inputs
     s8 = {k: np.float32(art8["blocks"][0][k]) for k in ("s_attn_qact1", "s_attn_out")}
     spread_r1 = float(np.float32(127.0 / (3 * np.sqrt(hd) * 74.0**2)))
     spread_scale = float(np.float32(0.07))
+
+    def r_out_at(bits: int) -> float:
+        """The main path's block-0 r_out at this probability width (f32, as the engine forms it)."""
+        return float(np.float32(np.float32(1.0 / 2 ** (bits - 1)) * s8["s_attn_qact1"]) / s8["s_attn_out"])
+
+    def edge_inputs(G: int, n_tok: int, d: int) -> list:
+        """Random int8 q, k, v whose first cells hold the edges: equal
+        scores (q = 0), and every score clipped at -128 or at +127 against
+        V = -128 (the largest |context|)."""
+        q, k, v = (torch.randint(-128, 128, (G, n_tok, d), generator=gen, dtype=torch.int8) for _ in range(3))
+        c = max(G // 4, 1)
+        q[:c] = 0
+        q[c:2 * c], k[c:2 * c], v[c:2 * c] = 127, -128, -128
+        q[2 * c:3 * c], k[2 * c:3 * c], v[2 * c:3 * c] = 127, 127, -128
+        return [t.to(dev) for t in (q, k, v)]
+
+    def compare_attention(q, k, v, r1, scale, r_out, bits, data, quiet=False) -> None:
+        n_tok = q.shape[1]
+        label = f"({', '.join(map(str, q.shape))}) out_bits={bits} {data}"
+        if not quiet:
+            probs = attention_probabilities(q, k, r1, scale, bits)
+            label += f", nonzero probabilities {float((probs > 0).float().mean())}"
+        compare("K1", label, fused_int8_attention(q, k, v, r1, scale, r_out, bits),
+                fused_int8_attention_reference(q, k, v, r1, scale, r_out, bits), quiet)
+        if scale_gate(n_tok, scale):
+            compare("K2", label, fused_int8_attention_v2(q, k, v, r1, scale, r_out, n_tok, bits),
+                    fused_int8_attention_v2_reference(q, k, v, r1, scale, r_out, n_tok, bits), quiet)
+
     attn_inputs = {}
     for size, xa, xb in (("b128", x128, x16["b128"]), ("b1", x1, x16["b1"])):
         with torch.inference_mode():
@@ -270,11 +326,10 @@ def main() -> int:
     for size, ins in attn_inputs.items():
         q8, k8, v8 = ins["sm8"]
         G = q8.shape[0]
-        shape = f"({G}, {N}, {hd})"
         rand = [torch.randint(-128, 128, (G, N, hd), generator=gen, dtype=torch.int8).to(dev) for _ in range(3)]
+        edges = edge_inputs(G, N, hd)
         for bits in (8, 16):
-            # the main path's block-0 ratios at this probability width (f32, as the engine forms them)
-            r_out8 = float(np.float32(np.float32(1.0 / 2 ** (bits - 1)) * s8["s_attn_qact1"]) / s8["s_attn_out"])
+            r_out8 = r_out_at(bits)
             a16 = blk16["attn"]
             cases = [
                 ("main-path block0", ins["sm8"], blk8["attn"]["r1"], blk8["attn"]["scale"], r_out8),
@@ -282,14 +337,28 @@ def main() -> int:
             ]
             if bits == 16:
                 cases.insert(1, ("sm16 block0", ins["sm16"], a16["r1"], a16["scale"], a16["r_out"]))
+            cases += [("edges", edges, spread_r1, spread_scale, r_out8),
+                      ("edges, power-of-two 1/scale", edges, spread_r1, POW2_SCALE, r_out8)]
             for data, (qq, kk, vv), r1, scale, r_out in cases:
-                probs = attention_probabilities(qq, kk, r1, scale, bits)
-                label = f"{shape} out_bits={bits} {data}, nonzero probabilities {float((probs > 0).float().mean())}"
-                compare("K1", label, fused_int8_attention(qq, kk, vv, r1, scale, r_out, bits),
-                        fused_int8_attention_reference(qq, kk, vv, r1, scale, r_out, bits))
-                if scale_gate(N, scale):
-                    compare("K2", label, fused_int8_attention_v2(qq, kk, vv, r1, scale, r_out, N, bits),
-                            fused_int8_attention_v2_reference(qq, kk, vv, r1, scale, r_out, N, bits))
+                compare_attention(qq, kk, vv, r1, scale, r_out, bits, data)
+    # one-token rows at a power-of-two 1/scale (probability 2^(out_bits-1)),
+    # at the paths' cell counts, and every N in ATTN_N against every hd in
+    # ATTN_HD, each on the edge inputs
+    for G in (BATCH * H, H):
+        for bits in (8, 16):
+            qq, kk, vv = edge_inputs(G, 1, hd)
+            probs = attention_probabilities(qq, kk, spread_r1, POW2_SCALE, bits)
+            check(float(probs.max()) == 2.0 ** (bits - 1), f"one-token rows: probability {float(probs.max())}")
+            compare_attention(qq, kk, vv, spread_r1, POW2_SCALE, r_out_at(bits), bits, "one-token rows")
+    for n_tok in ATTN_N:
+        for hd_ in ATTN_HD:
+            qq, kk, vv = edge_inputs(5, n_tok, hd_)
+            r1 = float(np.float32(127.0 / (3 * np.sqrt(hd_) * 74.0**2)))
+            for bits in (8, 16):
+                for scale in (spread_scale, POW2_SCALE):
+                    compare_attention(qq, kk, vv, r1, scale, r_out_at(bits), bits, f"edges scale {scale}", quiet=True)
+    print(f"K1, K2: max_abs_err 0 (tolerance 0) at N in {ATTN_N} x hd in {ATTN_HD} (G = 5) on the edge inputs, "
+          f"out_bits 8 and 16, scales {spread_scale} and {POW2_SCALE}")
 
     # K6: the block-0 scores of the sm16 path and random spread scores
     def scores(q, k):
@@ -480,7 +549,7 @@ def main() -> int:
             G = q.shape[0]
             pv_products = 1 if bits == 8 else 2  # 16-bit probabilities: two int8 products
             bounds[(name, shape)] = bound_ms(4 * G * N * hd, int8_ops=2 * G * N * N * hd * (1 + pv_products),
-                                             elementwise=per_element(G * N * N, SHIFTMAX_OPS))
+                                             elementwise=per_element(G * N * N, ATTN_TABLE_OPS))
     for (size, label), (x, norm) in swin_norm_inputs.items():
         args = (x, norm["bias_int"], norm["ratio"])
         shape = f"{tuple(x.shape)} Swin-T {label}"

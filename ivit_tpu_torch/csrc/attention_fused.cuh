@@ -1,59 +1,49 @@
-// The fused integer attention kernel shared by K1 (attention_fused.cu), K2
-// (attention_fused_v2.cu) and K7 (window_attention_fused.cu), as one
-// template with three modes.
+// The fused integer window attention kernel of K7
+// (window_attention_fused.cu), on the CUDA cores. K1 and K2 have their
+// own kernel, on the int8 tensor cores (attention_mma.cuh).
 //
-// Per cell g (batch*head, or batch*window*head for K7) and query row i:
+// Per cell g (batch*window*head) and query row i:
 //   s_ij  = q_i . k_j                        int8 x int8 -> int32 (__dp4a)
 //   z_ij  = clip(rint(float(s_ij) * r1), -128, 127)
-//   K7 only: z_ij = clip(rint(z_ij * rb) + bias_ij, -128, 127) [+ mask_ij]
+//   z_ij  = clip(rint(z_ij * rb) + bias_ij, -128, 127) [+ mask_ij]
 //   e_ij  = shift_exp(z_ij - max_j z_ij)     (K0, shiftmax_common.cuh)
-//   sm_ij = floor(e_ij * norm_factor(sum_j e_ij, out_bits))
+//   sm_ij = floor(e_ij * norm_factor(sum_j e_ij, 8))
 //   c_id  = sum_j sm_ij * v_jd
 //   out   = clip(rint(float(c_id) * r_out), -128, 127)  int8
 // The (N, N) scores never leave the SM.
 //
-// kV2=false is K1 (ivit_tpu/kernels/attention_fused.py): every shift-exp
-// guard kept, the row sum an exact 64-bit integer sum rounded once, and
-// the @V sum exact in int32. kV2=true is K2
-// (ivit_tpu/kernels/attention_fused_v2.py): the per-element clip of the
-// shift-exp elided, the row sum accumulated in int32 and rounded once,
-// and the @V sum accumulated in float32. Its wrapper enforces v2's gate
-// n_valid * ceil(1/scale) * 2^n < 2^31, under which the clip cannot bind
-// and the int32 sum cannot wrap; and since the probabilities of a row sum
-// to at most (2^31-1)/2^(32-out_bits) < 2^15 and |v| <= 128, every
-// partial sum of the f32 @V stays below 2^22 and is exact. The two modes
-// therefore give the same integers wherever K2's gate holds. kWindow is
-// K7 (ivit_tpu/kernels/window_attention_fused.py): K1's exact chain at
-// 8-bit probabilities with Swin's relative-position bias merge between
-// the requant and the Shiftmax. Cell g reads bias head g % heads and, for
-// a shifted window, mask window (g / heads) % n_windows. The mask addend
-// (-100/s_bias) is non-integral and far below -128, and it is added in
-// f32 after the int8 clip, so the row max starts at -inf in this mode and
-// the shift-exp sees non-integral values, as in the spec.
+// K7 (ivit_tpu/kernels/window_attention_fused.py) is K1's exact chain
+// (every shift-exp guard kept, the row sum an exact 64-bit integer sum
+// rounded once, the @V sum exact in int32) at 8-bit probabilities, with
+// Swin's relative-position bias merge between the requant and the
+// Shiftmax. Cell g reads bias head g % heads and, for a shifted window,
+// mask window (g / heads) % n_windows. The mask addend (-100/s_bias) is
+// non-integral and far below -128, and it is added in f32 after the int8
+// clip, so the row max starts at -inf and the shift-exp sees non-integral
+// values, as in the spec (which is why K1's shift-exp table does not
+// serve here).
 //
 // Layout: q, k, v, out are (G, N, hd) int8, contiguous and unpadded. The
-// Pallas kernels pad N to 128 lanes and mask pad columns to probability
-// 0; leaving them out is value-identical. At out_bits=8 the
-// probabilities are <= 127 and at 16 <= 2^15, and the exact sum sm.v
-// equals the JAX kernel's base-256 split (256*hi@V + lo@V + 128*sum v),
-// so one loop serves both widths. The f32 conversion of the context
-// happens once, before the r_out multiply, as in the spec.
+// Pallas kernel pads N to 128 lanes and masks pad columns to probability
+// 0; leaving them out is value-identical. The probabilities are at most
+// 2^7 = 128 (a one-token row whose 1/scale is a power of two), and they
+// are held in int, so the exact sum sm.v needs no split. The f32
+// conversion of the context happens once, before the r_out multiply, as
+// in the spec.
 //
 // Bound on the H100: N <= 256 (the same bound as the JAX kernels: the
 // exact row sum there is a two-limb f32 sum, equal to an exact integer
 // sum rounded once up to 256 columns). HBM traffic is only q, k, v in and
-// the context out; the bound is on-chip work, 2*N*hd integer MACs per
-// row. K and V of one head (2*N*hd bytes, 25 KB for DeiT-S) are staged
-// once per block in shared memory and reused by every row the block owns;
-// Q.K^T uses __dp4a (4 MACs per instruction) on 4-byte words, with the K
-// rows padded by one word so 32 lanes reading 32 different rows hit 32
-// different banks. One warp owns one query row at a time: its scores sit
-// in registers (8 per lane), its probabilities in a per-warp shared row.
-// The @V loop issues two shared-memory loads per MAC and is what limits
-// this first version; int8 tensor-core MMA (mma.sync / wgmma) for both
-// products is later work. The TPU's per-image grid of K2 (all heads in
-// one 1.4 MB VMEM scratch) does not carry over to a 227 KB block: both
-// modes grid over batch*head x row tiles.
+// the context out, plus the bias and mask planes, which stay in L2; the
+// bound is on-chip work, 2*N*hd integer MACs per row. K and V of one cell
+// are staged once per block in shared memory and reused by every row the
+// block owns; Q.K^T uses __dp4a (4 MACs per instruction) on 4-byte words,
+// with the K rows padded by one word so 32 lanes reading 32 different rows
+// hit 32 different banks. One warp owns one query row at a time: its
+// scores sit in registers (8 per lane), its probabilities in a per-warp
+// shared row. The @V loop issues two shared-memory loads per MAC and is
+// what limits it; packing several 49-token cells into the int8 MMA tiles
+// of attention_mma.cuh is later work.
 
 #pragma once
 
@@ -70,8 +60,6 @@ namespace ivit {
 constexpr int kAttnWarps = 8;
 constexpr int kAttnMaxN = 256;
 
-enum class AttnMode { kK1, kK2, kWindow };
-
 // K7's extra operands: the relative-position bias and the shifted-window mask.
 struct WindowArgs {
   const float* bias = nullptr;  // (heads, N, N) integer-valued f32
@@ -81,14 +69,11 @@ struct WindowArgs {
   float rb = 0.0f;  // the merge ratio s_attn1 / s_bias
 };
 
-template <AttnMode kMode>
 __global__ void __launch_bounds__(kAttnWarps * 32)
-fused_attention_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
-                       const int8_t* __restrict__ v, int8_t* __restrict__ out, int N, int hd,
-                       int rows_per_block, float r1, float scale, float r_out, float n,
-                       int out_bits, WindowArgs win) {
-  constexpr bool kV2 = kMode == AttnMode::kK2;
-  constexpr bool kWindow = kMode == AttnMode::kWindow;
+fused_window_attention_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
+                              const int8_t* __restrict__ v, int8_t* __restrict__ out, int N,
+                              int hd, int rows_per_block, float r1, float scale, float r_out,
+                              float n, WindowArgs win) {
   constexpr int kColsPerLane = kAttnMaxN / 32;
   extern __shared__ int smem[];
   const int words = hd / 4;
@@ -116,23 +101,20 @@ fused_attention_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ 
   int* myQ = sQ + warp * words;
   const int row_begin = static_cast<int>(blockIdx.y) * rows_per_block;
   const int row_end = min(N, row_begin + rows_per_block);
-  const float* bias = nullptr;
+  const size_t plane = static_cast<size_t>(N) * N;
+  const float* bias = win.bias + (blockIdx.x % win.heads) * plane;
   const float* mask = nullptr;
-  if constexpr (kWindow) {
-    const size_t plane = static_cast<size_t>(N) * N;
-    bias = win.bias + (blockIdx.x % win.heads) * plane;
-    if (win.mask != nullptr) mask = win.mask + ((blockIdx.x / win.heads) % win.n_windows) * plane;
-  }
+  if (win.mask != nullptr) mask = win.mask + ((blockIdx.x / win.heads) % win.n_windows) * plane;
 
   for (int row = row_begin + warp; row < row_end; row += kAttnWarps) {
     const int* q32 = reinterpret_cast<const int*>(q + head + static_cast<size_t>(row) * hd);
     for (int w = lane; w < words; w += 32) myQ[w] = q32[w];
     __syncwarp();
 
-    // scores -> requant to the int8 softmax input (-> K7's merge) -> row max
+    // scores -> requant to the int8 softmax input -> bias merge -> row max
     float z[kColsPerLane];
-    // the requantized scores lie in [-128, 127]; K7's masked ones below
-    float zmax = kWindow ? -CUDART_INF_F : -128.0f;
+    // the merged scores lie in [-128, 127], the masked ones far below
+    float zmax = -CUDART_INF_F;
 #pragma unroll
     for (int t = 0; t < kColsPerLane; ++t) {
       const int j = lane + 32 * t;
@@ -142,11 +124,9 @@ fused_attention_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ 
         int acc = 0;
         for (int w = 0; w < words; ++w) acc = __dp4a(myQ[w], kr[w], acc);
         float zz = fminf(fmaxf(rintf(static_cast<float>(acc) * r1), -128.0f), 127.0f);
-        if constexpr (kWindow) {
-          const size_t at = static_cast<size_t>(row) * N + j;
-          zz = fminf(fmaxf(rintf(zz * win.rb) + bias[at], -128.0f), 127.0f);
-          if (mask != nullptr) zz = zz + mask[at];
-        }
+        const size_t at = static_cast<size_t>(row) * N + j;
+        zz = fminf(fmaxf(rintf(zz * win.rb) + bias[at], -128.0f), 127.0f);
+        if (mask != nullptr) zz = zz + mask[at];
         z[t] = zz;
         zmax = fmaxf(zmax, zz);
       }
@@ -154,29 +134,16 @@ fused_attention_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ 
     zmax = warp_max(zmax);
 
     // shift-exp and its row sum, rounded once to f32
-    float esum_f;
-    if constexpr (kV2) {
-      int esum = 0;
+    unsigned long long esum = 0;
 #pragma unroll
-      for (int t = 0; t < kColsPerLane; ++t) {
-        if (lane + 32 * t < N) {
-          z[t] = shift_exp<false>(z[t] - zmax, x0, n);
-          esum += static_cast<int>(z[t]);
-        }
+    for (int t = 0; t < kColsPerLane; ++t) {
+      if (lane + 32 * t < N) {
+        z[t] = shift_exp(z[t] - zmax, x0, n);
+        esum += static_cast<unsigned long long>(z[t]);
       }
-      esum_f = static_cast<float>(warp_sum_i32(esum));
-    } else {
-      unsigned long long esum = 0;
-#pragma unroll
-      for (int t = 0; t < kColsPerLane; ++t) {
-        if (lane + 32 * t < N) {
-          z[t] = shift_exp(z[t] - zmax, x0, n);
-          esum += static_cast<unsigned long long>(z[t]);
-        }
-      }
-      esum_f = __ull2float_rn(warp_sum_u64(esum));
     }
-    const float factor = norm_factor(esum_f, out_bits);
+    const float esum_f = __ull2float_rn(warp_sum_u64(esum));
+    const float factor = norm_factor(esum_f, 8);
 #pragma unroll
     for (int t = 0; t < kColsPerLane; ++t) {
       const int j = lane + 32 * t;
@@ -187,36 +154,22 @@ fused_attention_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ 
     // probabilities @ V, then requant to the int8 context
     int8_t* orow = out + head + static_cast<size_t>(row) * hd;
     for (int d = lane; d < hd; d += 32) {
-      float c;
-      if constexpr (kV2) {
-        float acc = 0.0f;
-        for (int j = 0; j < N; ++j) {
-          acc += static_cast<float>(myP[j]) * static_cast<float>(sV8[j * hd + d]);
-        }
-        c = acc;
-      } else {
-        int acc = 0;
-        for (int j = 0; j < N; ++j) acc += myP[j] * static_cast<int>(sV8[j * hd + d]);
-        c = static_cast<float>(acc);
-      }
+      int acc = 0;
+      for (int j = 0; j < N; ++j) acc += myP[j] * static_cast<int>(sV8[j * hd + d]);
+      const float c = static_cast<float>(acc);
       orow[d] = static_cast<int8_t>(fminf(fmaxf(rintf(c * r_out), -128.0f), 127.0f));
     }
     __syncwarp();  // myQ / myP are rewritten by the warp's next row
   }
 }
 
-// Launches one mode on `stream`. Returns cudaGetLastError() (0 on success).
-template <AttnMode kMode>
-int launch_fused_attention(const void* q, const void* k, const void* v, void* out, int G, int N,
-                           int hd, float r1, float scale, float r_out, int n, int out_bits,
-                           void* stream, const WindowArgs& win = WindowArgs{}) {
+// Launches K7 on `stream`. Returns cudaGetLastError() (0 on success).
+inline int launch_window_attention(const void* q, const void* k, const void* v, void* out, int G,
+                                   int N, int hd, float r1, float scale, float r_out, int n,
+                                   void* stream, const WindowArgs& win) {
   if (G < 1 || N < 1 || N > kAttnMaxN || hd < 4 || hd % 4 != 0 || hd > 256 ||
-      (out_bits != 8 && out_bits != 16)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (kMode == AttnMode::kWindow &&
-      (out_bits != 8 || win.bias == nullptr || win.heads < 1 || win.n_windows < 1 ||
-       G % win.heads != 0 || (win.mask != nullptr && G % (win.heads * win.n_windows) != 0))) {
+      win.bias == nullptr || win.heads < 1 || win.n_windows < 1 || G % win.heads != 0 ||
+      (win.mask != nullptr && G % (win.heads * win.n_windows) != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // enough blocks to cover the SMs at small batch: split each head's rows
@@ -231,15 +184,15 @@ int launch_fused_attention(const void* q, const void* k, const void* v, void* ou
                      kAttnWarps * kAttnMaxN + kAttnWarps * words);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_attention_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fused_window_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(G, (N + rows_per_block - 1) / rows_per_block);
-  fused_attention_kernel<kMode><<<grid, kAttnWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+  fused_window_attention_kernel<<<grid, kAttnWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(q), static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
       static_cast<int8_t*>(out), N, hd, rows_per_block, r1, scale, r_out, static_cast<float>(n),
-      out_bits, win);
+      win);
   return static_cast<int>(cudaGetLastError());
 }
 

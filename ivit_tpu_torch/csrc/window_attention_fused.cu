@@ -2,10 +2,9 @@
 //
 // Replaces ivit_tpu/kernels/window_attention_fused.py:
 // fused_int8_window_attention (the pl.pallas_call at :132, body _one_cell
-// :32-61). The kernel is the window mode of the template in
-// attention_fused.cuh: K1's exact chain (every shift-exp guard, a 64-bit
-// row sum rounded once, an exact int32 @V) at 8-bit probabilities, with
-// the relative-position bias merge clip(rint(a8 * rb) + bias) and the
+// :32-61). The kernel is in attention_fused.cuh: K1's exact chain (every
+// shift-exp guard, a 64-bit row sum rounded once, an exact int32 @V) at
+// 8-bit probabilities, with the relative-position bias merge clip(rint(a8 * rb) + bias) and the
 // optional shifted-window mask addend between the score requant and the
 // Shiftmax.
 //
@@ -37,6 +36,5 @@ extern "C" int ivit_fused_int8_window_attention(const void* q, const void* k, co
   win.heads = heads;
   win.n_windows = n_windows;
   win.rb = rb;
-  return ivit::launch_fused_attention<ivit::AttnMode::kWindow>(q, k, v, out, G, N, hd, r1, scale,
-                                                               r_out, n, 8, stream, win);
+  return ivit::launch_window_attention(q, k, v, out, G, N, hd, r1, scale, r_out, n, stream, win);
 }

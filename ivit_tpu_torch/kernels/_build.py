@@ -27,7 +27,7 @@ import types
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-HEADERS = ("shiftmax_common.cuh", "attention_fused.cuh", "gelu_common.cuh")
+HEADERS = ("shiftmax_common.cuh", "attention_mma.cuh", "attention_fused.cuh", "gelu_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",

@@ -6,7 +6,8 @@ the functions here state the same arithmetic on tensors, element for
 element, so the header can be read against them. ``exact_rowsum_2limb``
 is what the CUDA side computes as an exact 64-bit integer sum rounded
 once to float32: both are the correctly rounded exact sum while a row
-has at most 256 columns.
+has at most 256 columns. ``shift_exp_table`` is the per-launch table of
+K1 and K2 (``csrc/attention_mma.cuh``).
 """
 
 from __future__ import annotations
@@ -34,6 +35,16 @@ def shift_exp_rows(
     if clip_e:
         e = torch.clamp(e, 0.0, I32_MAX)
     return torch.where(valid, e, torch.zeros_like(e))
+
+
+def shift_exp_table(scale: float, n: int, clip: bool = True) -> torch.Tensor:
+    """The shift-exp of every row-max-subtracted score K1 and K2 can
+    meet: entry i is ``shift_exp_rows`` at z = −i, i in [0, 255] (their
+    scores are int8, so z − max z is an integer in [−255, 0]). ``clip``
+    as ``clip_e``: on for K1, off for K2. Float32 (256,) on the CPU."""
+    z = 0.0 - torch.arange(256, dtype=torch.float32)
+    valid = torch.ones_like(z, dtype=torch.bool)
+    return shift_exp_rows(z, torch.tensor(scale, dtype=torch.float32), n, valid, clip)
 
 
 def exact_rowsum_2limb(e: torch.Tensor) -> torch.Tensor:

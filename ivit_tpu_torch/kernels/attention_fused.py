@@ -2,16 +2,25 @@
 
 Replaces ``ivit_tpu/kernels/attention_fused.py:fused_int8_attention``
 (``pl.pallas_call`` at :126). The CUDA kernel is
-``csrc/attention_fused.cu``: per batch·head it stages K and V in shared
-memory (25 KB at DeiT-S), one warp per query row computes the int8 Q·Kᵀ
-with ``__dp4a``, requantizes, runs the whole Shiftmax chain (K0,
-``csrc/shiftmax_common.cuh``) on scores held in registers, and sums the
-probabilities against V exactly in int32 before the final requant. The
-(N, N) scores never reach HBM, so HBM traffic is q, k, v in and the
-context out. What bounds it on the H100 is on-chip work: per row 2·N·hd
-integer MACs on the CUDA cores, and in the @V loop two shared-memory
-loads per MAC (one probability, one V byte). Int8 tensor-core MMA for
-both products is later work.
+``csrc/attention_fused.cu``, the K1 mode of ``csrc/attention_mma.cuh``.
+The (N, N) scores never reach HBM, so HBM traffic is q, k, v in and the
+context out, and at DeiT-S batch 128 those bytes bound it on the H100:
+both integer products run on the int8 tensor cores (``mma.sync``
+m16n8k32; Q·Kᵀ s8×s8, @V u8×s8 with the probabilities passed from one
+product to the other in registers), one warp owns 16 query rows against
+every key of its batch·head, and the shift-exp chain (K0,
+``csrc/shiftmax_common.cuh``), which depends only on the integer
+z − max z ∈ [−255, 0], is a 256-entry table each block fills once
+(``_shiftmax_common.shift_exp_table`` is its plain twin). Per score
+what remains is the requant, the max, one lookup, a multiply and a
+floor.
+
+The probabilities reach 2^(out_bits−1): 128 at 8 bits and 32768 at 16,
+in a one-token row whose ``1/scale`` is a power of two. So the @V
+operand is unsigned, 16-bit probabilities go in as two u8 halves
+(256·hi + lo), and nothing saturates. The Pallas kernel's signed split
+``hi.astype(int8)`` saturates hi = 128 to 127 there; the port follows
+the JAX engine's XLA composition, which does not.
 
 The layout is unpadded (G, N, hd): the Pallas kernel's 128-lane padding
 and pad-column mask are TPU tiling, value-identical to leaving the pads

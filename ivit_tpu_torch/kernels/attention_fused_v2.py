@@ -2,10 +2,12 @@
 
 Replaces ``ivit_tpu/kernels/attention_fused_v2.py:fused_int8_attention_v2``
 (``pl.pallas_call`` at :140). The CUDA kernel is
-``csrc/attention_fused_v2.cu``, the K2 mode of the attention template it
-shares with K1 (``csrc/attention_fused.cuh``): the per-element shift-exp
-clip elided, an int32 row sum rounded once to float32, and a float32 @V,
-before the int8 requant. The TPU kernel's per-image grid (all heads in a
+``csrc/attention_fused_v2.cu``, the K2 mode of the int8 tensor-core
+attention kernel it shares with K1 (``csrc/attention_mma.cuh``; the
+design and what bounds it are in ``kernels/attention_fused.py``): the
+per-element shift-exp clip elided (in the block's shift-exp table) and
+an int32 row sum rounded once to float32. v2's float32 @V runs as K1's
+exact integer product. The TPU kernel's per-image grid (all heads in a
 1.4 MB VMEM scratch) does not fit a 227 KB Hopper block, so the grid is
 batch·head × row tiles on the port's unpadded (B·H, N, hd) layout.
 
@@ -14,8 +16,8 @@ Each of v2's shortcuts is exact under its gate
 which the wrapper enforces with ``ValueError``: the clip cannot bind and
 the int32 sum cannot wrap. The f32 @V is exact at any scale: a row's
 probabilities sum to at most (2^31−1)/2^(32−out_bits) < 2^15 and
-|v| ≤ 128, so every partial sum stays below 2^22. Under the gate K2
-therefore gives K1's integers.
+|v| ≤ 128, so every partial sum stays below 2^22, and an integer product
+gives the same values. Under the gate K2 therefore gives K1's integers.
 
 ``fused_int8_attention_v2_reference`` is the plain version, stated with
 v2's chain on the K0 twin; the integer products run in float64 (exact).

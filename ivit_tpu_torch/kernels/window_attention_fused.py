@@ -2,13 +2,12 @@
 
 Replaces ``ivit_tpu/kernels/window_attention_fused.py:fused_int8_window_attention``
 (``pl.pallas_call`` at :132). The CUDA kernel is
-``csrc/window_attention_fused.cu``, the window mode of the attention
-template it shares with K1 and K2 (``csrc/attention_fused.cuh``): per
-batch·window·head cell, int8 Q·Kᵀ with ``__dp4a``, the requant by ``r1``,
-the relative-position bias merge ``clip(round(a8·rb) + bias)``, the
-optional shifted-window mask addend (non-integral f32, added after the
-clip), the 8-bit Shiftmax with every guard (K0), one exact int32 @V, and
-the requant to int8. The (N, N) scores never reach HBM. What bounds it on
+``csrc/window_attention_fused.cu`` on the CUDA-core kernel in
+``csrc/attention_fused.cuh``: per batch·window·head cell, int8 Q·Kᵀ with
+``__dp4a``, the requant by ``r1``, the relative-position bias merge
+``clip(round(a8·rb) + bias)``, the optional shifted-window mask addend
+(non-integral f32, added after the clip), the 8-bit Shiftmax with every
+guard (K0), one exact int32 @V, and the requant to int8. The (N, N) scores never reach HBM. What bounds it on
 the H100 is on-chip work; at Swin's N = 49 one warp per query row leaves
 15 of its 64 score slots idle (``csrc/window_attention_fused.cu``).
 

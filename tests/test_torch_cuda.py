@@ -35,6 +35,7 @@ from ivit_tpu_torch.kernels import (
     fused_requant_shiftmax,
     fused_requant_shiftmax_reference,
 )
+from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
 from ivit_tpu_torch.models.swin import sw_attn_mask
 
 pytestmark = pytest.mark.cuda
@@ -47,21 +48,35 @@ def dev():
     return torch.device("cuda")
 
 
-def _attention_case(G, N, hd, out_bits, seed):
-    """int8 q, k, v with a row of tied scores and a saturated row, and
-    ratios that spread the other rows over about a third of int8."""
+def _attention_case(G, N, hd, out_bits, seed, scale=0.07):
+    """int8 q, k, v with a row of tied scores and (N > 1) a saturated row,
+    and ratios that spread the other rows over about a third of int8."""
     rng = np.random.default_rng(seed)
     q, k, v = (rng.integers(-128, 128, (G, N, hd)).astype(np.int8) for _ in range(3))
     q[0, 0] = 0
-    q[0, 1] = 127
+    if N > 1:
+        q[0, 1] = 127
     k[0] = np.where(np.arange(N)[:, None] % 2 == 0, 127, -128)
     r1 = float(np.float32(127.0 / (3 * np.sqrt(hd) * 74.0**2)))
     r_out = float(np.float32((1.0 / 2 ** (out_bits - 1)) * 0.05 / 0.021))
-    return [torch.from_numpy(a) for a in (q, k, v)], (r1, float(np.float32(0.07)), r_out)
+    return [torch.from_numpy(a) for a in (q, k, v)], (r1, float(np.float32(scale)), r_out)
+
+
+# the DeiT-S shape, N = 256 at hd = 128, a small ragged one, and every
+# N in ATTENTION_N against every hd in ATTENTION_HD: one key, one and two
+# short of and past the 32-key chunks of the MMA kernel, Swin's 49, and
+# hd from the smallest to the largest the kernels take
+ATTENTION_N = (1, 2, 31, 32, 33, 49, 255)
+ATTENTION_HD = (4, 32, 256)
+ATTENTION_SHAPES = [(6, 197, 64), (3, 256, 128), (5, 17, 8)] + [(3, n, hd) for n in ATTENTION_N for hd in ATTENTION_HD]
+
+
+def _attention_ids(shape):
+    return "x".join(map(str, shape))
 
 
 @pytest.mark.parametrize("out_bits", [8, 16])
-@pytest.mark.parametrize("shape", [(6, 197, 64), (3, 256, 128), (5, 17, 8)])
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES, ids=_attention_ids)
 def test_attention_kernel_matches_reference(dev, shape, out_bits):
     qkv, ratios = _attention_case(*shape, out_bits, seed=out_bits)
     before = fused_int8_attention.launches
@@ -103,7 +118,7 @@ def test_engine_kernel_path_matches_cpu(dev, softmax_bits, gelu_stable):
 
 
 @pytest.mark.parametrize("out_bits", [8, 16])
-@pytest.mark.parametrize("shape", [(6, 197, 64), (3, 256, 128), (5, 17, 8)])
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES, ids=_attention_ids)
 def test_attention_v2_kernel_matches_reference(dev, shape, out_bits):
     qkv, ratios = _attention_case(*shape, out_bits, seed=10 + out_bits)
     N = shape[1]
@@ -115,6 +130,29 @@ def test_attention_v2_kernel_matches_reference(dev, shape, out_bits):
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
     # under K2's gate: K1's integers
     torch.testing.assert_close(ref, fused_int8_attention_reference(*qkv, *ratios, out_bits), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("out_bits", [8, 16])
+@pytest.mark.parametrize("N", [1, 17, 197])
+def test_attention_kernels_at_edges(dev, N, out_bits):
+    """A power-of-two 1/scale (one-token rows reach probability
+    2^(out_bits-1): 128, 32768), rows of equal scores, and rows clipped at
+    -128 and +127 against V = -128 (the largest |context|)."""
+    qkv, (r1, scale, r_out) = _attention_case(4, N, 64, out_bits, seed=N, scale=0.125)
+    q, k, v = qkv
+    q[1], k[1] = 0, 5  # all scores 0: every column ties
+    q[2], k[2], v[2] = 127, -128, -128  # every score clips at -128
+    q[3], k[3], v[3] = 127, 127, -128  # every score clips at +127
+    probs = attention_probabilities(q, k, r1, scale, out_bits)
+    if N == 1:
+        assert float(probs.max()) == 2.0 ** (out_bits - 1)
+    for fn, ref, extra in (
+        (fused_int8_attention, fused_int8_attention_reference, ()),
+        (fused_int8_attention_v2, fused_int8_attention_v2_reference, (N,)),
+    ):
+        args = (r1, scale, r_out, *extra, out_bits)
+        out = fn(*(a.to(dev) for a in qkv), *args)
+        torch.testing.assert_close(out.cpu(), ref(*qkv, *args), rtol=0, atol=0)
 
 
 def _gelu_case(M, C, seed):

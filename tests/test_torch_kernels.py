@@ -30,6 +30,8 @@ from ivit_tpu.kernels.linear_gelu_fused import fused_linear_shiftgelu as jax_fus
 from ivit_tpu.ops import DEPLOY
 from ivit_tpu.ops import shiftgelu as jax_shiftgelu
 from ivit_tpu.ops import shiftmax as jax_shiftmax
+from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
+from ivit_tpu_torch.kernels.attention_fused_v2 import scale_gate
 from ivit_tpu_torch.kernels import (
     _build,
     _gelu_common,
@@ -188,6 +190,63 @@ def test_k0_twin_matches_jax(out_bits):
         np.testing.assert_array_equal(
             k0.norm_factor(esum, out_bits).numpy(), np.asarray(jax_k0.norm_factor(jsum, out_bits))
         )
+
+
+def _gate_edge_scale(N=197):
+    """The smallest float32 scale that passes K2's gate at N tokens."""
+    s = np.float32(1.0 / (2.0**31 / (N * 2.0**15)))
+    while not scale_gate(N, float(s)):
+        s = np.nextafter(s, np.float32(np.inf))
+    assert not scale_gate(N, float(np.nextafter(s, np.float32(0))))
+    return float(s)
+
+
+# power-of-two 1/scale (p = 2, 4, 8, 64), the test scale, DeiT-like ones,
+# and the edge of K2's gate at DeiT-S's 197 tokens
+TABLE_SCALES = (0.5, 0.25, 0.125, 1.0 / 64, 0.07, 0.021, 0.0031, _gate_edge_scale())
+
+
+@pytest.mark.parametrize("scale", TABLE_SCALES)
+def test_shift_exp_table_matches_jax(scale):
+    """K1 and K2's per-launch table: entry i is the shift-exp at z = −i,
+    for every row-max-subtracted int8 score, clip on (K1) and off (K2)."""
+    z = -np.arange(256, dtype=np.float32)
+    for clip in (True, False):
+        table = k0.shift_exp_table(scale, 15, clip).numpy()
+        je = jax_k0.shift_exp_rows(jnp.asarray(z), jnp.float32(scale), 15.0, jnp.ones(256, bool), clip_e=clip)
+        np.testing.assert_array_equal(table, np.asarray(je))
+        np.testing.assert_array_equal(table, k0.shift_exp_rows(_t(z), _t(np.float32(scale)), 15, _t(np.ones(256, bool)), clip).numpy())
+    # the largest entry is z = 0's, p·2^15 (at most 2^31 under the clip)
+    p = -math.floor(-1.0 / float(np.float32(scale)))
+    assert float(table.max()) == float(table[0]) == p * 2.0**15
+
+
+@pytest.mark.parametrize("out_bits", [8, 16])
+def test_attention_one_token_rows_match_xla(out_bits):
+    """N = 1 with a power-of-two 1/scale: each row's one probability is
+    2^(out_bits−1) = 128 or 32768, one past what a signed 8- or 16-bit
+    value holds. The port's K1 and K2 plain versions (and so their CUDA
+    kernels, which take the @V operand as unsigned bytes) equal the JAX
+    engine's XLA composition there. The JAX Pallas K1 does not at 16 bits:
+    its split ``hi.astype(jnp.int8)``
+    (``ivit_tpu/kernels/attention_fused.py:52``) saturates hi = 128 to
+    127, and on these inputs it returns 88 and −89 where the spec gives
+    89 and −90 (a JAX-side deviation, left as it is)."""
+    G, N, hd = 4, 1, 8
+    rng = np.random.default_rng(out_bits)
+    q, k, v = (rng.integers(-128, 128, (G, N, hd)).astype(np.int8) for _ in range(3))
+    v[0] = 127
+    v[1] = -128
+    r1, scale = float(np.float32(1e-3)), 0.125
+    r_out = float(np.float32((1.0 / 2 ** (out_bits - 1)) * 0.7))
+    probs = attention_probabilities(_t(q), _t(k), r1, scale, out_bits)
+    assert (probs == 2.0 ** (out_bits - 1)).all()
+    xla = _jax_attention_xla(q, k, v, r1, scale, r_out, out_bits)
+    ours = fused_int8_attention_reference(_t(q), _t(k), _t(v), r1, scale, r_out, out_bits).numpy()
+    np.testing.assert_array_equal(ours, xla)
+    ours2 = fused_int8_attention_v2_reference(_t(q), _t(k), _t(v), r1, scale, r_out, N, out_bits).numpy()
+    np.testing.assert_array_equal(ours2, xla)
+    assert (xla[0] == 89).all() and (xla[1] == -90).all()
 
 
 def test_cuda_sources_and_build_line():
