@@ -21,7 +21,9 @@ Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``ivit_tpu_torch/csrc`` with nvcc, one
-   process per source, all at once;
+   process per source, all at once, and prints the registers and spill
+   stack of K1's, K2's, K4's and K7's kernels and the tensor-core (IMMA)
+   instructions of K4's and K7's (``cuobjdump``);
 3. every kernel against its plain torch version, bit for bit
    (tolerance 0), at its path's batch-128 and batch-1 shapes, on the
    engine's own block-0 inputs and on random inputs that spread its
@@ -31,12 +33,16 @@ Phases:
    V = -128, and a power-of-two 1/scale), one-token rows at a
    power-of-two 1/scale (probabilities 128 and 32768) at G = 768 and 6,
    and N in ATTN_N x hd in ATTN_HD on the edge inputs; K4 (25216, 384) x
-   (384, 1536) / (197, ...); K5 (25216, 1536) / (197, 1536); K6 (151296, 197) /
-   (1182, 197); K7 at each Swin-T stage's (B·nW·H, 49, 32) shape,
-   unshifted (block 0) and shifted with the window mask (block 1, stages
-   1-3), on the Swin path's own inputs and on random spread ones; K3 at
-   Swin-T's norm inputs, (401408, 96) to (6272, 1536) and their batch-1
-   rows;
+   (384, 1536) / (197, ...), also on edge rows (all negative, tied at
+   their max) and at a ragged (25211, 384) x (384, 1496), and its GELU
+   tables on the card against their torch twin; K5 (25216, 1536) /
+   (197, 1536); K6 (151296, 197) / (1182, 197); K7 at each Swin-T stage's
+   (B·nW·H, 49, 32) shape, unshifted (block 0) and shifted with the window
+   mask (block 1, stages 1-3), on the Swin path's own inputs and on random
+   spread ones, and at every stage on edge inputs, unmasked, masked at a
+   Swin-like scale and masked at a scale where masked arguments lie above
+   the shift-exp clamp and masked scores are row maxima; K3 at Swin-T's
+   norm inputs, (401408, 96) to (6272, 1536) and their batch-1 rows;
 4. each path at batch 128 and batch 1, with every launch count set to 0
    just before it and read just after: logits bit-equal to the plain ops
    on the card, to the plain engine on the CPU (first two images), batch
@@ -49,7 +55,9 @@ Phases:
    K4, ``torch._int_mm`` on the same GEMM (a partial yardstick the port
    never calls); each kernel's bound (the larger of its bytes over the
    HBM rate and its operations over the peak rates; K1 and K2 count
-   the per-score work of their shift-exp table, ATTN_TABLE_OPS); device
+   the per-score work of their shift-exp table, ATTN_TABLE_OPS, and K7
+   and K4 that of their tables, WINDOW_TABLE_OPS and GELU_TABLE_OPS,
+   beside the counts of the chains they replace); device
    time by kernel and the device's idle share over one profiled forward
    (torch.profiler): the main path, routes A and B and Swin-T at batch
    128, and route A at batch 1.
@@ -105,6 +113,16 @@ GELU_OPS = (2 * REQUANT_OPS[0] + 2 + SHIFT_EXP_OPS[0] + 9, SHIFT_EXP_OPS[1])  # 
 LAYERNORM_OPS = (10, 10)  # int32 split statistics; convert, sub, mul, div, floor, add, requant
 WINDOW_MERGE_OPS = (5, 0)  # K7's bias merge: mul, rint, add, max, min
 MASK_OPS = (1, 0)          # K7's shifted-window mask add
+# K7 since its tensor-core redesign looks rint(a8 * rb) up in a 256-entry
+# table and the shift-exp in K1's table (plus a clamp entry), so per score
+# the least work is the requant, the bias add, the clip, the max, the
+# subtract, the multiply and the floor (float32) and two lookups and the
+# sum (int32); the mask add stays MASK_OPS
+WINDOW_TABLE_OPS = (REQUANT_OPS[0] + 7, 3)
+# K4 since its redesign reads the whole GELU chain from a (q, max q)
+# table: per element the int -> float step and the r1 requant (float32)
+# and the bias add, the row max and the lookup (int32)
+GELU_TABLE_OPS = (REQUANT_OPS[0] + 1, 3)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -197,9 +215,12 @@ def main() -> int:
         fused_requant_shiftmax,
         fused_requant_shiftmax_reference,
     )
+    from ivit_tpu_torch.kernels._gelu_common import gelu_table
     from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
     from ivit_tpu_torch.kernels.attention_fused_v2 import scale_gate
+    from ivit_tpu_torch.kernels.linear_gelu_fused import gelu_table_on
     from ivit_tpu_torch.kernels.window_attention_fused import window_attention_probabilities
+    from ivit_tpu_torch.models.swin import sw_attn_mask
 
     # 1. the card
     smi = subprocess.run(
@@ -216,18 +237,38 @@ def main() -> int:
     _build.load()
     print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)}, {len(libs)} sources in parallel "
           f"-> {_build.BUILD_DIR} in {time.perf_counter() - t0:.3f} s")
-    # registers, spill stack and static shared memory of K1's and K2's
-    # kernels, as built (they set how many blocks an SM holds)
+    # registers, spill stack and static shared memory of the tensor-core
+    # kernels, as built (they set how many blocks an SM holds), and the
+    # IMMA (int8 tensor-core) instructions in the SASS of K4's and K7's
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    for name, source in (("K1", "attention_fused.cu"), ("K2", "attention_fused_v2.cu")):
-        usage = subprocess.run([cuobjdump, "--dump-resource-usage", _build.lib_path(source)],
-                               capture_output=True, text=True, check=True).stdout.splitlines()
+    kernel_names = (
+        ("K1", "attention_fused.cu", r"attention_mma_kernelILb(\d)ELb(\d)ELi(\d)E", "<kV2={}, out_bits 16={}, depth={}>"),
+        ("K2", "attention_fused_v2.cu", r"attention_mma_kernelILb(\d)ELb(\d)ELi(\d)E", "<kV2={}, out_bits 16={}, depth={}>"),
+        ("K4", "linear_gelu_fused.cu", r"(fused_linear_shiftgelu_kernel)ILi(\d)E|(gelu_table_kernel)", "{}"),
+        ("K7", "window_attention_fused.cu", r"window_attention_kernelILi(\d)ELi(\d+)ELb(\d)E", "<depth={}, key tiles={}, masked={}>"),
+    )
+    for name, source, pattern, form in kernel_names:
+        lib = _build.lib_path(source)
+        usage = subprocess.run([cuobjdump, "--dump-resource-usage", lib], capture_output=True, text=True,
+                               check=True).stdout.splitlines()
         for fn, res in zip(usage, usage[1:]):
-            args = re.search(r"attention_mma_kernelILb(\d)ELb(\d)ELi(\d)E", fn)
+            args = re.search(pattern, fn)
             if args and "REG:" in res:
-                v2, wide, depth = args.groups()
-                print(f"{name} resources: attention_mma_kernel<kV2={v2}, out_bits={16 if wide == '1' else 8}, "
-                      f"depth={depth}>: {' '.join(res.split()[:4])}")
+                label = form.format(*(a for a in args.groups() if a is not None))
+                print(f"{name} resources: {label}: {' '.join(res.split()[:4])}")
+        if name in ("K4", "K7"):
+            imma, fn = {}, None
+            for line in subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True,
+                                       check=True).stdout.splitlines():
+                if "Function :" in line:
+                    fn = line.split("Function :")[1].strip()
+                elif fn is not None and "IMMA" in line:
+                    imma[fn] = imma.get(fn, 0) + 1
+            for fn, count in sorted(imma.items()):
+                args = re.search(pattern, fn)
+                label = form.format(*(a for a in args.groups() if a is not None)) if args else fn
+                print(f"{name} SASS: {label}: {count} IMMA instructions")
+            check(len(imma) > 0, f"{name}: no IMMA instruction in {source}")
 
     # the paths' inputs
     t0 = time.perf_counter()
@@ -400,6 +441,31 @@ def main() -> int:
             compare("K5", f"({M}, {hidden}) {data}", fused_requant_shiftgelu(*args),
                     fused_requant_shiftgelu_reference(*args))
 
+    # K4 on edge rows (row 0 all negative: x = 0 against a negative bias,
+    # e_max saturates; row 1 tied at its max: x = 127 against 16 weight
+    # columns of 127, which clip) at the path's shapes and at an M and a C
+    # that are not multiples of the 64-row blocks and 256-column chunks,
+    # and the GELU tables the card filled against their torch twin
+    def k4_edges(M: int, C: int) -> tuple:
+        ex = torch.randint(-128, 128, (M, D), generator=gen, dtype=torch.int8)
+        ew = torch.randint(-128, 128, (C, D), generator=gen, dtype=torch.int8)
+        eb = torch.randint(-(2**15), -(2**14), (C,), generator=gen, dtype=torch.int32)
+        ex[0], ex[1], ew[:16] = 0, 127, 127
+        er1 = torch.from_numpy((np.random.default_rng(C).uniform(0.5, 2.0, C) * 40.0 / (74.0**2 * np.sqrt(D))).astype(np.float32))
+        return ex.to(dev), ew.to(dev).T, eb.to(dev), er1.to(dev), *gelu_args
+
+    for M, C in ((BATCH * N, hidden), (N, hidden), (BATCH * N - 5, hidden - 40)):
+        args = k4_edges(M, C)
+        ref = fused_linear_shiftgelu_reference(*args)
+        check(bool((ref[0] <= 0).all()), "K4 edges: row 0 is not all negative")
+        compare("K4", f"({M}, {D}) x ({D}, {C}) edge rows", fused_linear_shiftgelu(*args), ref)
+    gelu_pairs = sorted({(b["gelu"]["s_in"], b["gelu"]["r2"]) for b in t16["blocks"]})
+    for s_in, r2 in gelu_pairs:
+        compare("K4", f"GELU table s_in={s_in} r2={r2}", gelu_table_on(dev, s_in, r2), gelu_table(s_in, r2).to(dev),
+                quiet=True)
+    print(f"K4 GELU tables of the {len(gelu_pairs)} (s_in, r2) of route A: equal to their torch twin "
+          "(tolerance 0)")
+
     # K7 and K3 on the Swin path's own inputs at batch 128 and batch 1:
     # each stage's block 0 (unshifted) and block 1 (shifted, masked in
     # stages 1-3) window q, k, v, and the norm inputs of each stage's
@@ -442,6 +508,40 @@ def main() -> int:
             label = (f"stage {i + 1} block {j} {window_shape(q, a)} {data}, "
                      f"nonzero probabilities {float((probs > 0).float().mean())}")
             compare("K7", label, fused_int8_window_attention(*args), fused_int8_window_attention_reference(*args))
+
+    # K7 at every Swin-T stage shape, batch 128 and 1, on edge inputs:
+    # spread q, k, v with cells of tied scores (q = 0) and of clipped ones
+    # (q = 127, k = -128), an integer bias, unmasked; masked with the
+    # stage's shifted-window plane (stage 4's from the 7 x 7 geometry) at
+    # a Swin-like scale, where every masked argument lies at or below the
+    # shift-exp clamp; and at s_bias = 0.45, where the rows of window 0
+    # that have a masked column get bias 127 there and -100 or -300
+    # elsewhere: masked arguments above the clamp take the chain, and
+    # masked scores become row maxima
+    for (size, i, j), (blk, (q, _, _)) in window_inputs.items():
+        if j != 0:
+            continue
+        (G, Nw, hdw), heads, res, ws = q.shape, blk["heads"], blk["res"], blk["ws"]
+        plane = sw_attn_mask(res, res, ws, max(ws // 2, 1))
+        qq, kk, vv = (torch.randint(-128, 128, (G, Nw, hdw), generator=gen, dtype=torch.int8) for _ in range(3))
+        c = max(G // 8, 1)
+        qq[:c] = 0
+        qq[c:2 * c], kk[c:2 * c] = 127, -128
+        qq, kk, vv = qq.to(dev), kk.to(dev), vv.to(dev)
+        for label, scale, low in (("unmasked", 0.07, None), ("masked", 0.07, None),
+                                  ("masked above the clamp", 0.45, -100.0), ("masked row maxima", 0.45, -300.0)):
+            scale = float(np.float32(scale))
+            bias = torch.randint(-30, 31, (heads, Nw, Nw), generator=gen).float()
+            if low is not None:
+                hit = torch.from_numpy(plane[0] != 0)
+                bias[:] = torch.where(hit, 127.0, torch.where(hit.any(-1, keepdim=True), low, bias))
+            mask = None if label == "unmasked" else torch.from_numpy(plane / np.float32(scale)).to(dev)
+            args = (qq, kk, vv, bias.to(dev), mask, spread_r1_w, float(np.float32(0.9)), scale,
+                    float(np.float32(0.05 / 128 / 0.021)), heads)
+            compare("K7", f"stage {i + 1} {size} ({G}, {Nw}, {hdw}) edges, {label}, s_bias {scale}",
+                    fused_int8_window_attention(*args), fused_int8_window_attention_reference(*args), quiet=True)
+    print("K7: max_abs_err 0 (tolerance 0) at every Swin-T stage shape, batch 128 and 1, on edge inputs: "
+          "unmasked, masked at s_bias 0.07, masked arguments above the clamp and masked row maxima at 0.45")
 
     # 4. each path end to end, its launch counts read around its own run
     def drive(name: str, fn, expect: dict) -> tuple:
@@ -532,6 +632,7 @@ def main() -> int:
     engine_times("swin (Swin-T, K7+K3)", swin, swin_plain)
 
     timings, bounds = {}, {}
+    chain_bounds = {}  # K4's and K7's bounds by the counts of the chains their tables replace
     for shape, x in k3_cases.items():
         args = (x, blk8["norm1"]["bias_int"], blk8["norm1"]["ratio"])
         timings[("K3", shape)] = paired_ms(lambda: fused_layernorm_requant(*args),
@@ -567,9 +668,12 @@ def main() -> int:
                                            lambda: fused_int8_window_attention_reference(*args), 20)
         G, Nw, hdw = q.shape
         planes = heads + (0 if a["mask"] is None else a["mask"].shape[0])
-        merge = (WINDOW_MERGE_OPS,) + ((MASK_OPS,) if a["mask"] is not None else ())
-        bounds[("K7", shape)] = bound_ms(4 * G * Nw * hdw + 4 * planes * Nw * Nw, int8_ops=4 * G * Nw * Nw * hdw,
-                                         elementwise=per_element(G * Nw * Nw, SHIFTMAX_OPS, *merge))
+        mask_ops = (MASK_OPS,) if a["mask"] is not None else ()
+        nbytes, products = 4 * G * Nw * hdw + 4 * planes * Nw * Nw, 4 * G * Nw * Nw * hdw
+        bounds[("K7", shape)] = bound_ms(nbytes, int8_ops=products,
+                                         elementwise=per_element(G * Nw * Nw, WINDOW_TABLE_OPS, *mask_ops))
+        chain_bounds[("K7", shape)] = bound_ms(nbytes, int8_ops=products,
+                                               elementwise=per_element(G * Nw * Nw, SHIFTMAX_OPS, WINDOW_MERGE_OPS, *mask_ops))
     for size, (x, r1, scale) in k6_inputs.items():
         shape = f"({x.shape[0]}, {N})"
         timings[("K6", shape)] = paired_ms(lambda: fused_requant_shiftmax(x, r1, scale, N),
@@ -582,8 +686,10 @@ def main() -> int:
         shape4, shape5 = f"({M}, {D}) x ({D}, {hidden})", f"({M}, {hidden})"
         timings[("K4", shape4)] = paired_ms(lambda: fused_linear_shiftgelu(*args4),
                                             lambda: fused_linear_shiftgelu_reference(*args4), 10)
-        bounds[("K4", shape4)] = bound_ms(M * D + D * hidden + 8 * hidden + M * hidden,
-                                          int8_ops=2 * M * D * hidden, elementwise=per_element(M * hidden, GELU_OPS))
+        bounds[("K4", shape4)] = bound_ms(M * D + D * hidden + 8 * hidden + M * hidden + 256 * 256,
+                                          int8_ops=2 * M * D * hidden, elementwise=per_element(M * hidden, GELU_TABLE_OPS))
+        chain_bounds[("K4", shape4)] = bound_ms(M * D + D * hidden + 8 * hidden + M * hidden,
+                                                int8_ops=2 * M * D * hidden, elementwise=per_element(M * hidden, GELU_OPS))
         w = fc1["w"]
         y = args4[0] if M > 16 else torch.cat([args4[0], args4[0].new_zeros((17 - M, D))])
         library[("K4", shape4)] = cuda_ms(lambda: torch._int_mm(y, w), 20)
@@ -593,8 +699,12 @@ def main() -> int:
     for key, (k_ms, p_ms) in timings.items():
         b, by = bounds[key]
         lib = f", torch._int_mm GEMM alone {library[key]} ms" if key in library else ""
+        old = f", bound by the chain's counts {chain_bounds[key][0]} ms ({chain_bounds[key][1]})" if key in chain_bounds else ""
         print(f"{key[0]} {key[1]}: kernel {k_ms} ms, plain {p_ms} ms, plain/kernel {p_ms / k_ms}, "
-              f"bound {b} ms ({by}), bound/kernel {b / k_ms}{lib}")
+              f"bound {b} ms ({by}), bound/kernel {b / k_ms}{old}{lib}")
+    print(f"operation counts per element (float32, int32): K7 WINDOW_TABLE_OPS {WINDOW_TABLE_OPS} + MASK_OPS "
+          f"{MASK_OPS} where masked, before: SHIFTMAX_OPS {SHIFTMAX_OPS} + WINDOW_MERGE_OPS {WINDOW_MERGE_OPS}; "
+          f"K4 GELU_TABLE_OPS {GELU_TABLE_OPS}, before: GELU_OPS {GELU_OPS}")
 
     def device_profile(name: str, batch: int, fn, rows: int) -> None:
         """Device time by kernel over one profiled forward, and the idle

@@ -1,5 +1,9 @@
 // The fused integer attention kernel of K1 (attention_fused.cu) and K2
-// (attention_fused_v2.cu), on Hopper's int8 tensor cores.
+// (attention_fused_v2.cu), on Hopper's int8 tensor cores. Its fragment
+// helpers (ldmatrix_x4, mma_s8s8, mma_u8s8, stage_rows, stage_vt, sigma)
+// and exact integer <-> float steps (int_to_float, requant_bits,
+// floor_bits) also build K7 (window_attention_fused.cu) and K4
+// (linear_gelu_fused.cu).
 //
 // Per cell g (batch*head) and query row i:
 //   s_ij  = q_i . k_j                        int8 x int8 -> int32 (MMA)
@@ -200,6 +204,59 @@ __host__ __device__ constexpr int sigma(int p) {
   return (p & 16) + 8 * ((p & 3) >> 1) + 2 * ((p >> 2) & 3) + (p & 1);
 }
 
+// V^T of one cell into shared memory at `vt` (hdp rows of np keys in the
+// sigma order, row stride vs bytes) from the (N, hd) int8 rows at `v`
+// (4-byte aligned; in global memory, or kShared: a copy in shared memory),
+// transposed in registers with byte permutes; the pad keys and dims are
+// zero. Each thread's loads are in flight together.
+template <bool kShared = false>
+__device__ __forceinline__ void stage_vt(unsigned char* vt, const int8_t* v, int N, int hd,
+                                         const Layout& L) {
+  constexpr int kBatch = 4;     // V^T words a thread loads before it stores
+  const int groups = L.np / 4;  // 4 keys (one V^T word) each
+  const int items = groups * (L.hdp / 4);
+  const int hw = hd / 4;
+  const int vsw = L.vs / 4;
+  const int* v32 = reinterpret_cast<const int*>(v);
+  int* vt32 = reinterpret_cast<int*>(vt);
+  for (int i0 = threadIdx.x; i0 < items; i0 += kBatch * blockDim.x) {
+    unsigned x[kBatch][4];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * blockDim.x;
+      const int w = (i >> 2) / groups * 4 + (i & 3);  // 4 dims: 4w..4w+3
+      const int pg = (i >> 2) % groups;               // positions 4pg..4pg+3
+      const int key = (pg >> 3) * 32 + sigma(4 * (pg & 7));  // keys key, +1, +8, +9
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = key + (j >> 1) * 8 + (j & 1);
+        const bool ok = i < items && kj < N && w < hw;
+        if constexpr (kShared) {
+          x[b][j] = ok ? static_cast<unsigned>(v32[kj * hw + w]) : 0u;
+        } else {
+          x[b][j] = ok ? static_cast<unsigned>(__ldg(v32 + kj * hw + w)) : 0u;
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int i = i0 + b * blockDim.x;
+      if (i >= items) break;
+      const int w = (i >> 2) / groups * 4 + (i & 3);
+      const int pg = (i >> 2) % groups;
+      const unsigned lo01 = __byte_perm(x[b][0], x[b][1], 0x5140);
+      const unsigned lo23 = __byte_perm(x[b][2], x[b][3], 0x5140);
+      const unsigned hi01 = __byte_perm(x[b][0], x[b][1], 0x7362);
+      const unsigned hi23 = __byte_perm(x[b][2], x[b][3], 0x7362);
+      int* col = vt32 + 4 * w * vsw + pg;
+      col[0] = static_cast<int>(__byte_perm(lo01, lo23, 0x5410));
+      col[vsw] = static_cast<int>(__byte_perm(lo01, lo23, 0x7632));
+      col[2 * vsw] = static_cast<int>(__byte_perm(hi01, hi23, 0x5410));
+      col[3 * vsw] = static_cast<int>(__byte_perm(hi01, hi23, 0x7632));
+    }
+  }
+}
+
 template <bool kV2, bool kWide, int kDepth>
 __global__ void __launch_bounds__(kMaxWarps * 32, 2)
 attention_mma_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
@@ -233,46 +290,7 @@ attention_mma_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ k,
     stage_rows<4>(sQ, L.ks, qb, N - row_base, warps * kRows, hd, L.hdp);
   }
   asm volatile("cp.async.commit_group;\n" ::);
-  {
-    constexpr int kBatch = 4;     // V^T words a thread loads before it stores
-    const int groups = L.np / 4;  // 4 keys (one V^T word) each
-    const int items = groups * (L.hdp / 4);
-    const int hw = hd / 4;
-    const int vsw = L.vs / 4;
-    const int* v32 = reinterpret_cast<const int*>(v + head);
-    int* vt32 = reinterpret_cast<int*>(smem + L.vt);
-    for (int i0 = threadIdx.x; i0 < items; i0 += kBatch * blockDim.x) {
-      unsigned x[kBatch][4];
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const int i = i0 + b * blockDim.x;
-        const int w = (i >> 2) / groups * 4 + (i & 3);  // 4 dims: 4w..4w+3
-        const int pg = (i >> 2) % groups;               // positions 4pg..4pg+3
-        const int key = (pg >> 3) * 32 + sigma(4 * (pg & 7));  // keys key, +1, +8, +9
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kj = key + (j >> 1) * 8 + (j & 1);
-          x[b][j] = (i < items && kj < N && w < hw) ? static_cast<unsigned>(__ldg(v32 + kj * hw + w)) : 0u;
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const int i = i0 + b * blockDim.x;
-        if (i >= items) break;
-        const int w = (i >> 2) / groups * 4 + (i & 3);
-        const int pg = (i >> 2) % groups;
-        const unsigned lo01 = __byte_perm(x[b][0], x[b][1], 0x5140);
-        const unsigned lo23 = __byte_perm(x[b][2], x[b][3], 0x5140);
-        const unsigned hi01 = __byte_perm(x[b][0], x[b][1], 0x7362);
-        const unsigned hi23 = __byte_perm(x[b][2], x[b][3], 0x7362);
-        int* col = vt32 + 4 * w * vsw + pg;
-        col[0] = static_cast<int>(__byte_perm(lo01, lo23, 0x5410));
-        col[vsw] = static_cast<int>(__byte_perm(lo01, lo23, 0x7632));
-        col[2 * vsw] = static_cast<int>(__byte_perm(hi01, hi23, 0x5410));
-        col[3 * vsw] = static_cast<int>(__byte_perm(hi01, hi23, 0x7632));
-      }
-    }
-  }
+  stage_vt(smem + L.vt, v + head, N, hd, L);
   const float x0 = shift_exp_x0(scale);
   for (int i = threadIdx.x; i < kTable; i += blockDim.x) {
     // 0 - i, as z - zmax is formed (+0 where z == zmax)

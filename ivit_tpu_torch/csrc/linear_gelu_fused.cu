@@ -10,168 +10,320 @@
 //         row of C outputs, then the r2 requant to int8.
 // The (M, C) int32 accumulator and the int8 GELU input never reach HBM.
 //
-// Design. The row max spans all C outputs (1536 at DeiT-S), so a block
-// owns whole rows: 32 rows (two 16-row tiles of the tensor-core MMA) by
-// all C columns. The TPU kernel keeps the whole (K, C) weight and 256
-// rows in VMEM; here the int8 rows of x (32 x K, 12.5 KB at K = 384) sit
-// in shared memory, the weight streams from L2 through each warp's
-// registers, and each 32 x 32 output tile is requantized to int8 as soon
-// as it is computed and parked in shared memory (32 x C bytes, 48 KB at
-// C = 1536), not the 32 x C int32 accumulator. The product runs on the
-// tensor cores with mma.sync.m16n8k32 s8 x s8 -> s32, written in the
-// kernel (no cuBLAS, no torch._int_mm). After a barrier, one warp per
-// row takes the row max and writes the GELU output.
-//
-// Bound on the H100: at DeiT-S batch 128 (M = 25216, K = 384,
-// C = 1536) the int8 products (29.7 GOP, 15 us at 1,979 TOP/s) and the
-// float32 GELU chain (~39M elements x a few dozen ops, ~15 us at
-// 67 TFLOP/s) outweigh the 49 MB of HBM traffic (15 us), so it is bound
-// by operations. This first version feeds mma.sync from plain loads with
-// no pipelining; wgmma with TMA-fed shared-memory stages is later work.
+// What bounds it on the H100: at DeiT-S batch 128 (M = 25216, K = 384,
+// C = 1536) the int8 products, 29.7 G operations, 15 us at 1,979 TOP/s;
+// the 49 MB of HBM traffic take 14.6 us. The design:
+//   * a block owns 64 whole rows (32 where the 64-row buffers do not fit
+//     or the grid would not cover the SMs, as at batch 1), since the GELU's
+//     row max spans all C outputs; its x rows stay in shared memory, and
+//     the weight streams through a 3-stage cp.async ring of 256-column x
+//     64-deep tiles that all 8 warps share;
+//   * the product runs on mma.sync.m16n8k32 s8 x s8 -> s32 with every
+//     fragment loaded by ldmatrix: a warp owns all 64 rows x 32 columns of
+//     a 256-column chunk, so each B fragment feeds four MMAs and each A
+//     fragment four. mma.sync, not wgmma: at this size the products are
+//     about a third of the time, the epilogue the rest, and mma.sync
+//     shares K1's fragment helpers (attention_mma.cuh);
+//   * each chunk's accumulators take the bias, the r1 requant (int ->
+//     float by an exact magic-number add where every value of the warp
+//     lies within 2^22, else by the conversion unit) and go as int8 into a
+//     (rows x C) shared-memory buffer, the row max folded into that step;
+//   * the ShiftGELU output depends only on (q, max q) and the launch
+//     constants s_in, r2 and n, so the whole chain is a 256 x 256 int8
+//     table, filled once per (s_in, r2) by ivit_gelu_table below from the
+//     unchanged gelu_common.cuh chain and cached by the wrapper: after the
+//     last chunk the block copies the 256-byte table row of each of its
+//     rows' maxima into shared memory and every output is one lookup.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "attention_mma.cuh"
 #include "gelu_common.cuh"
 
 namespace {
 
+using namespace ivit::attn_mma;
+
 constexpr int kWarps = 8;
-constexpr int kMTiles = 2;                        // 16-row MMA tiles per block
-constexpr int kRows = 16 * kMTiles;               // rows per block
-constexpr int kNTiles = 4;                        // 8-column MMA tiles per warp step
-constexpr int kWarpCols = 8 * kNTiles;            // columns per warp step
-constexpr int kBlockCols = kWarps * kWarpCols;    // columns per block step
+constexpr int kChunk = 256;                  // output columns a block takes per pass
+constexpr int kDepthBytes = 64;              // K bytes a weight stage holds
+constexpr int kStages = 3;                   // weight stages in flight
+constexpr int kWs = kDepthBytes + 16;        // weight tile row stride (16 past a multiple of 32)
+constexpr int kStageBytes = kChunk * kWs;
+constexpr int kSms = 132;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], int b0, int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The shared-memory plan of a block of 16 * kMTiles rows.
+struct Plan {
+  int kp, xs, qs;      // K padded to 32; x and q buffer row strides (bytes)
+  size_t w, q, rowmax, bytes;
+};
+
+__host__ __device__ inline Plan plan(int m_tiles, int K, int C) {
+  Plan p;
+  const int rows = 16 * m_tiles;
+  p.kp = (K + 31) / 32 * 32;
+  p.xs = p.kp + 16;
+  p.qs = (C + 127) / 128 * 128 + 16;  // the 8 rows of a C fragment start 4 banks apart
+  p.w = static_cast<size_t>(rows) * p.xs;
+  p.q = p.w + static_cast<size_t>(kStages) * kStageBytes;
+  p.rowmax = p.q + static_cast<size_t>(rows) * p.qs;
+  p.bytes = p.rowmax + sizeof(int) * rows;
+  return p;
 }
 
-// Words of one x row in shared memory: K padded to the MMA depth of 32.
-__host__ __device__ __forceinline__ int padded_words(int K) { return (K + 31) / 32 * 8; }
+// Rows [0, rows) x bytes [0, width) at shared address dst (row stride
+// `stride`) from src (row stride ld); only rows < valid_rows and bytes <
+// valid_bytes are read, the rest is zero.
+template <int kBytes>
+__device__ __forceinline__ void stage_tile(unsigned dst, int stride, const int8_t* src, long long ld,
+                                           int valid_rows, int rows, int valid_bytes, int width) {
+  const int per_row = width / kBytes;
+  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
+    const int r = i / per_row;
+    const int c = (i - r * per_row) * kBytes;
+    const bool ok = r < valid_rows && c < valid_bytes;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst + r * stride + c),
+                 "l"(ok ? src + r * ld + c : src), "n"(kBytes), "r"(ok ? kBytes : 0));
+  }
+}
 
-__global__ void __launch_bounds__(kWarps * 32)
+template <int kMTiles>
+__global__ void __launch_bounds__(kWarps * 32, 1)
 fused_linear_shiftgelu_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w_t,
                               const int* __restrict__ b, const float* __restrict__ r1,
-                              int8_t* __restrict__ out, int M, int K, int C, float s_in,
-                              float r2, float n) {
-  extern __shared__ int smem[];
-  const int kw = padded_words(K);
-  const int kw_real = K / 4;
-  // row stride kw + 4 words: the 8 rows a fragment load touches start 4,
-  // 12, 20 or 28 banks apart, so its 32 lanes hit 32 banks
-  const int xs = kw + 4;
-  int* sx = smem;                                                  // kRows x xs words
-  int8_t* sq = reinterpret_cast<int8_t*>(sx + kRows * xs);        // kRows x C int8
+                              const uint8_t* __restrict__ table, int8_t* __restrict__ out, int M,
+                              int K, int C) {
+  constexpr int kRows = 16 * kMTiles;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Plan P = plan(kMTiles, K, C);
+  const unsigned sX = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const unsigned sW = sX + static_cast<unsigned>(P.w);
+  unsigned char* sq = smem + P.q;
+  int* rowmax = reinterpret_cast<int*>(smem + P.rowmax);
 
   const long long m0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int* x32 = reinterpret_cast<const int*>(x);
-  for (int i = threadIdx.x; i < kRows * kw; i += blockDim.x) {
-    const int r = i / kw;
-    const int wd = i - r * kw;
-    const long long m = m0 + r;
-    sx[r * xs + wd] = (m < M && wd < kw_real) ? x32[m * kw_real + wd] : 0;
+  const int valid_rows = static_cast<int>(min(static_cast<long long>(kRows), M - m0));
+  const bool wide = K % 16 == 0 && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w_t)) & 15) == 0;
+  const int slices = (P.kp + kDepthBytes - 1) / kDepthBytes;
+  const int total = (C + kChunk - 1) / kChunk * slices;
+  auto load_stage = [&](int it) {
+    const int c0 = it / slices * kChunk;
+    const int k0 = it % slices * kDepthBytes;
+    const unsigned dst = sW + static_cast<unsigned>(it % kStages) * kStageBytes;
+    const int8_t* src = w_t + static_cast<long long>(c0) * K + k0;
+    if (wide) {
+      stage_tile<16>(dst, kWs, src, K, C - c0, kChunk, K - k0, kDepthBytes);
+    } else {
+      stage_tile<4>(dst, kWs, src, K, C - c0, kChunk, K - k0, kDepthBytes);
+    }
+  };
+
+  if (wide) {
+    stage_tile<16>(sX, P.xs, x + m0 * K, K, valid_rows, kRows, K, P.kp);
+  } else {
+    stage_tile<4>(sX, P.xs, x + m0 * K, K, valid_rows, kRows, K, P.kp);
   }
-  __syncthreads();
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) load_stage(s);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int r = threadIdx.x; r < kRows; r += blockDim.x) rowmax[r] = kMagicBits - 128;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;  // the MMA fragments' group (row / column) index
-  const int t = lane & 3;   // the thread's index within its group
-  const int* w32 = reinterpret_cast<const int*>(w_t);
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // ldmatrix row addresses: x as the A fragments (rows 0-7 / 8-15 x
+  // bytes 0-15 / 16-31 of a 16-row tile), the weight tile as two B
+  // fragments (bytes 0-15 / 16-31 x columns 0-7 / 8-15 of 16 columns)
+  const unsigned xa_row = sX + ((lane & 7) + 8 * ((lane >> 3) & 1)) * P.xs + 16 * (lane >> 4);
+  const unsigned wb_row = (warp * 32 + (lane & 7) + 8 * (lane >> 4)) * kWs + 16 * ((lane >> 3) & 1);
 
-  for (int c0 = warp * kWarpCols; c0 < C; c0 += kBlockCols) {
-    int acc[kMTiles][kNTiles][4] = {};
-    for (int kb = 0; kb < kw; kb += 8) {  // 32 int8 of depth per step
-      int a[kMTiles][4];
+  int acc[kMTiles][4][4] = {};
+  int qmax[kMTiles][2];  // kMagicBits + the running row maxima of rows g, g + 8 of each tile
 #pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt) {
-        const int* r0 = sx + (mt * 16 + g) * xs + kb + t;
-        const int* r8 = r0 + 8 * xs;
-        a[mt][0] = r0[0];
-        a[mt][1] = r8[0];
-        a[mt][2] = r0[4];
-        a[mt][3] = r8[4];
-      }
+  for (int mt = 0; mt < kMTiles; ++mt) qmax[mt][0] = qmax[mt][1] = kMagicBits - 128;
+
+  for (int it = 0; it < total; ++it) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    __syncthreads();
+    if (it + kStages - 1 < total) load_stage(it + kStages - 1);
+    asm volatile("cp.async.commit_group;\n" ::);
+
+    const int k0 = it % slices * kDepthBytes;
+    const unsigned wb = sW + static_cast<unsigned>(it % kStages) * kStageBytes + wb_row;
+    const int steps = min(kDepthBytes, P.kp - k0) / 32;
 #pragma unroll
-      for (int nt = 0; nt < kNTiles; ++nt) {
-        const int col = c0 + nt * 8 + g;
-        int b0 = 0, b1 = 0;
-        if (col < C) {
-          const int* wr = w32 + static_cast<long long>(col) * kw_real + kb + t;
-          if (kb + t < kw_real) b0 = wr[0];
-          if (kb + 4 + t < kw_real) b1 = wr[4];
+    for (int ks = 0; ks < kDepthBytes / 32; ++ks) {
+      if (ks < steps) {
+        int bf[2][4];
+        ldmatrix_x4(bf[0], wb + 32 * ks);
+        ldmatrix_x4(bf[1], wb + 16 * kWs + 32 * ks);
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+          int a[4];
+          ldmatrix_x4(a, xa_row + mt * 16 * P.xs + k0 + 32 * ks);
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_s8s8(acc[mt][nt], a, bf[nt >> 1][2 * (nt & 1)], bf[nt >> 1][2 * (nt & 1) + 1]);
         }
-#pragma unroll
-        for (int mt = 0; mt < kMTiles; ++mt) mma_s8(acc[mt][nt], a[mt], b0, b1);
       }
     }
-    // + bias, requant by r1 into the int8 GELU input, parked in shared memory
+    if (it % slices != slices - 1) continue;
+
+    // the chunk's epilogue: + bias, requant by r1 into the int8 GELU
+    // input in shared memory, and the running row maxima
+    const int c0 = it / slices * kChunk + warp * 32;
+    bool small = true;
 #pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
+    for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = c0 + nt * 8 + 2 * t + e;
-        if (col >= C) continue;
-        const int bias = b[col];
-        const float r = r1[col];
+        const int bias = col < C ? b[col] : 0;
 #pragma unroll
         for (int mt = 0; mt < kMTiles; ++mt) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int row = mt * 16 + g + 8 * h;
-            const float q = rintf(static_cast<float>(acc[mt][nt][2 * h + e] + bias) * r);
-            sq[row * C + col] = static_cast<int8_t>(fminf(fmaxf(q, -128.0f), 127.0f));
+            const int v = acc[mt][nt][2 * h + e] + bias;
+            acc[mt][nt][2 * h + e] = v;
+            small = small && static_cast<unsigned>(v) + (1u << 22) < (1u << 23);
+          }
+        }
+      }
+    }
+    const bool exact_add = __all_sync(0xffffffffu, small);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = c0 + nt * 8 + 2 * t;
+      const float ra = col < C ? r1[col] : 0.0f;
+      const float rb = col + 1 < C ? r1[col + 1] : 0.0f;
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          int qb[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int v = acc[mt][nt][2 * h + e];
+            const float f = exact_add ? int_to_float(v) : __int2float_rn(v);
+            qb[e] = requant_bits(f * (e ? rb : ra));
+            if (col + e < C) qmax[mt][h] = max(qmax[mt][h], qb[e]);
+            acc[mt][nt][2 * h + e] = 0;
+          }
+          if (col < C) {
+            *reinterpret_cast<uint16_t*>(sq + (mt * 16 + g + 8 * h) * P.qs + col) =
+                static_cast<uint16_t>(__byte_perm(qb[0], qb[1], 0x0040));
           }
         }
       }
     }
   }
+
+  // the row maxima: a quad holds a row's columns of a warp, then across warps
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int m = qmax[mt][h];
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      if (t == 0) atomicMax(rowmax + mt * 16 + g + 8 * h, m);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
   __syncthreads();
 
-  // the row-max ShiftGELU, one warp per row
-  const float x0 = ivit::gelu_x0(s_in);
-  for (int r = warp; r < kRows && m0 + r < M; r += kWarps) {
-    const int8_t* qr = sq + r * C;
-    float qmax = -128.0f;
-    for (int c = lane; c < C; c += 32) qmax = fmaxf(qmax, static_cast<float>(qr[c]));
-    qmax = ivit::warp_max(qmax);
-    const float exp_max = ivit::shift_exp(-qmax, x0, n);
-    int8_t* orow = out + (m0 + r) * C;
-    for (int c = lane; c < C; c += 32) {
-      orow[c] = ivit::requant_i8(
-          ivit::shiftgelu_rowmax(static_cast<float>(qr[c]), qmax, exp_max, x0, n), r2);
+  // each row's 256-byte table row (its max's), into the free weight stages
+  unsigned char* slices_s = smem + P.w;
+  for (int i = threadIdx.x; i < kRows * 16; i += blockDim.x) {
+    const int r = i / 16;
+    const int qm = (rowmax[r] - kMagicBits) & 0xff;
+    reinterpret_cast<uint4*>(slices_s + r * 256)[i % 16] = __ldg(reinterpret_cast<const uint4*>(table + qm * 256) + i % 16);
+  }
+  __syncthreads();
+
+  // out = table[max q][q], 16 bytes a thread where the rows allow it
+  if (C % 16 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+    const int per_row = C / 16;
+    for (int i = threadIdx.x; i < valid_rows * per_row; i += blockDim.x) {
+      const int r = i / per_row;
+      const int c = (i - r * per_row) * 16;
+      const uint4 qv = *reinterpret_cast<const uint4*>(sq + r * P.qs + c);
+      const unsigned char* sl = slices_s + r * 256;
+      const unsigned in[4] = {qv.x, qv.y, qv.z, qv.w};
+      unsigned o[4];
+#pragma unroll
+      for (int wd = 0; wd < 4; ++wd) {
+        o[wd] = sl[in[wd] & 0xff] | (sl[(in[wd] >> 8) & 0xff] << 8) | (sl[(in[wd] >> 16) & 0xff] << 16) |
+                (static_cast<unsigned>(sl[in[wd] >> 24]) << 24);
+      }
+      *reinterpret_cast<uint4*>(out + (m0 + r) * C + c) = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < valid_rows * C; i += blockDim.x) {
+      const int r = i / C;
+      const int c = i - r * C;
+      out[(m0 + r) * C + c] = static_cast<int8_t>(slices_s[r * 256 + sq[r * P.qs + c]]);
     }
   }
 }
 
+// Entry [i][j] of the table: the GELU output of q = int8(j) in a row
+// whose max is int8(i), for q <= max; 0 where q > max (never read).
+__global__ void gelu_table_kernel(int8_t* __restrict__ table, float s_in, float r2, float n) {
+  const int i = blockIdx.x;
+  const int j = threadIdx.x;
+  const float qmax = static_cast<float>(static_cast<int8_t>(i));
+  const float q = static_cast<float>(static_cast<int8_t>(j));
+  const float x0 = ivit::gelu_x0(s_in);
+  const float exp_max = ivit::shift_exp(-qmax, x0, n);
+  table[i * 256 + j] = q <= qmax ? ivit::requant_i8(ivit::shiftgelu_rowmax(q, qmax, exp_max, x0, n), r2) : 0;
+}
+
+template <int kMTiles>
+int launch_rows(const void* x, const void* w_t, const void* b, const void* r1, const void* table, void* out,
+           int M, int K, int C, cudaStream_t stream) {
+  const size_t smem = plan(kMTiles, K, C).bytes;
+  const cudaError_t e = cudaFuncSetAttribute(fused_linear_shiftgelu_kernel<kMTiles>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned blocks = static_cast<unsigned>((M + 16 * kMTiles - 1) / (16 * kMTiles));
+  fused_linear_shiftgelu_kernel<kMTiles><<<blocks, kWarps * 32, smem, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w_t), static_cast<const int*>(b),
+      static_cast<const float*>(r1), static_cast<const uint8_t*>(table), static_cast<int8_t*>(out), M, K, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches K4 on `stream`. Returns cudaGetLastError() (0 on success).
+// Fills the (256, 256) int8 GELU table of (s_in, r2) on `stream`.
+extern "C" int ivit_gelu_table(void* table, float s_in, float r2, int n, void* stream) {
+  gelu_table_kernel<<<256, 256, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<int8_t*>(table), s_in,
+                                                                          r2, static_cast<float>(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches K4 on `stream` with the table of its (s_in, r2). Returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue outside the
+// domain: M, C >= 1, K >= 4 a multiple of 4, 32 rows' buffers within the
+// shared memory of a block, x and w_t 4-byte aligned, table 16-byte
+// aligned.
 extern "C" int ivit_fused_linear_shiftgelu(const void* x, const void* w_t, const void* b,
-                                           const void* r1, void* out, int M, int K, int C,
-                                           float s_in, float r2, int n, void* stream) {
-  if (M < 1 || K < 4 || K % 4 != 0 || C < 1) {
+                                           const void* r1, const void* table, void* out, int M,
+                                           int K, int C, void* stream) {
+  const uintptr_t words = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w_t);
+  if (M < 1 || K < 4 || K % 4 != 0 || C < 1 || (words & 3) != 0 ||
+      (reinterpret_cast<uintptr_t>(table) & 15) != 0 || plan(2, K, C).bytes > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(int) * kRows * (padded_words(K) + 4) + static_cast<size_t>(kRows) * C;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_linear_shiftgelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 64-row blocks where they fit and still cover the SMs, else 32
+  if (plan(4, K, C).bytes <= kMaxSmem && (M + 63) / 64 >= kSms) {
+    return launch_rows<4>(x, w_t, b, r1, table, out, M, K, C, s);
   }
-  const unsigned int blocks = static_cast<unsigned int>((M + kRows - 1) / kRows);
-  fused_linear_shiftgelu_kernel<<<blocks, kWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w_t), static_cast<const int*>(b),
-      static_cast<const float*>(r1), static_cast<int8_t*>(out), M, K, C, s_in, r2,
-      static_cast<float>(n));
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows<2>(x, w_t, b, r1, table, out, M, K, C, s);
 }

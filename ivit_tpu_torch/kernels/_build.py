@@ -27,7 +27,7 @@ import types
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-HEADERS = ("shiftmax_common.cuh", "attention_mma.cuh", "attention_fused.cuh", "gelu_common.cuh")
+HEADERS = ("shiftmax_common.cuh", "attention_mma.cuh", "gelu_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -56,8 +56,10 @@ _ENTRY_POINTS = {
         "ivit_fused_requant_shiftgelu": (_P, _P, _P, _I, _I, _F, _F, _I, _P),
     },
     "linear_gelu_fused.cu": {
-        # x, w_t, b, r1, out, M, K, C, s_in, r2, n, stream
-        "ivit_fused_linear_shiftgelu": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P),
+        # x, w_t, b, r1, table, out, M, K, C, stream
+        "ivit_fused_linear_shiftgelu": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # table, s_in, r2, n, stream
+        "ivit_gelu_table": (_P, _F, _F, _I, _P),
     },
     "shiftmax_fused.cu": {
         # x, hi, lo, M, N, n_valid, r1, scale, n, out_bits, stream

@@ -7,7 +7,10 @@ element, so the header can be read against them. ``exact_rowsum_2limb``
 is what the CUDA side computes as an exact 64-bit integer sum rounded
 once to float32: both are the correctly rounded exact sum while a row
 has at most 256 columns. ``shift_exp_table`` is the per-launch table of
-K1 and K2 (``csrc/attention_mma.cuh``).
+K1 and K2 (``csrc/attention_mma.cuh``); ``rb_table``,
+``window_exp_table`` and ``window_shift_exp`` are K7's tables and its
+per-score choice between them and the chain
+(``csrc/window_attention_fused.cu``).
 """
 
 from __future__ import annotations
@@ -45,6 +48,44 @@ def shift_exp_table(scale: float, n: int, clip: bool = True) -> torch.Tensor:
     z = 0.0 - torch.arange(256, dtype=torch.float32)
     valid = torch.ones_like(z, dtype=torch.bool)
     return shift_exp_rows(z, torch.tensor(scale, dtype=torch.float32), n, valid, clip)
+
+
+def rb_table(rb: float) -> torch.Tensor:
+    """K7's merge table: entry b is ``round(a8·rb)`` for a8 = int8(b),
+    the two's-complement byte the kernel indexes by. Float32 (256,)."""
+    byte = torch.arange(256, dtype=torch.int32)
+    a8 = torch.where(byte < 128, byte, byte - 256).to(torch.float32)
+    return torch.round(a8 * torch.tensor(rb, dtype=torch.float32))
+
+
+def shift_exp_clamp(scale: float, n: int) -> float:
+    """``n·x0``, the clamp of the shift-exp chain: every float32 argument
+    at or below it gives the same value (``csrc/window_attention_fused.cu:
+    shift_exp_clamps``)."""
+    x0 = torch.floor(div(-1.0, torch.tensor(scale, dtype=torch.float32)))
+    return float(n * x0)
+
+
+def window_exp_table(scale: float, n: int) -> torch.Tensor:
+    """K7's shift-exp table: K1's 256 entries (the integral arguments
+    z − zmax = −i) and a 257th at the clamp. Float32 (257,)."""
+    z = torch.cat([0.0 - torch.arange(256, dtype=torch.float32), torch.tensor([shift_exp_clamp(scale, n)])])
+    valid = torch.ones_like(z, dtype=torch.bool)
+    return shift_exp_rows(z, torch.tensor(scale, dtype=torch.float32), n, valid)
+
+
+def window_shift_exp(d: torch.Tensor, scale: float, n: int) -> torch.Tensor:
+    """K7's shift-exp of row-max-subtracted float32 scores ``d`` (≤ 0), as
+    the kernel takes it: the table where ``d`` is an integer in
+    [−255, 0], the clamp entry where ``d`` ≤ ``n·x0``, the chain
+    elsewhere."""
+    table = window_exp_table(scale, n).to(d.device)
+    idx = -d
+    hit = (idx <= 255) & (torch.round(d) == d)
+    chain = shift_exp_rows(d, torch.tensor(scale, dtype=torch.float32, device=d.device), n, torch.ones_like(hit))
+    clamped = d <= shift_exp_clamp(scale, n)
+    looked = table[torch.where(hit, idx, torch.full_like(idx, 256.0)).long()]
+    return torch.where(hit | clamped, looked, chain)
 
 
 def exact_rowsum_2limb(e: torch.Tensor) -> torch.Tensor:

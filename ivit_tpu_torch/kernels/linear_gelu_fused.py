@@ -3,13 +3,16 @@ as its epilogue.
 
 Replaces ``ivit_tpu/kernels/linear_gelu_fused.py:fused_linear_shiftgelu``
 (``pl.pallas_call`` at :87). The CUDA kernel is
-``csrc/linear_gelu_fused.cu``: a block owns 32 whole rows, because the
-GELU's row max spans all C outputs; the int8 product runs on the tensor
-cores (``mma.sync`` s8, written in the kernel), each output tile is
-requantized into an int8 row buffer in shared memory, and one warp per
-row then runs the shared chain of ``csrc/gelu_common.cuh``. The (M, C)
-int32 accumulator never reaches HBM. At DeiT-S width it is bound by
-operations (the int8 products and the f32 GELU chain), not by bytes.
+``csrc/linear_gelu_fused.cu``: a block owns 64 whole rows (32 at small M
+or wide C), because the GELU's row max spans all C outputs; the weight
+streams through a 3-stage ``cp.async`` ring of shared-memory tiles into
+``mma.sync`` s8 products fed by ``ldmatrix``, each output tile is
+requantized into an int8 row buffer in shared memory with the row max
+folded in, and the GELU chain is one lookup an element in a 256 × 256
+table of (q, max q), filled once per (s_in, r2) on the card by
+``ivit_gelu_table`` from the unchanged chain of ``csrc/gelu_common.cuh``
+and cached here. The (M, C) int32 accumulator never reaches HBM; the
+int8 products bound it at DeiT-S width.
 
 The kernel reads the weight with K contiguous: ``w`` is the (K, C) view
 ``w_t.T`` of a contiguous (C, K) tensor, which the engine keeps beside
@@ -18,7 +21,7 @@ the (K, C) weight (``deploy.artifact``).
 ``fused_linear_shiftgelu_reference`` is the plain version: the integer
 product in float64 (exact below 2^53), the bias, then K5's plain version.
 The wrapper runs it for CPU tensors and launches the kernel for CUDA
-tensors.
+tensors. ``_gelu_common.gelu_table`` is the table's plain twin.
 """
 
 from __future__ import annotations
@@ -29,14 +32,33 @@ from . import _build
 from ._gelu_common import GELU_N
 from .shiftgelu_fused import fused_requant_shiftgelu_reference
 
-_ROWS = 32  # rows per block of the kernel
+_ROWS = 32  # the fewest rows a block of the kernel takes
+_STAGE_BYTES = 3 * 256 * (64 + 16)  # the weight stages of a block
 _MAX_SMEM = 227 * 1024
+_TABLES: dict = {}  # (s_in, r2, device) -> the card's (256, 256) int8 GELU table
 
 
 def smem_bytes(K: int, C: int) -> int:
-    """Shared memory of one block: the padded int8 rows of x and the int8
-    GELU inputs of its 32 rows (``csrc/linear_gelu_fused.cu``)."""
-    return 4 * _ROWS * ((K + 31) // 32 * 8 + 4) + _ROWS * C
+    """Shared memory of a 32-row block: the padded int8 rows of x, the
+    weight stages, the int8 GELU inputs and the row maxima
+    (``csrc/linear_gelu_fused.cu:plan``)."""
+    kp = (K + 31) // 32 * 32
+    return _ROWS * (kp + 16) + _STAGE_BYTES + _ROWS * ((C + 127) // 128 * 128 + 16) + 4 * _ROWS
+
+
+def gelu_table_on(device: torch.device, s_in: float, r2: float) -> torch.Tensor:
+    """The (256, 256) int8 GELU table of (s_in, r2) on a CUDA device,
+    filled there by ``ivit_gelu_table`` at first use and kept."""
+    key = (s_in, r2, device)
+    if key not in _TABLES:
+        table = torch.empty((256, 256), dtype=torch.int8, device=device)
+        with torch.cuda.device(device):
+            err = _build.load().ivit_gelu_table(
+                table.data_ptr(), s_in, r2, GELU_N, torch.cuda.current_stream(device).cuda_stream
+            )
+        _build.check(err, "gelu_table")
+        _TABLES[key] = table
+    return _TABLES[key]
 
 
 def fused_linear_shiftgelu_reference(
@@ -85,12 +107,13 @@ def fused_linear_shiftgelu(
     lib = _build.load()
     M, K = x.shape
     C = w.shape[1]
+    table = gelu_table_on(x.device, s_in, r2)
     out = torch.empty((M, C), dtype=torch.int8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.ivit_fused_linear_shiftgelu(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), r1.data_ptr(), out.data_ptr(),
-            M, K, C, s_in, r2, GELU_N, stream,
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), r1.data_ptr(), table.data_ptr(), out.data_ptr(),
+            M, K, C, stream,
         )
     _build.check(err, "fused_linear_shiftgelu")
     fused_linear_shiftgelu.launches += 1

@@ -2,14 +2,19 @@
 
 Replaces ``ivit_tpu/kernels/window_attention_fused.py:fused_int8_window_attention``
 (``pl.pallas_call`` at :132). The CUDA kernel is
-``csrc/window_attention_fused.cu`` on the CUDA-core kernel in
-``csrc/attention_fused.cuh``: per batch·window·head cell, int8 Q·Kᵀ with
-``__dp4a``, the requant by ``r1``, the relative-position bias merge
-``clip(round(a8·rb) + bias)``, the optional shifted-window mask addend
+``csrc/window_attention_fused.cu``, on the int8 tensor-core helpers of K1
+(``csrc/attention_mma.cuh``): per batch·window·head cell, int8 Q·Kᵀ on
+``mma.sync``, the requant by ``r1``, the relative-position bias merge
+``clip(round(a8·rb) + bias)`` (``round(a8·rb)`` from a per-launch table of
+the 256 values of a8), the optional shifted-window mask addend
 (non-integral f32, added after the clip), the 8-bit Shiftmax with every
-guard (K0), one exact int32 @V, and the requant to int8. The (N, N) scores never reach HBM. What bounds it on
-the H100 is on-chip work; at Swin's N = 49 one warp per query row leaves
-15 of its 64 score slots idle (``csrc/window_attention_fused.cu``).
+guard (K0; the shift-exp from a per-launch table wherever its argument is
+an integer in [−255, 0] or at or below the chain's clamp, the chain
+itself elsewhere), the exact row sum, @V on ``mma.sync`` with the
+probabilities passed in registers, and the requant to int8. A block holds
+two 49-token cells at once and takes up to sixteen, in rounds, that share
+their bias and mask planes. The (N, N) scores never reach HBM; bytes
+bound it on the H100.
 
 The layout is unpadded (G, N, hd) with G = B·nW·heads and the head
 innermost: cell i reads bias head ``i % heads`` and mask window
@@ -21,6 +26,8 @@ leaving the pads out. N is bounded by 256 (the exact row-sum bound).
 XLA engine's chain (``ivit_tpu/deploy/swin_engine.py:465-551``) on the
 port's ops, with the integer products in float64 (exact). The wrapper runs
 it for CPU tensors and launches the kernel for CUDA tensors.
+``window_attention_through_tables`` states the kernel's per-score path
+through its tables on tensors, so the CUDA source can be read against it.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 from ..ops import INT8, requant, shiftmax
 from ..ops.interp import f32
 from . import _build
+from ._shiftmax_common import norm_factor, rb_table, window_shift_exp
 from .attention_fused import SHIFTMAX_N
 from .attention_fused import _check as _check_qkv
 
@@ -61,6 +69,31 @@ def fused_int8_window_attention_reference(
     sm = window_attention_probabilities(q, k, bias, mask, r1, rb, scale, heads)
     ctx = torch.matmul(sm.to(torch.float64), v.to(torch.float64))
     return requant(ctx.to(torch.int32), f32(r_out, q.device), *INT8).to(torch.int8)
+
+
+def window_attention_through_tables(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    mask: torch.Tensor | None, r1: float, rb: float, scale: float, r_out: float, heads: int,
+) -> torch.Tensor:
+    """K7 as the kernel computes it, on (G, N, hd) int8 q, k, v: the merge
+    through ``rb_table`` (indexed by the byte of a8), the shift-exp through
+    ``window_shift_exp``, the row sum an exact integer sum rounded once.
+    Returns int8 (G, N, hd)."""
+    G, N, _ = q.shape
+    dev = q.device
+    attn = torch.matmul(q.to(torch.float64), k.to(torch.float64).transpose(-1, -2))
+    a8 = requant(attn.to(torch.int32), f32(r1, dev), *INT8)
+    merged = rb_table(rb).to(dev)[a8.long() & 0xFF]
+    z = torch.clamp(merged.view(G // heads, heads, N, N) + bias, *INT8)
+    if mask is not None:
+        n_windows = mask.shape[0]
+        z = z.view(G // (n_windows * heads), n_windows, heads, N, N) + mask[None, :, None]
+    z = z.reshape(G, N, N)
+    e = window_shift_exp(z - torch.amax(z, dim=-1, keepdim=True), scale, SHIFTMAX_N)
+    esum = e.to(torch.int64).sum(-1, keepdim=True).to(torch.float32)
+    sm = torch.floor(e * norm_factor(torch.clamp(esum, 1.0, 2.0**31 - 1), 8))
+    ctx = torch.matmul(sm.to(torch.float64), v.to(torch.float64))
+    return requant(ctx.to(torch.int32), f32(r_out, dev), *INT8).to(torch.int8)
 
 
 def _check(q, k, v, bias, mask, heads: int) -> None:

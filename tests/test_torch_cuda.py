@@ -35,7 +35,9 @@ from ivit_tpu_torch.kernels import (
     fused_requant_shiftmax,
     fused_requant_shiftmax_reference,
 )
+from ivit_tpu_torch.kernels._gelu_common import gelu_table
 from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
+from ivit_tpu_torch.kernels.linear_gelu_fused import gelu_table_on
 from ivit_tpu_torch.models.swin import sw_attn_mask
 
 pytestmark = pytest.mark.cuda
@@ -202,6 +204,42 @@ def test_linear_gelu_kernel_matches_reference(dev, shape):
     assert ref.unique().numel() > 20
 
 
+def _linear_gelu_case(M, K, C, seed):
+    """int8 x and w, int32 b and ratios that spread x@w over a third of
+    int8; row 0 is all negative (x = 0 against a bias below zero: e_max
+    saturates) and row 1 ties at its max (x = 127 against 16 columns of
+    127, which clip)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    w_t = rng.integers(-128, 128, (C, K)).astype(np.int8)
+    b = rng.integers(-(2**15), -(2**14), (C,)).astype(np.int32)
+    r1 = (rng.uniform(0.5, 2.0, (C,)) * 40.0 / (74.0**2 * np.sqrt(K))).astype(np.float32)
+    x[0] = 0
+    x[1], w_t[:16] = 127, 127
+    return [torch.from_numpy(a) for a in (x, w_t, b, r1)]
+
+
+# DeiT-S fc1 at batch 128 and 1, and an M and a C that are not multiples
+# of the 64-row blocks and 256-column chunks, with K not a multiple of the
+# 64-byte weight stages
+@pytest.mark.parametrize("shape", [(25216, 384, 1536), (197, 384, 1536), (25211, 384, 1496), (1000, 96, 200)])
+def test_linear_gelu_kernel_at_path_and_ragged_shapes(dev, shape):
+    x, w_t, b, r1 = _linear_gelu_case(*shape, seed=shape[0])
+    before = fused_linear_shiftgelu.launches
+    out = fused_linear_shiftgelu(x.to(dev), w_t.to(dev).T, b.to(dev), r1.to(dev), *GELU_SCALES)
+    torch.cuda.synchronize()
+    assert fused_linear_shiftgelu.launches == before + 1
+    ref = fused_linear_shiftgelu_reference(x.to(dev), w_t.to(dev).T, b.to(dev), r1.to(dev), *GELU_SCALES)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert (ref[0] <= 0).all() and ref.unique().numel() > 20
+
+
+@pytest.mark.parametrize("s_in,r2", [(0.0021, 0.7), (0.031, 0.7), (0.4, 1.3), (1.9, 0.011)])
+def test_gelu_table_on_card_matches_twin(dev, s_in, r2):
+    s_in, r2 = float(np.float32(s_in)), float(np.float32(r2))
+    torch.testing.assert_close(gelu_table_on(dev, s_in, r2).cpu(), gelu_table(s_in, r2), rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("shape", [(1182, 197, 197), (64, 256, 200), (7, 5, 5)])
 def test_shiftmax_kernel_matches_reference(dev, shape):
     M, N, n_valid = shape
@@ -286,3 +324,90 @@ def test_swin_engine_kernel_path_matches_cpu(dev):
     cpu = build_swin_infer(artifact, "cpu", kernels=())(images)
     torch.testing.assert_close(logits.cpu(), cpu, rtol=0, atol=0)
     torch.testing.assert_close(build_swin_infer(artifact, dev, kernels=())(images).cpu(), cpu, rtol=0, atol=0)
+
+
+# Swin-T's stages: heads, and the resolution tiled by 7 x 7 windows
+SWIN_T_STAGES = {1: (3, 56), 2: (6, 28), 3: (12, 14), 4: (24, 7)}
+
+
+def _window_inputs(G, N, hd, heads, mask, scale, low, seed):
+    """q, k, v spread over a third of the int8 scores, with cells of tied
+    scores (q = 0) and of clipped ones (q = 127 against k = +-127); an
+    integer bias; with ``low``, the rows of window 0 that have a masked
+    column get bias 127 there and ``low`` elsewhere (at scale 0.45, -100
+    puts masked arguments above the clamp, -300 makes a masked score the
+    row max)."""
+    qkv, (r1, _, r_out) = _attention_case(G, N, hd, 8, seed=seed)
+    q, k, _ = qkv
+    c = max(G // 8, 1)
+    q[1:c] = 0
+    q[c:2 * c], k[c:2 * c] = 127, -128
+    rng = np.random.default_rng(seed)
+    bias = rng.integers(-30, 31, (heads, N, N)).astype(np.float32)
+    if low is not None:
+        hit = mask[0] != 0
+        bias[:] = np.where(hit, 127.0, np.where(hit.any(-1, keepdims=True), low, bias))
+    return qkv, torch.from_numpy(bias), (r1, float(np.float32(0.9)), float(np.float32(scale)), r_out)
+
+
+@pytest.mark.parametrize("batch", [1, 128])
+@pytest.mark.parametrize("stage", sorted(SWIN_T_STAGES))
+@pytest.mark.parametrize(
+    "case", ["unmasked", "masked", "masked_above_clamp", "masked_row_max"],
+)
+def test_window_attention_kernel_at_swin_t_stages(dev, stage, batch, case):
+    """K7 at every Swin-T stage shape (B * nW * heads, 49, 32), batch 128
+    and 1, against its plain version on the card: unmasked, masked at a
+    Swin-like scale (every masked argument at the clamp), and at a scale
+    where masked arguments lie above it and masked scores are row maxima."""
+    heads, res = SWIN_T_STAGES[stage]
+    G = batch * (res // 7) ** 2 * heads
+    scale = 0.07 if case in ("unmasked", "masked") else 0.45
+    plane = sw_attn_mask(res, res, 7, 3)
+    low = {"masked_above_clamp": -100.0, "masked_row_max": -300.0}.get(case)
+    qkv, bias, (r1, rb, scale, r_out) = _window_inputs(G, 49, 32, heads, plane, scale, low, seed=stage + batch)
+    mask = None if case == "unmasked" else torch.from_numpy(plane / np.float32(scale))
+    args = [a.to(dev) for a in qkv] + [bias.to(dev), None if mask is None else mask.to(dev)]
+    before = fused_int8_window_attention.launches
+    out = fused_int8_window_attention(*args, r1, rb, scale, r_out, heads)
+    torch.cuda.synchronize()
+    assert fused_int8_window_attention.launches == before + 1
+    ref = fused_int8_window_attention_reference(*args, r1, rb, scale, r_out, heads)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert ref.unique().numel() > 20
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("hd", [4, 32, 256])
+@pytest.mark.parametrize("N", [1, 7, 33, 64, 65, 144, 256])
+def test_window_attention_kernel_domain(dev, N, hd, masked):
+    """K7 over its domain: N from 1 to 256 (the planes in shared memory up
+    to 64 tokens, from L2 above) against hd from 4 to 256."""
+    heads, n_windows, scale = 2, 2, 0.07
+    G = 2 * n_windows * heads
+    plane = np.where(np.random.default_rng(N).random((n_windows, N, N)) < 0.3, -100.0, 0.0).astype(np.float32)
+    qkv, bias, (r1, rb, scale, r_out) = _window_inputs(G, N, hd, heads, plane, scale, None, seed=N + hd)
+    mask = torch.from_numpy(plane / np.float32(scale)) if masked else None
+    out = fused_int8_window_attention(*(a.to(dev) for a in qkv), bias.to(dev), None if mask is None else mask.to(dev),
+                                      r1, rb, scale, r_out, heads)
+    ref = fused_int8_window_attention_reference(*qkv, bias, mask, r1, rb, scale, r_out, heads)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("shape", [(24, 49, 32), (12, 16, 8)], ids=_attention_ids)
+def test_window_attention_kernel_fractional_bias(dev, shape, masked):
+    """A bias that is not integral keeps the merged scores off the
+    integers: the kernel's general path (recomputed scores, the chain
+    where neither table holds the argument) against the plain version."""
+    G, N, hd = shape
+    heads, n_windows = 3, 2
+    plane = np.where(np.random.default_rng(N).random((n_windows, N, N)) < 0.3, -100.0, 0.0).astype(np.float32)
+    qkv, bias, (r1, rb, scale, r_out) = _window_inputs(G, N, hd, heads, plane, 0.07, None, seed=G)
+    bias = bias + torch.from_numpy(np.random.default_rng(G).uniform(-0.5, 0.5, bias.shape).astype(np.float32))
+    mask = torch.from_numpy(plane / np.float32(scale)) if masked else None
+    out = fused_int8_window_attention(*(a.to(dev) for a in qkv), bias.to(dev), None if mask is None else mask.to(dev),
+                                      r1, rb, scale, r_out, heads)
+    ref = fused_int8_window_attention_reference(*qkv, bias, mask, r1, rb, scale, r_out, heads)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+    assert ref.unique().numel() > 20

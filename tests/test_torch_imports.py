@@ -41,3 +41,29 @@ def test_package_has_modules():
 def test_no_jax_imports(relpath):
     roots = set(_imported_roots(os.path.join(_PKG, relpath)))
     assert not roots & set(_FORBIDDEN), f"{relpath} imports {sorted(roots & set(_FORBIDDEN))}"
+
+
+_REPO = os.path.dirname(_PKG)
+
+
+@pytest.mark.parametrize("relpath", ["chip_smoke.py", "scripts/torch_engine_turns.py"])
+def test_card_scripts_import_no_jax(relpath):
+    """The scripts that run on the card's machine import no JAX either."""
+    roots = set(_imported_roots(os.path.join(_REPO, relpath)))
+    assert not roots & set(_FORBIDDEN), f"{relpath} imports {sorted(roots & set(_FORBIDDEN))}"
+
+
+@pytest.mark.parametrize("root", [_REPO, os.path.join(_REPO, "no_such_checkout")], ids=["checkout", "missing"])
+def test_engine_turns_refuses_without_card(root):
+    """scripts/torch_engine_turns.py prints no result and exits nonzero
+    without a CUDA device, or for a directory without the package."""
+    import subprocess
+    import sys
+
+    import torch
+
+    if torch.cuda.is_available() and root == _REPO:
+        pytest.skip("a CUDA device is present: the script would time the engines")
+    run = subprocess.run([sys.executable, os.path.join(_REPO, "scripts", "torch_engine_turns.py"), root],
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode != 0 and run.stdout == ""

@@ -267,7 +267,8 @@ def test_cuda_sources_and_build_line():
     for entry_points in _build._ENTRY_POINTS.values():
         for name, argtypes in entry_points.items():
             assert argtypes[-1] is ctypes.c_void_p, name  # the stream
-            assert argtypes.count(ctypes.c_void_p) >= 3, name
+            # a kernel's inputs and output; K4's table filler has one tensor
+            assert argtypes.count(ctypes.c_void_p) >= (2 if name == "ivit_gelu_table" else 3), name
     # the build directory is ignored by git
     gitignore = open(os.path.join(os.path.dirname(_build.CSRC), "..", ".gitignore")).read()
     assert "build/" in gitignore.split()
@@ -348,6 +349,55 @@ def test_linear_gelu_reference_matches_jax_kernel():
     np.testing.assert_array_equal(ours, np.asarray(theirs))
     assert len(np.unique(ours)) > 20
     np.testing.assert_array_equal(fused_linear_shiftgelu(_t(x), w_k, _t(b), _t(r1), s_in, r2).numpy(), ours)
+
+
+# GELU input scales from small to large against output ratios, float32
+GELU_TABLE_SCALES = [(0.0021, 0.7), (0.031, 0.7), (0.031, 0.052), (0.4, 1.3), (1.9, 0.011)]
+
+
+@pytest.mark.parametrize("s_in,r2", GELU_TABLE_SCALES)
+def test_gelu_table_matches_chain(s_in, r2):
+    """K4's table holds the row-max chain's output of every (q, max q)
+    with q ≤ max, the 128 all-negative rows (e_max saturates) among them,
+    equal to the twin's chain on whole rows and to the JAX op; the
+    entries past the max, which no row reads, are 0."""
+    s_in, r2 = float(np.float32(s_in)), float(np.float32(r2))
+    table = _gelu_common.gelu_table(s_in, r2).numpy()
+    byte = np.arange(256)
+    row_max = np.where(byte < 128, byte, byte - 256)
+    # row i holds every q <= int8(i) once, then repeats it: its max is int8(i)
+    q = np.minimum(np.arange(-128, 128)[None, :], row_max[:, None]).astype(np.float32)
+    chain = _gelu_common.shiftgelu_rowmax_requant(_t(q), s_in, r2).numpy()
+    np.testing.assert_array_equal(table[byte[:, None], q.astype(np.int64) & 0xFF], chain)
+    np.testing.assert_array_equal(chain, _jax_gelu_xla(q, s_in, r2))
+    value = np.where(byte < 128, byte, byte - 256)
+    assert (table[value[None, :] > row_max[:, None]] == 0).all()
+    assert len(np.unique(chain)) > 20
+
+
+def test_linear_gelu_through_the_table_matches_reference():
+    """K4's arithmetic: the requantized product's row max, then one table
+    lookup an element, equals the plain version; on spread rows, an
+    all-negative row and rows tied at their max."""
+    M, K, C = 64, 48, 128
+    rng = np.random.default_rng(3)
+    x = rng.integers(-128, 128, (M, K)).astype(np.int8)
+    w = rng.integers(-128, 128, (K, C)).astype(np.int8)
+    b = rng.integers(-(2**15), -(2**14), (C,)).astype(np.int32)
+    r1 = (rng.uniform(0.5, 2.0, (C,)) * 4e-4).astype(np.float32)
+    x[0] = 0  # acc = b < 0: every q of the row is negative
+    x[1], w[:, :16] = 127, 127  # 16 columns clip at +127: ties at the max
+    s_in, r2 = float(np.float32(0.031)), float(np.float32(0.52))
+    w_k = _t(np.ascontiguousarray(w.T)).T
+    ref = fused_linear_shiftgelu_reference(_t(x), w_k, _t(b), _t(r1), s_in, r2)
+    acc = _t(x).long() @ _t(w).long() + _t(b).long()
+    q = torch.clamp(torch.round(acc.to(torch.float32) * _t(r1)), -128, 127)
+    row_max = torch.amax(q, dim=-1, keepdim=True)
+    table = _gelu_common.gelu_table(s_in, r2)
+    looked = table[row_max.long() & 0xFF, q.long() & 0xFF]
+    torch.testing.assert_close(looked, ref, rtol=0, atol=0)
+    assert (q[0] < 0).all() and int((q[1] == row_max[1]).sum()) > 1
+    assert ref.unique().numel() > 20
 
 
 @pytest.mark.parametrize("case", ["int8_input", "odd_width", "r1_shape", "r1_dtype", "r1_device", "non_contiguous"])

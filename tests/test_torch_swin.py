@@ -19,6 +19,7 @@ import torch
 
 from ivit_tpu.deploy.swin_engine import build_swin_infer as jax_build_swin_infer
 from ivit_tpu.deploy.swin_engine import freeze_swin
+from ivit_tpu.kernels import _shiftmax_common as jax_k0
 from ivit_tpu.kernels.window_attention_fused import fused_int8_window_attention as pallas_window_attention
 from ivit_tpu.models import SwinTransformer
 from ivit_tpu.models import swin as jax_swin
@@ -26,7 +27,9 @@ from ivit_tpu_torch.deploy.engine import int8_linear
 from ivit_tpu_torch.deploy.swin_artifact import swin_artifact_spec, swin_artifact_to_torch, validate_swin_artifact
 from ivit_tpu_torch.deploy.swin_engine import DEFAULT_KERNELS, build_swin_infer, select_swin_kernels, token_mean
 from ivit_tpu_torch.deploy.swin_synthetic import swin_nonzero_probability_share, synthetic_swin_artifact
+from ivit_tpu_torch.kernels import _shiftmax_common as k0
 from ivit_tpu_torch.kernels import fused_int8_window_attention, fused_int8_window_attention_reference
+from ivit_tpu_torch.kernels.window_attention_fused import window_attention_through_tables
 from ivit_tpu_torch.models import create_config
 from ivit_tpu_torch.models import swin
 
@@ -228,28 +231,128 @@ def _window_case(G, N, hd, heads, n_windows, seed):
     return (q, k, v, bias, mask), tuple(float(r) for r in ratios)
 
 
+def _pallas(q, k, v, bias, mask, r1, rb, scale, r_out, heads):
+    """The Pallas K7 in interpret mode on N padded to 128 lanes."""
+    N, npad = q.shape[1], 128
+
+    def pad(a, axes):
+        return jnp.asarray(np.pad(a, [(0, npad - s) if i in axes else (0, 0) for i, s in enumerate(a.shape)]))
+
+    out = pallas_window_attention(
+        pad(q, {1}), pad(k, {1}), pad(v, {1}), pad(bias, {1, 2}), None if mask is None else pad(mask, {1, 2}),
+        r1=r1, rb=rb, scale=scale, r_out=r_out, n_valid=N, heads=heads, interpret=True,
+    )
+    return np.asarray(out)[:, :N]
+
+
 @pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
 def test_window_attention_reference_matches_pallas(masked):
     G, N, hd, heads, n_windows = 24, 16, 8, 3, 4
     (q, k, v, bias, mask), (r1, rb, scale, r_out) = _window_case(G, N, hd, heads, n_windows, seed=int(masked))
     mask = mask if masked else None
-    npad = 128
-
-    def pad(a, axes):
-        return jnp.asarray(np.pad(a, [(0, npad - s) if i in axes else (0, 0) for i, s in enumerate(a.shape)]))
-
-    ref = pallas_window_attention(
-        pad(q, {1}), pad(k, {1}), pad(v, {1}), pad(bias, {1, 2}), None if mask is None else pad(mask, {1, 2}),
-        r1=r1, rb=rb, scale=scale, r_out=r_out, n_valid=N, heads=heads, interpret=True,
-    )
+    ref = _pallas(q, k, v, bias, mask, r1, rb, scale, r_out, heads)
     args = [torch.from_numpy(a) for a in (q, k, v, bias)] + [None if mask is None else torch.from_numpy(mask)]
     ours = fused_int8_window_attention_reference(*args, r1, rb, scale, r_out, heads)
-    np.testing.assert_array_equal(ours.numpy(), np.asarray(ref)[:, :N])
+    np.testing.assert_array_equal(ours.numpy(), ref)
     assert ours.unique().numel() > 100
     # the wrapper takes the plain version for CPU tensors and counts no launch
     before = fused_int8_window_attention.launches
     np.testing.assert_array_equal(fused_int8_window_attention(*args, r1, rb, scale, r_out, heads).numpy(), ours.numpy())
     assert fused_int8_window_attention.launches == before
+
+
+@pytest.mark.parametrize("rb", [0.9, 0.37, 1.7, 3.0])
+def test_rb_table_matches_jax_merge(rb):
+    """K7's merge table on all 256 values of a8: round(a8·rb) in float32."""
+    rb = float(np.float32(rb))
+    a8 = np.arange(-128, 128, dtype=np.float32)
+    table = k0.rb_table(rb).numpy()
+    np.testing.assert_array_equal(table[a8.astype(np.int64) & 0xFF], np.asarray(jnp.round(jnp.asarray(a8) * jnp.float32(rb))))
+
+
+# softmax input scales s_bias: Swin-like ones, where every masked argument
+# (the addend −100/s_bias) lies at or below the chain's clamp, a
+# power-of-two 1/scale, and 0.45, where masked arguments lie above it and
+# a masked score can be a row's max
+WINDOW_SCALES = (0.021, 0.07, 0.2, 0.125, 0.45)
+
+
+def _merged_arguments(scale):
+    """Every row-max-subtracted argument K7 can meet at this scale, as
+    (unmasked score, unmasked max), (masked, unmasked), (unmasked, masked)
+    and (masked, masked) pairs of merged scores in [−128, 127], plus the
+    float32 values at and around the clamp."""
+    z = np.arange(-128, 128, dtype=np.float32)
+    zm = z + np.float32(-100.0) / np.float32(scale)  # mask_int as frozen, added in f32
+    pairs = [a[:, None] - b[None, :] for a in (z, zm) for b in (z, zm)]
+    clamp = np.float32(k0.shift_exp_clamp(scale, 15))
+    around = [clamp + np.float32(0.25) * np.arange(-40, 41, dtype=np.float32),
+              np.nextafter(clamp, np.float32([-np.inf, np.inf]))]
+    d = np.concatenate([p.ravel() for p in pairs] + around).astype(np.float32)
+    masked_vs_unmasked = pairs[2].ravel()
+    return d[d <= 0], masked_vs_unmasked[masked_vs_unmasked <= 0], clamp
+
+
+@pytest.mark.parametrize("scale", WINDOW_SCALES)
+def test_window_shift_exp_matches_chain(scale):
+    """K7's shift-exp through its tables (K1's 256 integral entries, the
+    clamp entry, the chain elsewhere) equals the chain on every argument
+    it can meet, and the JAX K0 chain."""
+    scale = float(np.float32(scale))
+    d, masked, clamp = _merged_arguments(scale)
+    ours = k0.window_shift_exp(torch.from_numpy(d), scale, 15).numpy()
+    valid = np.ones(d.shape, bool)
+    chain = k0.shift_exp_rows(torch.from_numpy(d), torch.tensor(scale), 15, torch.from_numpy(valid)).numpy()
+    np.testing.assert_array_equal(ours, chain)
+    np.testing.assert_array_equal(ours, np.asarray(jax_k0.shift_exp_rows(jnp.asarray(d), jnp.float32(scale), 15.0, jnp.asarray(valid))))
+    # which path a masked score against an unmasked max takes
+    if scale < 0.3:
+        assert (masked <= clamp).all()
+    else:
+        assert (masked > clamp).any() and (masked <= clamp).any()
+
+
+def _edge_window_case(scale, low, seed):
+    """``_window_case`` at softmax input scale ``scale``. With ``low``, the
+    rows of window 0 that have a masked column get bias 127 on it and
+    ``low`` on the others: at scale 0.45 (mask −222.2, clamp −45) a low of
+    −100 leaves the row max unmasked near −60 and puts the masked
+    arguments near −35, above the clamp; a low of −300 clips the unmasked
+    scores to −128 and makes the row max a masked score."""
+    (q, k, v, bias, mask), (r1, rb, _, r_out) = _window_case(24, 16, 8, 3, 4, seed)
+    mask = np.where(mask != 0, np.float32(-100.0) / np.float32(scale), np.float32(0.0)).astype(np.float32)
+    if low is not None:
+        hit = mask[0] != 0
+        bias[:] = np.where(hit, 127.0, np.where(hit.any(-1, keepdims=True), low, bias)).astype(np.float32)
+    return (q, k, v, bias, mask), (r1, rb, float(np.float32(scale)), r_out)
+
+
+@pytest.mark.parametrize(
+    "scale,masked,low",
+    [(0.07, False, None), (0.07, True, None), (0.45, True, -100.0), (0.45, True, -300.0)],
+    ids=["unmasked", "masked", "masked_above_clamp", "masked_row_max"],
+)
+def test_window_attention_through_tables_matches_reference_and_pallas(scale, masked, low):
+    """K7's per-score path through its tables equals the plain version
+    and the Pallas kernel: unmasked and masked cells, masked arguments
+    above the clamp, and rows whose max is a masked score."""
+    (q, k, v, bias, mask), (r1, rb, scale, r_out) = _edge_window_case(scale, low, seed=5)
+    mask = mask if masked else None
+    args = [torch.from_numpy(a) for a in (q, k, v, bias)] + [None if mask is None else torch.from_numpy(mask)]
+    ours = window_attention_through_tables(*args, r1, rb, scale, r_out, 3).numpy()
+    np.testing.assert_array_equal(ours, fused_int8_window_attention_reference(*args, r1, rb, scale, r_out, 3).numpy())
+    np.testing.assert_array_equal(ours, _pallas(q, k, v, bias, mask, r1, rb, scale, r_out, 3))
+    assert len(np.unique(ours)) > 20
+    if not masked:
+        return
+    # not vacuous: the merged scores of window 0's cells (cell 0 on)
+    a8 = np.clip(np.round((q.astype(np.float32) @ k.astype(np.float32).transpose(0, 2, 1)) * np.float32(r1)), -128, 127)
+    z = (np.clip(np.round(a8[:3] * np.float32(rb)) + bias, -128, 127) + mask[0]).astype(np.float32)
+    d = z - z.max(-1, keepdims=True)
+    takes_chain = (d != np.round(d)) & (d > np.float32(k0.shift_exp_clamp(scale, 15)))
+    row_max_masked = np.take_along_axis(np.broadcast_to(mask[0], z.shape), z.argmax(-1)[..., None], -1) != 0
+    assert takes_chain.any() == (low is not None)
+    assert row_max_masked.any() == (low is not None)
 
 
 @pytest.mark.parametrize(
