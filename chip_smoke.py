@@ -22,8 +22,8 @@ Phases:
 1. the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``ivit_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and prints the registers and spill
-   stack of K1's, K2's, K4's and K7's kernels and the tensor-core (IMMA)
-   instructions of K4's and K7's (``cuobjdump``);
+   stack of K1's, K2's, K3's, K4's, K5's and K7's kernels and the
+   tensor-core (IMMA) instructions of K4's and K7's (``cuobjdump``);
 3. every kernel against its plain torch version, bit for bit
    (tolerance 0), at its path's batch-128 and batch-1 shapes, on the
    engine's own block-0 inputs and on random inputs that spread its
@@ -36,13 +36,20 @@ Phases:
    (384, 1536) / (197, ...), also on edge rows (all negative, tied at
    their max) and at a ragged (25211, 384) x (384, 1496), and its GELU
    tables on the card against their torch twin; K5 (25216, 1536) /
-   (197, 1536); K6 (151296, 197) / (1182, 197); K7 at each Swin-T stage's
+   (197, 1536), also on edge rows (all negative, at the int8 clip edges,
+   tied at their max) at (25216, 1536), (33, 256), (5, 100) and (100,
+   2048); K6 (151296, 197) / (1182, 197); K7 at each Swin-T stage's
    (B·nW·H, 49, 32) shape, unshifted (block 0) and shifted with the window
    mask (block 1, stages 1-3), on the Swin path's own inputs and on random
    spread ones, and at every stage on edge inputs, unmasked, masked at a
    Swin-like scale and masked at a scale where masked arguments lie above
    the shift-exp clamp and masked scores are row maxima; K3 at Swin-T's
-   norm inputs, (401408, 96) to (6272, 1536) and their batch-1 rows;
+   norm inputs, (401408, 96) to (6272, 1536) and their batch-1 rows, and
+   on edge rows (zero variance, alternating 32767 and -32768, values in
+   +-60) at every path width with 16-byte and with scalar loads, and at
+   the ragged and split-statistics widths 100, 33, 1000, 1001 and 8192;
+   the engines on GEMM widths that are not multiples of 8 (a 100-class
+   DeiT head, Swin at patch 2), on the card against the CPU;
 4. each path at batch 128 and batch 1, with every launch count set to 0
    just before it and read just after: logits bit-equal to the plain ops
    on the card, to the plain engine on the CPU (first two images), batch
@@ -51,13 +58,17 @@ Phases:
    Swin-T: 12 K7 + 28 K3); at sm16, routes A, B and K1 give equal logits;
    the nonzero share of the 8-bit attention probabilities per block;
 5. times (CUDA events after warm-up): each path's images/s at batch 128
-   and ms/image at batch 1; each kernel beside its plain version and, for
+   and ms/image at batch 1; each kernel (``ms``, launched as a caller
+   launches it, and ``queued_ms``, its calls queued behind a spin kernel
+   so that they run back to back) beside its plain version and, for
    K4, ``torch._int_mm`` on the same GEMM (a partial yardstick the port
    never calls); each kernel's bound (the larger of its bytes over the
    HBM rate and its operations over the peak rates; K1 and K2 count
-   the per-score work of their shift-exp table, ATTN_TABLE_OPS, and K7
-   and K4 that of their tables, WINDOW_TABLE_OPS and GELU_TABLE_OPS,
-   beside the counts of the chains they replace); device
+   the per-score work of their shift-exp table, ATTN_TABLE_OPS, and K7,
+   K4 and K5 that of their tables, WINDOW_TABLE_OPS, GELU_TABLE_OPS and
+   K5_TABLE_OPS, beside the counts of the chains they replace); K3
+   summed over one batch-128 DeiT-S and Swin-T forward beside its summed
+   bounds, and as the profiler reads it in those forwards; device
    time by kernel and the device's idle share over one profiled forward
    (torch.profiler): the main path, routes A and B and Swin-T at batch
    128, and route A at batch 1.
@@ -123,6 +134,10 @@ WINDOW_TABLE_OPS = (REQUANT_OPS[0] + 7, 3)
 # table: per element the int -> float step and the r1 requant (float32)
 # and the bias add, the row max and the lookup (int32)
 GELU_TABLE_OPS = (REQUANT_OPS[0] + 1, 3)
+# K5 since its redesign reads the chain from the same table: per element
+# the int -> float step and the r1 requant (float32) and the row max and
+# the lookup (int32)
+K5_TABLE_OPS = (REQUANT_OPS[0] + 1, 2)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -130,14 +145,20 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device milliseconds per call, CUDA events around ``iters`` calls."""
+def cuda_ms(fn, iters: int, warmup: int = 3, queued: bool = False) -> float:
+    """Mean device milliseconds per call, CUDA events around ``iters`` calls.
+    ``queued`` first holds the stream in a spin kernel of about 0.1 ms a
+    call, so that the host has queued the calls before the first runs: the
+    events then time the kernels back to back, not the host's launch rate
+    (a kernel of a few microseconds launches slower than it runs)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(iters * 200_000)  # clock cycles: about 0.1 ms a call
     start.record()
     for _ in range(iters):
         fn()
@@ -146,13 +167,17 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def paired_ms(kernel_fn, plain_fn, iters: int) -> tuple[float, float]:
-    """Kernel and plain times in the order plain, kernel, kernel, plain."""
+def paired_ms(kernel_fn, plain_fn, iters: int) -> tuple[float, float, float]:
+    """Kernel and plain times in the order plain, kernel, kernel, plain, and
+    between the two kernel readings two of the kernel queued ahead of the
+    device (``cuda_ms(queued=True)``): (kernel, plain, kernel queued)."""
     p1 = cuda_ms(plain_fn, iters)
     k1 = cuda_ms(kernel_fn, iters)
+    q1 = cuda_ms(kernel_fn, iters, queued=True)
+    q2 = cuda_ms(kernel_fn, iters, queued=True)
     k2 = cuda_ms(kernel_fn, iters)
     p2 = cuda_ms(plain_fn, iters)
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    return (k1 + k2) / 2, (p1 + p2) / 2, (q1 + q2) / 2
 
 
 def bound_ms(nbytes: float, int8_ops: float = 0.0, elementwise: tuple = (0.0, 0.0)) -> tuple[float, str]:
@@ -215,10 +240,9 @@ def main() -> int:
         fused_requant_shiftmax,
         fused_requant_shiftmax_reference,
     )
-    from ivit_tpu_torch.kernels._gelu_common import gelu_table
+    from ivit_tpu_torch.kernels._gelu_common import gelu_table, gelu_table_on
     from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
     from ivit_tpu_torch.kernels.attention_fused_v2 import scale_gate
-    from ivit_tpu_torch.kernels.linear_gelu_fused import gelu_table_on
     from ivit_tpu_torch.kernels.window_attention_fused import window_attention_probabilities
     from ivit_tpu_torch.models.swin import sw_attn_mask
 
@@ -244,7 +268,9 @@ def main() -> int:
     kernel_names = (
         ("K1", "attention_fused.cu", r"attention_mma_kernelILb(\d)ELb(\d)ELi(\d)E", "<kV2={}, out_bits 16={}, depth={}>"),
         ("K2", "attention_fused_v2.cu", r"attention_mma_kernelILb(\d)ELb(\d)ELi(\d)E", "<kV2={}, out_bits 16={}, depth={}>"),
+        ("K3", "intnorm_fused.cu", r"fused_layernorm_requant_kernelILi(\d+)ELb(\d)E", "<G={}, vec={}>"),
         ("K4", "linear_gelu_fused.cu", r"(fused_linear_shiftgelu_kernel)ILi(\d)E|(gelu_table_kernel)", "{}"),
+        ("K5", "shiftgelu_fused.cu", r"(fused_requant_shiftgelu_kernel)", "{}"),
         ("K7", "window_attention_fused.cu", r"window_attention_kernelILi(\d)ELi(\d+)ELb(\d)E", "<depth={}, key tiles={}, masked={}>"),
     )
     for name, source, pattern, form in kernel_names:
@@ -322,7 +348,8 @@ def main() -> int:
             print(f"{name} {label}: max_abs_err {err} (tolerance 0), distinct outputs {distinct}")
         check(err == 0, f"{name} {label} differs from its plain version")
 
-    k3_cases = {f"({BATCH * N}, {D})": x128.reshape(-1, D), f"({N}, {D})": x1.reshape(-1, D)}
+    k3_cases = {f"({BATCH * N}, {D})": x128.reshape(-1, D), f"({N}, {D})": x1.reshape(-1, D),
+                f"({BATCH}, {D}) final norm": x128[:, 0].contiguous()}
     for shape, x in k3_cases.items():
         args = (x, blk8["norm1"]["bias_int"], blk8["norm1"]["ratio"])
         compare("K3", shape, fused_layernorm_requant(*args), fused_layernorm_requant_reference(*args))
@@ -466,6 +493,22 @@ def main() -> int:
     print(f"K4 GELU tables of the {len(gelu_pairs)} (s_in, r2) of route A: equal to their torch twin "
           "(tolerance 0)")
 
+    # K5 on edge rows: all negative (e_max saturates), +127 / -128
+    # alternating, all -128, tied at a max of +127 (every fifth channel
+    # clips), spread rows elsewhere; at route B's shape, small and ragged
+    # ones and a width past the 1,536 channels a lane keeps
+    for M, C in ((BATCH * N, hidden), (33, 256), (5, 100), (100, 2048)):
+        ex = torch.randint(-(2**20), 2**20, (M, C), generator=gen, dtype=torch.int32)
+        ex[0] = -ex[0].abs() - 2**15 - 1
+        ex[1, ::2], ex[1, 1::2] = 2**30, -(2**30)
+        ex[2] = -(2**30)
+        ex[3, ::5] = 2**30
+        er1 = torch.from_numpy((np.random.default_rng(C).uniform(0.5, 2.0, C) * 1e-4).astype(np.float32))
+        args = (ex.to(dev), er1.to(dev), *gelu_args)
+        ref = fused_requant_shiftgelu_reference(*args)
+        check(bool((ref[0] <= 0).all()), "K5 edges: row 0 is not all negative")
+        compare("K5", f"({M}, {C}) edge rows", fused_requant_shiftgelu(*args), ref)
+
     # K7 and K3 on the Swin path's own inputs at batch 128 and batch 1:
     # each stage's block 0 (unshifted) and block 1 (shifted, masked in
     # stages 1-3) window q, k, v, and the norm inputs of each stage's
@@ -494,6 +537,36 @@ def main() -> int:
         args = (x, norm["bias_int"], norm["ratio"])
         compare("K3", f"Swin-T {label} {tuple(x.shape)}", fused_layernorm_requant(*args),
                 fused_layernorm_requant_reference(*args))
+
+    # K3 on edge rows at every path width and its batch-128 row count:
+    # zero variance (at 3 and at -32768), alternating 32767 and -32768,
+    # values in +-60, spread rows elsewhere; with 16-byte loads and, from
+    # a base 2 bytes past a 16-byte boundary, the scalar instantiation;
+    # then the ragged widths and the split statistics (C > 1000)
+    def k3_edges(M: int, C: int, offset: int = 0) -> tuple:
+        x = torch.randint(-(2**15), 2**15, (M, C), generator=gen, dtype=torch.int16)
+        x[0], x[1] = 3, -(2**15)
+        x[2, ::2], x[2, 1::2] = 32767, -32768
+        x[3] = torch.randint(-60, 61, (C,), generator=gen, dtype=torch.int16)
+        buf = torch.empty(M * C + offset, dtype=torch.int16, device=dev)
+        buf[offset:] = x.reshape(-1).to(dev)
+        rng_c = np.random.default_rng(C)
+        bias = torch.from_numpy(np.floor(rng_c.standard_normal(C) * 2**24).astype(np.float32)).to(dev)
+        ratio = torch.from_numpy((rng_c.uniform(0.5, 2.0, C) * np.sqrt(C) * 2.0**-25).astype(np.float32)).to(dev)
+        return buf[offset:].view(M, C), bias, ratio
+
+    k3_widths = {96: 401408, 192: 100352, 384: BATCH * N, 768: 25088, 1536: 6272}
+    for C, M in k3_widths.items():
+        for offset in (0, 1):
+            args = k3_edges(M if offset == 0 else M // 8 + 3, C, offset)
+            compare("K3", f"edges ({args[0].shape[0]}, {C}) {'scalar' if offset else '16-byte'} loads",
+                    fused_layernorm_requant(*args), fused_layernorm_requant_reference(*args), quiet=True)
+    for M, C in ((1003, 100), (1003, 33), (517, 1000), (517, 1001), (67, 8192)):
+        args = k3_edges(M, C)
+        compare("K3", f"edges ({M}, {C})", fused_layernorm_requant(*args), fused_layernorm_requant_reference(*args),
+                quiet=True)
+    print(f"K3: max_abs_err 0 (tolerance 0) on edge rows at C in {tuple(k3_widths)} with 16-byte and scalar "
+          "loads, and at (1003, 100), (1003, 33), (517, 1000), (517, 1001), (67, 8192)")
     spread_r1_w = float(np.float32(127.0 / (3 * np.sqrt(32) * 74.0**2)))
 
     def window_shape(q, a) -> str:
@@ -542,6 +615,36 @@ def main() -> int:
                     fused_int8_window_attention(*args), fused_int8_window_attention_reference(*args), quiet=True)
     print("K7: max_abs_err 0 (tolerance 0) at every Swin-T stage shape, batch 128 and 1, on edge inputs: "
           "unmasked, masked at s_bias 0.07, masked arguments above the clamp and masked row maxima at 0.45")
+
+    # GEMM widths that are not multiples of 8: a 100-class DeiT head (N =
+    # 100) and Swin at patch 2 (a patch-embed K of 12), through the
+    # zero-padded weights of carry_linear, on the card against the plain
+    # engine on the CPU
+    odd_widths = {
+        "DeiT num_classes=100": (build_vit_infer, 32, synthetic_vit_artifact(
+            "deit_tiny", seed=SEED, img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2,
+            num_classes=100)),
+        "Swin patch_size=2": (build_swin_infer, 16, synthetic_swin_artifact(
+            "swin_tiny", seed=SEED, img_size=16, patch_size=2, embed_dim=16, depths=(2, 2), num_heads=(2, 4),
+            window_size=4, num_classes=8)),
+    }
+    for label, (build, side, art) in odd_widths.items():
+        w_odd = art["head" if build is build_vit_infer else "patch_embed"]["w"]
+        try:
+            torch._int_mm(torch.zeros((1024, w_odd.shape[0]), dtype=torch.int8, device=dev), torch.from_numpy(w_odd).to(dev))
+            refusal = "takes it"
+        except RuntimeError as e:
+            refusal = f"raises {str(e).splitlines()[0]!r}"
+        print(f"widths {label}: torch._int_mm on the unpadded {tuple(w_odd.shape)} weight {refusal}")
+        imgs = torch.from_numpy(rng.standard_normal((3, side, side, 3), dtype=np.float32))
+        cpu_logits = build(art, "cpu", kernels=())(imgs)
+        for kernels in ("default", ()):
+            fn = build(art, dev) if kernels == "default" else build(art, dev, kernels=kernels)
+            logits_odd = fn(imgs.to(dev)).cpu()
+            e_odd = float((logits_odd - cpu_logits).abs().max())
+            print(f"widths {label}, kernels {sorted(fn.kernels)}: logits {tuple(logits_odd.shape)} vs the plain "
+                  f"engine on the CPU: max_abs_err {e_odd} (tolerance 0)")
+            check(torch.equal(logits_odd, cpu_logits), f"widths {label}: differs from the CPU plain engine")
 
     # 4. each path end to end, its launch counts read around its own run
     def drive(name: str, fn, expect: dict) -> tuple:
@@ -695,20 +798,41 @@ def main() -> int:
         library[("K4", shape4)] = cuda_ms(lambda: torch._int_mm(y, w), 20)
         timings[("K5", shape5)] = paired_ms(lambda: fused_requant_shiftgelu(*args5),
                                             lambda: fused_requant_shiftgelu_reference(*args5), 10)
-        bounds[("K5", shape5)] = bound_ms(M * hidden * 5 + 4 * hidden, elementwise=per_element(M * hidden, GELU_OPS))
-    for key, (k_ms, p_ms) in timings.items():
+        bounds[("K5", shape5)] = bound_ms(M * hidden * 5 + 4 * hidden + 256 * 256,
+                                          elementwise=per_element(M * hidden, K5_TABLE_OPS))
+        chain_bounds[("K5", shape5)] = bound_ms(M * hidden * 5 + 4 * hidden,
+                                                elementwise=per_element(M * hidden, GELU_OPS))
+    for key, (k_ms, p_ms, q_ms) in timings.items():
         b, by = bounds[key]
         lib = f", torch._int_mm GEMM alone {library[key]} ms" if key in library else ""
         old = f", bound by the chain's counts {chain_bounds[key][0]} ms ({chain_bounds[key][1]})" if key in chain_bounds else ""
-        print(f"{key[0]} {key[1]}: kernel {k_ms} ms, plain {p_ms} ms, plain/kernel {p_ms / k_ms}, "
+        print(f"{key[0]} {key[1]}: kernel {k_ms} ms (queued {q_ms} ms), plain {p_ms} ms, plain/kernel {p_ms / k_ms}, "
               f"bound {b} ms ({by}), bound/kernel {b / k_ms}{old}{lib}")
     print(f"operation counts per element (float32, int32): K7 WINDOW_TABLE_OPS {WINDOW_TABLE_OPS} + MASK_OPS "
           f"{MASK_OPS} where masked, before: SHIFTMAX_OPS {SHIFTMAX_OPS} + WINDOW_MERGE_OPS {WINDOW_MERGE_OPS}; "
-          f"K4 GELU_TABLE_OPS {GELU_TABLE_OPS}, before: GELU_OPS {GELU_OPS}")
+          f"K4 GELU_TABLE_OPS {GELU_TABLE_OPS}, K5 K5_TABLE_OPS {K5_TABLE_OPS}, before: GELU_OPS {GELU_OPS}")
 
-    def device_profile(name: str, batch: int, fn, rows: int) -> None:
+    # K3 over one batch-128 forward of each model: each launch's shape
+    # timed above, times its launches a forward, beside the summed bounds
+    k3_forward = {
+        "DeiT-S": [(f"({BATCH * N}, {D})", 2 * depth), (f"({BATCH}, {D}) final norm", 1)],
+        "Swin-T": [(f"{tuple(x.shape)} Swin-T {label}",
+                    1 if label.startswith("merge") else 2 * scfg["depths"][int(label[-1]) - 1]
+                    + (label == f"stage {len(scfg['depths'])}"))  # the final norm has stage 4's rows
+                   for (size, label), (x, _) in swin_norm_inputs.items() if size == "b128"],
+    }
+    for model, launches_by_shape in k3_forward.items():
+        n_launches = sum(c for _, c in launches_by_shape)
+        k_sum = sum(c * timings[("K3", sh)][0] for sh, c in launches_by_shape)
+        q_sum = sum(c * timings[("K3", sh)][2] for sh, c in launches_by_shape)
+        b_sum = sum(c * bounds[("K3", sh)][0] for sh, c in launches_by_shape)
+        print(f"K3 over one batch-{BATCH} {model} forward: {n_launches} launches, kernel {k_sum} ms "
+              f"(queued {q_sum} ms), summed bound {b_sum} ms, bound/kernel {b_sum / k_sum} (queued {b_sum / q_sum})")
+
+    def device_profile(name: str, batch: int, fn, rows: int) -> list:
         """Device time by kernel over one profiled forward, and the idle
-        share: 1 − kernel time / wall time (host clock to synchronize)."""
+        share: 1 − kernel time / wall time (host clock to synchronize);
+        returns (ms, calls, name) by kernel name."""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             fn(images_dev[:batch])
@@ -721,12 +845,18 @@ def main() -> int:
               f"idle share {1 - busy / wall}, {sum(k[1] for k in kernels)} kernels")
         for ms, calls, key in kernels[:rows]:
             print(f"  {ms} ms ({ms / busy:.4f}) {calls} calls: {key[:150]}")
+        return kernels
 
-    device_profile("main path", BATCH, infer, 12)
+    def k3_in_profile(model: str, kernels: list) -> None:
+        ms = sum(k[0] for k in kernels if "layernorm_requant_kernel" in k[2])
+        calls = sum(k[1] for k in kernels if "layernorm_requant_kernel" in k[2])
+        print(f"K3 in the profiled batch-{BATCH} {model} forward: {calls} launches, {ms} ms of device time")
+
+    k3_in_profile("DeiT-S main path", device_profile("main path", BATCH, infer, 12))
     device_profile("route A", BATCH, routes16["A"], 20)
     device_profile("route A", 1, routes16["A"], 0)
     device_profile("route B", BATCH, routes16["B"], 12)
-    device_profile("swin (Swin-T, K7+K3)", BATCH, swin, 16)
+    k3_in_profile("Swin-T", device_profile("swin (Swin-T, K7+K3)", BATCH, swin, 16))
 
     big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",
            "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",
@@ -750,7 +880,7 @@ def main() -> int:
             "name": f"{name} {fn.__name__}", "route": "cuda",
             "source": f"ivit_tpu_torch/csrc/{src}", "replaces": f"ivit_tpu/kernels/{tpu}",
             "launches": launches[name], "max_abs_err": errs[name],
-            "ms": timings[key][0], "plain_ms": timings[key][1],
+            "ms": timings[key][0], "queued_ms": timings[key][2], "plain_ms": timings[key][1],
             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
             "library_ms": library.get(key),
         })

@@ -1,9 +1,9 @@
 // The fused integer attention kernel of K1 (attention_fused.cu) and K2
 // (attention_fused_v2.cu), on Hopper's int8 tensor cores. Its fragment
-// helpers (ldmatrix_x4, mma_s8s8, mma_u8s8, stage_rows, stage_vt, sigma)
-// and exact integer <-> float steps (int_to_float, requant_bits,
+// helpers (ldmatrix_x4, mma_s8s8, mma_u8s8, stage_rows, stage_vt, sigma,
 // floor_bits) also build K7 (window_attention_fused.cu) and K4
-// (linear_gelu_fused.cu).
+// (linear_gelu_fused.cu); its exact integer <-> float steps (int_to_float,
+// requant_bits) come from shiftmax_common.cuh.
 //
 // Per cell g (batch*head) and query row i:
 //   s_ij  = q_i . k_j                        int8 x int8 -> int32 (MMA)
@@ -164,26 +164,6 @@ __device__ __forceinline__ void stage_rows(unsigned dst, int stride, const int8_
                  "r"(ok ? kBytes : 0));
   }
 }
-
-// Integer <-> float32 steps without the conversion unit (a quarter of the
-// rate of the float32 lanes on Hopper), each exact on its stated range.
-constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23: its ulp is 1
-constexpr int kMagicBits = 0x4B400000;
-
-// float(s) for |s| <= 2^22.
-__device__ __forceinline__ float int_to_float(int s) {
-  return __int_as_float(s + kMagicBits) - kMagic;
-}
-
-// kMagicBits + clip(rint(y), -128, 127): rint is monotone and the bounds
-// are integers, so clipping first gives the same value, and adding
-// 1.5 * 2^23 rounds half to even, as rintf. The low byte is the int8.
-__device__ __forceinline__ int requant_bits(float y) {
-  return __float_as_int(fminf(fmaxf(y, -128.0f), 127.0f) + kMagic);
-}
-
-// clip(rint(y), -128, 127) as an int.
-__device__ __forceinline__ int requant_i8(float y) { return requant_bits(y) - kMagicBits; }
 
 // The bits of 2^23 + floor(w) for 0 <= w < 2^23 (the add rounds toward
 // zero): the low 23 bits are floor(w).

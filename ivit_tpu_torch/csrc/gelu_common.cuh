@@ -1,5 +1,6 @@
 // The row-max ShiftGELU chain shared by K4 (linear_gelu_fused.cu) and K5
-// (shiftgelu_fused.cu), for Hopper (sm_90a).
+// (shiftgelu_fused.cu), for Hopper (sm_90a): ivit_gelu_table fills their
+// (max q, q) table with it.
 //
 // Replaces the duplicated _shift_exp / _kernel bodies of
 // ivit_tpu/kernels/linear_gelu_fused.py:33-62 and

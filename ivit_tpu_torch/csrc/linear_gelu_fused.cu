@@ -45,6 +45,9 @@
 namespace {
 
 using namespace ivit::attn_mma;
+using ivit::int_to_float;
+using ivit::kMagicBits;
+using ivit::requant_bits;
 
 constexpr int kWarps = 8;
 constexpr int kChunk = 256;                  // output columns a block takes per pass

@@ -1,5 +1,7 @@
 // K0: shared Shiftmax building blocks for the fused attention and softmax
-// kernels (K1, K2, K6, K7) and the shift-exp of the GELU kernels (K4, K5).
+// kernels (K1, K2, K6, K7) and the shift-exp of the GELU kernels (K4, K5);
+// also the exact integer <-> float32 steps (kMagic) of K1-K5 and K7, and
+// the one-wave grid size of the grid-stride kernels K3 and K5.
 //
 // Replaces ivit_tpu/kernels/_shiftmax_common.py (exp2i, shift_exp_rows,
 // exact_rowsum_2limb, norm_factor), which the Pallas kernels inline. The
@@ -14,12 +16,35 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
+
+#include <atomic>
 #include <cstdint>
 
 namespace ivit {
 
 // float32(2^31 - 1) rounds to 2^31, as the JAX spec's I32_MAX constant does.
 constexpr float kI32Max = 2147483648.0f;
+
+// Integer <-> float32 steps without the conversion unit (a quarter of the
+// rate of the float32 lanes on Hopper), each exact on its stated range.
+constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23: its ulp is 1
+constexpr int kMagicBits = 0x4B400000;
+
+// float(s) for |s| <= 2^22.
+__device__ __forceinline__ float int_to_float(int s) {
+  return __int_as_float(s + kMagicBits) - kMagic;
+}
+
+// kMagicBits + clip(rint(y), -128, 127): rint is monotone and the bounds
+// are integers, so clipping first gives the same value, and adding
+// 1.5 * 2^23 rounds half to even, as rintf. The low byte is the int8.
+__device__ __forceinline__ int requant_bits(float y) {
+  return __float_as_int(fminf(fmaxf(y, -128.0f), 127.0f) + kMagic);
+}
+
+// clip(rint(y), -128, 127) as an int.
+__device__ __forceinline__ int requant_i8(float y) { return requant_bits(y) - kMagicBits; }
 
 // Exact 2^k for integer-valued k >= -126 (k truncated toward zero, as
 // astype(int32)); the shift wraps in 32 bits like XLA's.
@@ -63,16 +88,36 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ int warp_sum_i32(int v) {
+__device__ __forceinline__ unsigned long long warp_sum_u64(unsigned long long v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-__device__ __forceinline__ unsigned long long warp_sum_u64(unsigned long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+constexpr int kMaxDevices = 64;
+
+// The grid of a grid-stride kernel: `need` blocks, at most one resident
+// wave of `kernel` at `threads` threads a block on the current device.
+// The wave is queried once per device into the caller's `wave` (one
+// static array per kernel; every thread that races to fill an entry
+// stores the same value). Returns 0 or the CUDA error.
+inline int one_wave_blocks(const void* kernel, int threads, long long need, std::atomic<int>* wave,
+                           unsigned* blocks) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess && (device < 0 || device >= kMaxDevices)) e = cudaErrorInvalidDevice;
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int w = wave[device].load(std::memory_order_relaxed);
+  if (w == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    w = sms * (per_sm > 0 ? per_sm : 1);
+    wave[device].store(w, std::memory_order_relaxed);
+  }
+  *blocks = static_cast<unsigned>(need < w ? need : w);
+  return 0;
 }
 
 }  // namespace ivit

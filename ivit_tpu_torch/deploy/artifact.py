@@ -125,8 +125,18 @@ def target_device(device) -> torch.device:
 def carry_linear(layer: dict, device, s_next=None) -> dict:
     """A frozen linear on ``device``: int8 ``w`` (K, N), the int32 ``b``
     where the layer has one, and either the requant ``ratio``
-    ``out_scale / s_next`` or, without ``s_next``, the ``out_scale``."""
+    ``out_scale / s_next`` or, without ``s_next``, the ``out_scale``.
+
+    CUDA's ``torch._int_mm`` takes only K and N that are multiples of 8,
+    so a ``w`` of other widths is carried zero-padded up to them, with
+    the true N as ``n``; ``deploy.engine.int8_linear`` pads x's columns
+    to match and cuts the product back to N. Zero rows and columns change
+    no integer. ``b`` and the scales keep their N entries."""
     out = {k: torch.tensor(np.asarray(layer[k])).to(device) for k in ("w", "b") if k in layer}
+    K, N = out["w"].shape
+    if K % 8 or N % 8:
+        out["w"] = torch.nn.functional.pad(out["w"], (0, -N % 8, 0, -K % 8))
+        out["n"] = N
     if s_next is None:
         out["out_scale"] = host_f32(layer["out_scale"]).to(device)
     else:
@@ -176,7 +186,8 @@ def artifact_to_torch(artifact: dict, device) -> dict:
         sa1, ssm = s["s_attn_qact1"], s["s_attn_sm_in"]
         gelu_ratio = div(s["s_gelu_in"] * g_shift, s["s_gelu_out"])
         fc1 = carry_linear(blk["fc1"], device, s["s_gelu_in"])
-        fc1["w_t"] = fc1["w"].T.contiguous()  # K-contiguous for K4
+        k, n = np.shape(blk["fc1"]["w"])
+        fc1["w_t"] = fc1["w"][:k, :n].T.contiguous()  # K-contiguous for K4, unpadded
         blocks.append({
             "norm1": carry_norm(blk["norm1"], device, s["s_qact1"]),
             "qkv": carry_linear(blk["qkv"], device, sa1),

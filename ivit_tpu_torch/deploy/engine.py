@@ -111,13 +111,17 @@ def select_kernels(cfg: dict, kernels=DEFAULT_KERNELS) -> frozenset:
 def int8_linear(x: torch.Tensor, layer: dict) -> torch.Tensor:
     """(M, K) int8 @ w (K, N) int8 [+ b] → (M, N) int32, exact; the
     bias is added where the layer has one (Swin's patch-merging
-    ``reduction`` has none)."""
+    ``reduction`` has none). A ``w`` carried zero-padded to multiples of
+    8 (``artifact.carry_linear``, which sets the true N as ``n``) gets
+    x's columns padded with zeros and its product cut back to N."""
+    w = layer["w"]
     M, K = x.shape
-    if x.is_cuda and M < _int_mm_min_rows(K):
-        pad = x.new_zeros((_int_mm_min_rows(K) - M, K))
-        acc = torch._int_mm(torch.cat([x, pad]), layer["w"])[:M]
-    else:
-        acc = torch._int_mm(x.contiguous(), layer["w"])
+    rows = max(M, _int_mm_min_rows(w.shape[0])) if x.is_cuda else M
+    if rows > M or w.shape[0] > K:
+        x = torch.nn.functional.pad(x, (0, w.shape[0] - K, 0, rows - M))
+    acc = torch._int_mm(x.contiguous(), w)
+    if rows > M or "n" in layer:
+        acc = acc[:M, : layer.get("n", w.shape[1])].contiguous()
     return acc + layer["b"] if "b" in layer else acc
 
 

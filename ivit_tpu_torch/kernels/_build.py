@@ -52,8 +52,8 @@ _ENTRY_POINTS = {
         "ivit_fused_layernorm_requant": (_P, _P, _P, _P, _I, _I, _P),
     },
     "shiftgelu_fused.cu": {
-        # x, r1, out, M, C, s_in, r2, n, stream
-        "ivit_fused_requant_shiftgelu": (_P, _P, _P, _I, _I, _F, _F, _I, _P),
+        # x, r1, table, out, M, C, stream
+        "ivit_fused_requant_shiftgelu": (_P, _P, _P, _P, _I, _I, _P),
     },
     "linear_gelu_fused.cu": {
         # x, w_t, b, r1, table, out, M, K, C, stream

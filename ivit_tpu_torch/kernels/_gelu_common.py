@@ -3,18 +3,20 @@
 Counterpart of the duplicated ``_shift_exp`` / ``_kernel`` bodies of
 ``ivit_tpu/kernels/linear_gelu_fused.py:33-62`` and
 ``shiftgelu_fused.py:31-55``. The CUDA form is ``csrc/gelu_common.cuh``,
-inlined into K4 and K5; the functions here state the same arithmetic on
-tensors, op for op, so the header can be read against them. It is the
-reference-spec form (``ops.shiftgelu`` with ``stable=False``), n = 23,
-8-bit output, with every guard kept, followed by the requant to int8.
+which fills the table K4 and K5 read; the functions here state the same
+arithmetic on tensors, op for op, so the header can be read against
+them. It is the reference-spec form (``ops.shiftgelu`` with
+``stable=False``), n = 23, 8-bit output, with every guard kept, followed
+by the requant to int8.
 
 The scale product ``s_in · 1.702`` and ``−1`` over it are float32, as
 in the XLA op. The Pallas kernels form them in float64 at trace time
 and agree with this wherever the floors of the two quotients agree.
 
-``gelu_table`` is the twin of K4's per-(s_in, r2) table
-(``csrc/linear_gelu_fused.cu:ivit_gelu_table``): the chain's output
-depends only on an element and its row's max.
+``gelu_table`` is the twin of the per-(s_in, r2) table that K4 and K5
+read (``csrc/linear_gelu_fused.cu:ivit_gelu_table``): the chain's output
+depends only on an element and its row's max. ``gelu_table_on`` fills
+that table on a card and keeps it.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ import torch
 
 from ..ops import INT8, int_exp_shift, requant
 from ..ops.interp import I32_MAX, div, f32
+from . import _build
 
 GELU_N = 23  # the shift-exp precision of ShiftGELU
+_TABLES: dict = {}  # (s_in, r2, device) -> the card's (256, 256) int8 GELU table
 
 
 def shiftgelu_given_max(q: torch.Tensor, q_max: torch.Tensor, s_in: float, r2: float) -> torch.Tensor:
@@ -57,3 +61,19 @@ def gelu_table(s_in: float, r2: float) -> torch.Tensor:
     q, q_max = value[None, :], value[:, None]
     out = shiftgelu_given_max(q, q_max, s_in, r2)
     return torch.where(q <= q_max, out, torch.zeros_like(out))
+
+
+def gelu_table_on(device: torch.device, s_in: float, r2: float) -> torch.Tensor:
+    """The (256, 256) int8 GELU table of (s_in, r2) on a CUDA device,
+    filled there by ``ivit_gelu_table`` at first use and kept; raises if
+    the fill fails."""
+    key = (s_in, r2, device)
+    if key not in _TABLES:
+        table = torch.empty((256, 256), dtype=torch.int8, device=device)
+        with torch.cuda.device(device):
+            err = _build.load().ivit_gelu_table(
+                table.data_ptr(), s_in, r2, GELU_N, torch.cuda.current_stream(device).cuda_stream
+            )
+        _build.check(err, "gelu_table")
+        _TABLES[key] = table
+    return _TABLES[key]

@@ -2,11 +2,15 @@
 
 Replaces ``ivit_tpu/kernels/intnorm_fused.py:fused_layernorm_requant``
 (``pl.pallas_call`` at :74). The CUDA kernel is
-``csrc/intnorm_fused.cu``: one warp per row, exact int32 warp-shuffle
-sums, the spec's f32 tree op for op. It is bound by HBM bytes (int16 in,
-int8 out, a few dozen ops per element), so it reads the int16 residual
-stream directly and never materializes an f32 carrier. Unlike the Pallas
-kernel it takes any C, not only multiples of 128.
+``csrc/intnorm_fused.cu``: rows in row groups of g lanes (32/g rows a
+warp, so the row's scalar Newton chain runs once for them all), exact
+int32 group-shuffle sums, the spec's f32 tree op for op, 16-byte loads
+where the width and alignment allow, the row and the lane's slices of
+β and ratio kept in registers. It is bound by HBM bytes (int16 in, int8
+out), so it reads the int16 residual stream directly and never
+materializes an f32 carrier. Unlike the Pallas kernel it takes any C,
+not only multiples of 128. Its C entry point picks g and the load
+width from C and the tensors' alignment.
 
 ``fused_layernorm_requant_reference`` is the plain version, built from
 ``ops.int_layernorm`` and ``ops.requant``; the wrapper runs it for CPU

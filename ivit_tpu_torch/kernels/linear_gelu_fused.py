@@ -11,8 +11,9 @@ requantized into an int8 row buffer in shared memory with the row max
 folded in, and the GELU chain is one lookup an element in a 256 × 256
 table of (q, max q), filled once per (s_in, r2) on the card by
 ``ivit_gelu_table`` from the unchanged chain of ``csrc/gelu_common.cuh``
-and cached here. The (M, C) int32 accumulator never reaches HBM; the
-int8 products bound it at DeiT-S width.
+and cached by ``_gelu_common.gelu_table_on``, which K5 shares. The
+(M, C) int32 accumulator never reaches HBM; the int8 products bound it
+at DeiT-S width.
 
 The kernel reads the weight with K contiguous: ``w`` is the (K, C) view
 ``w_t.T`` of a contiguous (C, K) tensor, which the engine keeps beside
@@ -29,13 +30,12 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._gelu_common import GELU_N
+from ._gelu_common import gelu_table_on
 from .shiftgelu_fused import fused_requant_shiftgelu_reference
 
 _ROWS = 32  # the fewest rows a block of the kernel takes
 _STAGE_BYTES = 3 * 256 * (64 + 16)  # the weight stages of a block
 _MAX_SMEM = 227 * 1024
-_TABLES: dict = {}  # (s_in, r2, device) -> the card's (256, 256) int8 GELU table
 
 
 def smem_bytes(K: int, C: int) -> int:
@@ -44,21 +44,6 @@ def smem_bytes(K: int, C: int) -> int:
     (``csrc/linear_gelu_fused.cu:plan``)."""
     kp = (K + 31) // 32 * 32
     return _ROWS * (kp + 16) + _STAGE_BYTES + _ROWS * ((C + 127) // 128 * 128 + 16) + 4 * _ROWS
-
-
-def gelu_table_on(device: torch.device, s_in: float, r2: float) -> torch.Tensor:
-    """The (256, 256) int8 GELU table of (s_in, r2) on a CUDA device,
-    filled there by ``ivit_gelu_table`` at first use and kept."""
-    key = (s_in, r2, device)
-    if key not in _TABLES:
-        table = torch.empty((256, 256), dtype=torch.int8, device=device)
-        with torch.cuda.device(device):
-            err = _build.load().ivit_gelu_table(
-                table.data_ptr(), s_in, r2, GELU_N, torch.cuda.current_stream(device).cuda_stream
-            )
-        _build.check(err, "gelu_table")
-        _TABLES[key] = table
-    return _TABLES[key]
 
 
 def fused_linear_shiftgelu_reference(

@@ -2,10 +2,13 @@
 
 Replaces ``ivit_tpu/kernels/shiftgelu_fused.py:fused_requant_shiftgelu``
 (``pl.pallas_call`` at :79). The CUDA kernel is
-``csrc/shiftgelu_fused.cu`` on the shared chain of
-``csrc/gelu_common.cuh``: one warp per row (the row max spans every
-channel), 16-byte vector loads, the int32 accumulator read from HBM
-once. It is bound by HBM bytes: 4 B in and 1 B out per element.
+``csrc/shiftgelu_fused.cu``: one warp per row (the row max spans every
+channel), the int32 accumulator read from HBM once with 16-byte vector
+loads and requantized to int8 q in registers, then the whole GELU chain
+as one lookup an element in K4's 256 × 256 table of (max q, q), filled
+on the card from the unchanged chain of ``csrc/gelu_common.cuh`` by
+``_gelu_common.gelu_table_on``. It is bound by HBM bytes: 4 B in and 1 B
+out per element.
 
 ``fused_requant_shiftgelu_reference`` is the plain version (``ops.requant``
 then the ``_gelu_common`` twin); the wrapper runs it for CPU tensors and
@@ -18,7 +21,7 @@ import torch
 
 from ..ops import INT8, requant
 from . import _build
-from ._gelu_common import GELU_N, shiftgelu_rowmax_requant
+from ._gelu_common import gelu_table_on, shiftgelu_rowmax_requant
 
 
 def fused_requant_shiftgelu_reference(
@@ -55,11 +58,12 @@ def fused_requant_shiftgelu(x: torch.Tensor, r1: torch.Tensor, s_in: float, r2: 
         raise ValueError("x and r1 must start on 16-byte boundaries (the kernel loads 16-byte vectors)")
     lib = _build.load()
     M, C = x.shape
+    table = gelu_table_on(x.device, s_in, r2)
     out = torch.empty((M, C), dtype=torch.int8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.ivit_fused_requant_shiftgelu(
-            x.data_ptr(), r1.data_ptr(), out.data_ptr(), M, C, s_in, r2, GELU_N, stream
+            x.data_ptr(), r1.data_ptr(), table.data_ptr(), out.data_ptr(), M, C, stream
         )
     _build.check(err, "fused_requant_shiftgelu")
     fused_requant_shiftgelu.launches += 1

@@ -35,9 +35,8 @@ from ivit_tpu_torch.kernels import (
     fused_requant_shiftmax,
     fused_requant_shiftmax_reference,
 )
-from ivit_tpu_torch.kernels._gelu_common import gelu_table
+from ivit_tpu_torch.kernels._gelu_common import gelu_table, gelu_table_on
 from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
-from ivit_tpu_torch.kernels.linear_gelu_fused import gelu_table_on
 from ivit_tpu_torch.models.swin import sw_attn_mask
 
 pytestmark = pytest.mark.cuda
@@ -102,6 +101,71 @@ def test_layernorm_kernel_matches_reference(dev, shape):
     torch.cuda.synchronize()
     assert fused_layernorm_requant.launches == before + 1
     torch.testing.assert_close(out.cpu(), fused_layernorm_requant_reference(*args), rtol=0, atol=0)
+
+
+def _layernorm_edges(M, C, seed):
+    """int16 rows with the edges of the statistics (zero variance at 3
+    and at -32768, alternating 32767 and -32768, values in +-60), spread
+    rows elsewhere, an integer beta and ratios that spread the output
+    over int8."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-(2**15), 2**15, (M, C)).astype(np.int16)
+    x[0] = 3
+    x[1] = -(2**15)
+    x[2, ::2], x[2, 1::2] = 32767, -32768
+    x[3] = rng.integers(-60, 61, C)
+    bias = np.floor(rng.standard_normal(C) * 2**24).astype(np.float32)
+    ratio = (rng.uniform(0.5, 2.0, C) * np.sqrt(C) * 2.0**-25).astype(np.float32)
+    return [torch.from_numpy(a) for a in (x, bias, ratio)]
+
+
+def _layernorm_on_card(dev, x, bias, ratio):
+    """K3 on the card beside its plain version on the card, one launch."""
+    args = [a.to(dev) for a in (x, bias, ratio)]
+    before = fused_layernorm_requant.launches
+    out = fused_layernorm_requant(*args)
+    torch.cuda.synchronize()
+    assert fused_layernorm_requant.launches == before + 1
+    return out, fused_layernorm_requant_reference(*args)
+
+
+# every width the paths run (Swin-T's four stages and merges, DeiT-S), at
+# a row count past one resident wave of blocks and not a multiple of the
+# rows of a block, on edge rows, with 16-byte loads and, from a base 2
+# bytes past a 16-byte boundary, with the scalar instantiation
+@pytest.mark.parametrize("aligned", [True, False], ids=["vec", "unaligned"])
+@pytest.mark.parametrize("C", [96, 192, 384, 768, 1536])
+def test_layernorm_kernel_at_path_widths(dev, C, aligned):
+    x, bias, ratio = _layernorm_edges(100003 if aligned else 20011, C, seed=C)
+    if not aligned:
+        buf = torch.empty(x.numel() + 1, dtype=torch.int16, device=dev)
+        buf[1:] = x.reshape(-1).to(dev)
+        x = buf[1:].view(x.shape)
+        assert x.data_ptr() % 16 == 2
+    out, ref = _layernorm_on_card(dev, x, bias, ratio)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert ref.unique().numel() > 20
+
+
+# the first and last width of every row group the kernel picks: with
+# 16-byte loads (3 chunks of 8 channels a lane: groups of 1-32 lanes end at
+# 24, 48, 96, 192, 384 and 768 channels) and with scalar loads (8
+# channels a lane: 8, 16, 32, 64, 128 and 256)
+@pytest.mark.parametrize("C", [8, 9, 16, 17, 24, 32, 33, 48, 56, 64, 65, 96, 104, 128, 129, 192, 200, 256, 257,
+                               384, 392, 768, 776])
+def test_layernorm_kernel_at_row_group_edges(dev, C):
+    x, bias, ratio = _layernorm_edges(4099, C, seed=C)
+    out, _ = _layernorm_on_card(dev, x, bias, ratio)
+    torch.testing.assert_close(out.cpu(), fused_layernorm_requant_reference(x, bias, ratio), rtol=0, atol=0)
+
+
+# ragged widths (scalar loads), the last merged-statistics width and the
+# first split one, and the widest row the kernel takes
+@pytest.mark.parametrize("shape", [(1003, 100), (1003, 33), (517, 1000), (517, 1001), (67, 8192)])
+def test_layernorm_kernel_at_ragged_and_split_widths(dev, shape):
+    x, bias, ratio = _layernorm_edges(*shape, seed=shape[1])
+    out, _ = _layernorm_on_card(dev, x, bias, ratio)
+    torch.testing.assert_close(out.cpu(), fused_layernorm_requant_reference(x, bias, ratio), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("softmax_bits,gelu_stable", [(8, True), (16, False)])
@@ -182,6 +246,27 @@ def test_shiftgelu_kernel_matches_reference(dev, shape):
     assert fused_requant_shiftgelu.launches == before + 1
     ref = fused_requant_shiftgelu_reference(x, r1, *GELU_SCALES)
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+
+
+# the route-B shape at batch 128, small rows and a ragged width, and
+# widths past the 1,536 channels a lane keeps in registers
+@pytest.mark.parametrize("shape", [(25216, 1536), (33, 256), (5, 100), (37, 1540), (100, 2048)])
+def test_shiftgelu_kernel_on_edge_rows(dev, shape):
+    """K5 on the edge rows: all negative (e_max saturates), +127 / -128
+    alternating, all -128, and tied at a max of +127 (every fifth
+    channel clips), on the card against its plain version there."""
+    x, r1 = _gelu_case(*shape, seed=shape[0])
+    x[0] -= 2**15  # every q of row 0 below zero: e_max saturates
+    if shape[0] > 3:
+        x[3, ::5] = 2**30
+    before = fused_requant_shiftgelu.launches
+    args = (x.to(dev), r1.to(dev), *GELU_SCALES)
+    out = fused_requant_shiftgelu(*args)
+    torch.cuda.synchronize()
+    assert fused_requant_shiftgelu.launches == before + 1
+    ref = fused_requant_shiftgelu_reference(*args)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    assert (ref[0] <= 0).all() and ref.unique().numel() > 20
 
 
 @pytest.mark.parametrize("shape", [(197, 384, 1536), (64, 48, 128), (45, 100, 200)])
@@ -411,3 +496,31 @@ def test_window_attention_kernel_fractional_bias(dev, shape, masked):
     ref = fused_int8_window_attention_reference(*qkv, bias, mask, r1, rb, scale, r_out, heads)
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
     assert ref.unique().numel() > 20
+
+
+# torch._int_mm on CUDA takes K and N that are multiples of 8 only: a
+# 100-class head (N = 100) and Swin at patch 2 (the patch embed's K is
+# 2 * 2 * 3 = 12) go through the zero-padded weights of carry_linear
+@pytest.mark.parametrize("model", ["deit_num_classes_100", "swin_patch_2"])
+def test_engines_at_widths_not_multiples_of_8(dev, model):
+    if model == "swin_patch_2":
+        artifact = synthetic_swin_artifact(
+            "swin_tiny", seed=0, img_size=16, patch_size=2, embed_dim=16, depths=(2, 2),
+            num_heads=(2, 4), window_size=4, num_classes=8,
+        )
+        build, size = build_swin_infer, 16
+        assert artifact["patch_embed"]["w"].shape == (12, 16)
+    else:
+        artifact = synthetic_vit_artifact(
+            "deit_tiny", seed=1, img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2,
+            num_classes=100,
+        )
+        build, size = build_vit_infer, 32
+        assert artifact["head"]["w"].shape == (128, 100)
+    images = torch.from_numpy(np.random.default_rng(3).standard_normal((3, size, size, 3)).astype(np.float32))
+    cpu = build(artifact, "cpu", kernels=())(images)
+    for kernels in ((), None):
+        infer = build(artifact, dev) if kernels is None else build(artifact, dev, kernels=kernels)
+        logits = infer(images)
+        torch.testing.assert_close(logits.cpu(), cpu, rtol=0, atol=0)
+    assert cpu.shape[1] == artifact["config"]["num_classes"]

@@ -62,6 +62,22 @@ def test_engine_matches_jax_engine(jax_frozen):
     np.testing.assert_array_equal(one, ours[:1])
 
 
+def test_engine_at_a_100_class_head_matches_jax_engine():
+    """N = 100 at the head: the carried weight is zero-padded to 104
+    columns (CUDA's ``torch._int_mm`` takes multiples of 8 only) and the
+    logits are cut back to 100, equal to the JAX engine."""
+    model = VisionTransformer(**TINY, num_classes=100, softmax_bits=8, gelu_stable=True)
+    variables = jax.jit(lambda rng, x: model.init(rng, x, train=True))(
+        jax.random.PRNGKey(2), jnp.asarray(_images(4, seed=0)))
+    artifact = freeze_vit(model, jax.tree.map(np.asarray, variables))
+    head = artifact_to_torch(artifact, "cpu")["head"]
+    assert tuple(head["w"].shape) == (128, 104) and head["n"] == 100 and tuple(head["b"].shape) == (100,)
+    images = _images(3)
+    ours = build_vit_infer(artifact, "cpu")(torch.from_numpy(images)).numpy()
+    assert ours.shape == (3, 100)
+    np.testing.assert_array_equal(ours, _jax_logits(artifact, images))
+
+
 def test_engine_plain_and_kernel_paths_agree_on_cpu(jax_frozen):
     artifact, _ = jax_frozen
     images = torch.from_numpy(_images(2))

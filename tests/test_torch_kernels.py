@@ -138,7 +138,7 @@ def test_attention_wrapper_rejects(case):
         fused_int8_attention(q, k, v, 1e-3, 0.07, 1e-2, out_bits=bits)
 
 
-@pytest.mark.parametrize("C", [128, 1024], ids=["merged_stats", "split_stats"])
+@pytest.mark.parametrize("C", [128, 1024, 384, 1536], ids=["merged_stats", "split_stats", "deit_s", "swin_t_stage_4"])
 def test_layernorm_reference_matches_jax_kernel(C):
     rng = np.random.default_rng(C)
     x = rng.integers(-(2**15), 2**15, (9, C)).astype(np.int16)
@@ -269,9 +269,26 @@ def test_cuda_sources_and_build_line():
             assert argtypes[-1] is ctypes.c_void_p, name  # the stream
             # a kernel's inputs and output; K4's table filler has one tensor
             assert argtypes.count(ctypes.c_void_p) >= (2 if name == "ivit_gelu_table" else 3), name
+    # K5 reads its chain from the GELU table: x, r1, table, out, M, C, stream;
+    # K3 picks its row-group width and load width itself
+    P, I = ctypes.c_void_p, ctypes.c_int
+    assert _build._ENTRY_POINTS["shiftgelu_fused.cu"]["ivit_fused_requant_shiftgelu"] == (P, P, P, P, I, I, P)
+    assert _build._ENTRY_POINTS["intnorm_fused.cu"]["ivit_fused_layernorm_requant"] == (P, P, P, P, I, I, P)
     # the build directory is ignored by git
     gitignore = open(os.path.join(os.path.dirname(_build.CSRC), "..", ".gitignore")).read()
     assert "build/" in gitignore.split()
+
+
+def test_magic_number_steps_have_one_definition():
+    """The exact int <-> float32 steps (kMagic, int_to_float,
+    requant_bits) and the one-wave grid of the grid-stride kernels are
+    defined once, in the header every kernel includes."""
+    shared = "shiftmax_common.cuh"
+    for f in _build.SOURCES + _build.HEADERS:
+        text = open(os.path.join(_build.CSRC, f)).read()
+        for definition in ("float kMagic =", "int kMagicBits =", "float int_to_float(", "int requant_bits(",
+                           "cudaOccupancyMaxActiveBlocksPerMultiprocessor("):
+            assert text.count(definition) == (f == shared), (f, definition)
 
 
 # ---- K5 / K4: the row-max ShiftGELU chain (n = 23) ----------------------
@@ -398,6 +415,31 @@ def test_linear_gelu_through_the_table_matches_reference():
     torch.testing.assert_close(looked, ref, rtol=0, atol=0)
     assert (q[0] < 0).all() and int((q[1] == row_max[1]).sum()) > 1
     assert ref.unique().numel() > 20
+
+
+@pytest.mark.parametrize("shape", [(48, 256), (25, 1536), (33, 256), (5, 100)])
+def test_shiftgelu_through_the_table_matches_reference(shape):
+    """K5's arithmetic: requant, the row max, then one table lookup an
+    element, equals the plain version, the JAX XLA ops and (C a multiple
+    of 128) the Pallas K5 in interpret mode; on spread rows, an
+    all-negative row, rows at the int8 clip edges and a row tied at its
+    max of +127."""
+    M, C = shape
+    x, r1 = _gelu_rows(M, C, seed=C)
+    x[0] -= 2**15  # every q of row 0 below zero: e_max saturates
+    x[3, ::5] = 2**30  # every fifth channel clips at +127: ties at the max
+    _same_x0(S_IN, 1.702)
+    ref = fused_requant_shiftgelu_reference(_t(x), _t(r1), S_IN, R2)
+    q = torch.clamp(torch.round(_t(x).to(torch.float32) * _t(r1)), -128, 127)
+    row_max = torch.amax(q, dim=-1, keepdim=True)
+    table = _gelu_common.gelu_table(S_IN, R2)
+    looked = table[row_max.long() & 0xFF, q.long() & 0xFF]
+    torch.testing.assert_close(looked, ref, rtol=0, atol=0)
+    np.testing.assert_array_equal(ref.numpy(), _jax_gelu_xla(q.numpy(), S_IN, R2))
+    if C % 128 == 0:
+        theirs = jax_fused_requant_shiftgelu(jnp.asarray(x), jnp.asarray(r1), S_IN, R2, out_bits=8, interpret=True)
+        np.testing.assert_array_equal(ref.numpy(), np.asarray(theirs))
+    assert (q[0] < 0).all() and int((q[3] == 127).sum()) > 1 and (ref[0] <= 0).all()
 
 
 @pytest.mark.parametrize("case", ["int8_input", "odd_width", "r1_shape", "r1_dtype", "r1_device", "non_contiguous"])

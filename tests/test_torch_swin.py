@@ -23,6 +23,7 @@ from ivit_tpu.kernels import _shiftmax_common as jax_k0
 from ivit_tpu.kernels.window_attention_fused import fused_int8_window_attention as pallas_window_attention
 from ivit_tpu.models import SwinTransformer
 from ivit_tpu.models import swin as jax_swin
+from ivit_tpu_torch.deploy.artifact import carry_linear
 from ivit_tpu_torch.deploy.engine import int8_linear
 from ivit_tpu_torch.deploy.swin_artifact import swin_artifact_spec, swin_artifact_to_torch, validate_swin_artifact
 from ivit_tpu_torch.deploy.swin_engine import DEFAULT_KERNELS, build_swin_infer, select_swin_kernels, token_mean
@@ -405,3 +406,21 @@ def test_int8_linear_adds_the_bias_only_where_there_is_one():
     exact = x.to(torch.int32) @ w.to(torch.int32)
     assert torch.equal(int8_linear(x, {"w": w}), exact)
     assert torch.equal(int8_linear(x, {"w": w, "b": b}), exact + b)
+
+
+@pytest.mark.parametrize("K,N", [(12, 16), (384, 100), (100, 36), (16, 8)])
+def test_int8_linear_at_widths_not_multiples_of_8(K, N):
+    """``carry_linear`` zero-pads w to multiples of 8 (CUDA's
+    ``torch._int_mm`` takes no other K or N) and keeps the true N;
+    ``int8_linear`` pads x's columns to match and cuts the product back
+    to N: the exact integers of the unpadded product."""
+    rng = np.random.default_rng(K * N)
+    layer = {"w": rng.integers(-128, 128, (K, N)).astype(np.int8), "b": rng.integers(-1000, 1000, (N,)).astype(np.int32),
+             "out_scale": rng.uniform(0.5, 2.0, N).astype(np.float32)}
+    carried = carry_linear(layer, "cpu", torch.tensor(np.float32(0.5)))
+    assert tuple(carried["w"].shape) == (-(-K // 8) * 8, -(-N // 8) * 8)
+    assert carried.get("n", N) == N and ("n" in carried) == bool(K % 8 or N % 8)
+    x = torch.from_numpy(rng.integers(-128, 128, (9, K)).astype(np.int8))
+    exact = x.to(torch.int32) @ torch.from_numpy(layer["w"]).to(torch.int32) + torch.from_numpy(layer["b"])
+    out = int8_linear(x, carried)
+    assert out.is_contiguous() and torch.equal(out, exact)
