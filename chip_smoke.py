@@ -22,7 +22,7 @@ Phases:
 1. the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``ivit_tpu_torch/csrc`` with nvcc, one
    process per source, all at once, and prints the registers and spill
-   stack of K1's, K2's, K3's, K4's, K5's and K7's kernels and the
+   stack of K1's, K2's, K3's, K4's, K5's, K6's and K7's kernels and the
    tensor-core (IMMA) instructions of K4's and K7's (``cuobjdump``);
 3. every kernel against its plain torch version, bit for bit
    (tolerance 0), at its path's batch-128 and batch-1 shapes, on the
@@ -38,8 +38,13 @@ Phases:
    tables on the card against their torch twin; K5 (25216, 1536) /
    (197, 1536), also on edge rows (all negative, at the int8 clip edges,
    tied at their max) at (25216, 1536), (33, 256), (5, 100) and (100,
-   2048); K6 (151296, 197) / (1182, 197); K7 at each Swin-T stage's
-   (B·nW·H, 49, 32) shape, unshifted (block 0) and shifted with the window
+   2048); K6 (151296, 197) / (1182, 197), also as a row-slice view
+   (151295, 197) whose base lies 4 bytes past a 16-byte boundary, and on
+   edge rows (uniform, all at -128, one-hot at 2^30) at N in K6_N with
+   n_valid below and at N, M = 7 and 1182, out_bits 8 and 16, a spread
+   scale and a power-of-two 1/scale (one-token rows: sm = 2^15, hi
+   saturates to 127), from 16-byte aligned and offset bases; K7 at each
+   Swin-T stage's (B·nW·H, 49, 32) shape, unshifted (block 0) and shifted with the window
    mask (block 1, stages 1-3), on the Swin path's own inputs and on random
    spread ones, and at every stage on edge inputs, unmasked, masked at a
    Swin-like scale and masked at a scale where masked arguments lie above
@@ -65,8 +70,9 @@ Phases:
    never calls); each kernel's bound (the larger of its bytes over the
    HBM rate and its operations over the peak rates; K1 and K2 count
    the per-score work of their shift-exp table, ATTN_TABLE_OPS, and K7,
-   K4 and K5 that of their tables, WINDOW_TABLE_OPS, GELU_TABLE_OPS and
-   K5_TABLE_OPS, beside the counts of the chains they replace); K3
+   K4, K5 and K6 that of their tables, WINDOW_TABLE_OPS, GELU_TABLE_OPS,
+   K5_TABLE_OPS and K6_TABLE_OPS, beside the counts of the chains they
+   replace); K3
    summed over one batch-128 DeiT-S and Swin-T forward beside its summed
    bounds, and as the profiler reads it in those forwards; device
    time by kernel and the device's idle share over one profiled forward
@@ -98,6 +104,7 @@ ROUTE_B = ("layernorm", "softmax", "gelu")
 POW2_SCALE = 0.125  # 1/scale a power of two: a one-token row's probability is 2^(out_bits-1)
 ATTN_N = (1, 17, 32, 33, 197, 256)  # K1/K2 edge shapes: tokens ...
 ATTN_HD = (8, 32, 64, 128)          # ... against head widths
+K6_N = (1, 5, 197, 256)             # K6 edge shapes: tokens a row
 
 # Published H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/ms and
 # int8 tensor-core ops/ms. 67 TFLOP/s in float32 counts an FMA as two
@@ -138,6 +145,12 @@ GELU_TABLE_OPS = (REQUANT_OPS[0] + 1, 3)
 # the int -> float step and the r1 requant (float32) and the row max and
 # the lookup (int32)
 K5_TABLE_OPS = (REQUANT_OPS[0] + 1, 2)
+# K6 since its redesign looks the shift-exp up in K1's table of the
+# integral z - zmax and splits sm in integers: per score the int -> float
+# step, the requant, the u32 -> float step, the multiply and the floor
+# (float32), and the max, the subtract, the lookup, the sum and the
+# split's shift, min, and and xor (int32)
+K6_TABLE_OPS = (REQUANT_OPS[0] + 4, 8)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -271,6 +284,7 @@ def main() -> int:
         ("K3", "intnorm_fused.cu", r"fused_layernorm_requant_kernelILi(\d+)ELb(\d)E", "<G={}, vec={}>"),
         ("K4", "linear_gelu_fused.cu", r"(fused_linear_shiftgelu_kernel)ILi(\d)E|(gelu_table_kernel)", "{}"),
         ("K5", "shiftgelu_fused.cu", r"(fused_requant_shiftgelu_kernel)", "{}"),
+        ("K6", "shiftmax_fused.cu", r"fused_requant_shiftmax_kernelILi(\d+)E", "<copy bytes={}>"),
         ("K7", "window_attention_fused.cu", r"window_attention_kernelILi(\d)ELi(\d+)ELb(\d)E", "<depth={}, key tiles={}, masked={}>"),
     )
     for name, source, pattern, form in kernel_names:
@@ -442,6 +456,43 @@ def main() -> int:
         for data, (x, r1, scale) in (("sm16 block0", k6_inputs[size]), ("random", (scores(rq, rk), spread_r1, spread_scale))):
             compare("K6", f"({x.shape[0]}, {N}) {data}", fused_requant_shiftmax(x, r1, scale, N),
                     fused_requant_shiftmax_reference(x, r1, scale, N))
+    # the block-0 scores from a row-slice view: the base 4 bytes past a
+    # 16-byte boundary (the kernel's 4-byte copies), M not a multiple of
+    # the 16-row tile
+    x, r1, scale = k6_inputs["b128"]
+    check(x[1:].data_ptr() % 16 == 4, f"row-slice view at {x[1:].data_ptr() % 16} bytes past 16")
+    compare("K6", f"({x.shape[0] - 1}, {N}) sm16 block0 row-slice view", fused_requant_shiftmax(x[1:], r1, scale, N),
+            fused_requant_shiftmax_reference(x[1:], r1, scale, N))
+
+    # K6 on edge rows (uniform: x = 0; all valid at -128: x = -2^30; one-hot:
+    # 2^30 in column 0), spread rows elsewhere, at N in K6_N with n_valid
+    # below N and at N, out_bits 8 and 16, a spread scale and a power-of-two
+    # 1/scale (one-token rows: sm = 2^15 and hi saturates to 127), M = 7 and
+    # 1182, from a 16-byte aligned base and from one 4 bytes past
+    k6_r1 = float(np.float32(100.0 / 2**20))  # the spread rows span the int8 clip
+    saturated = 0
+    for n_tok in K6_N:
+        for M in (7, H * N):
+            ex = torch.randint(-(2**20), 2**20, (M, n_tok), generator=gen, dtype=torch.int32)
+            ex[0], ex[1], ex[2, 0] = 0, -(2**30), 2**30
+            buf = torch.empty(M * n_tok + 1, dtype=torch.int32, device=dev)
+            buf[1:] = ex.reshape(-1).to(dev)
+            bases = {"aligned": ex.to(dev), "offset": buf[1:].view(M, n_tok)}
+            check(bases["offset"].data_ptr() % 16 == 4, "K6 edges: offset base")
+            for n_valid in sorted({n_tok, (n_tok + 1) // 2, 1}):
+                for bits in (8, 16):
+                    for scale in (spread_scale, POW2_SCALE):
+                        for base, xe in bases.items():
+                            ref = fused_requant_shiftmax_reference(xe, k6_r1, scale, n_valid, bits)
+                            if n_valid == 1 and scale == POW2_SCALE and bits == 16:  # sm = 2^15 in column 0
+                                check(bool((ref[0][:, 0] == 127).all() and (ref[1][:, 0] == -128).all()),
+                                      "K6 edges: a one-token row's hi did not saturate")
+                                saturated += M
+                            compare("K6", f"edges ({M}, {n_tok}) n_valid={n_valid} out_bits={bits} scale={scale} {base}",
+                                    fused_requant_shiftmax(xe, k6_r1, scale, n_valid, bits), ref, quiet=True)
+    print(f"K6: max_abs_err 0 (tolerance 0) on edge rows at N in {K6_N}, n_valid below and at N, out_bits 8 and 16, "
+          f"scales {spread_scale} and {POW2_SCALE}, M = 7 and 1182, aligned and offset bases; {saturated} one-token rows "
+          "with hi saturated to 127")
 
     # K4 and K5: the block-0 MLP inputs of the sm16 path, and random inputs
     # whose per-channel ratios spread the GELU inputs over int8
@@ -735,7 +786,7 @@ def main() -> int:
     engine_times("swin (Swin-T, K7+K3)", swin, swin_plain)
 
     timings, bounds = {}, {}
-    chain_bounds = {}  # K4's and K7's bounds by the counts of the chains their tables replace
+    chain_bounds = {}  # K4's, K5's, K6's and K7's bounds by the counts of the chains their tables replace
     for shape, x in k3_cases.items():
         args = (x, blk8["norm1"]["bias_int"], blk8["norm1"]["ratio"])
         timings[("K3", shape)] = paired_ms(lambda: fused_layernorm_requant(*args),
@@ -781,7 +832,8 @@ def main() -> int:
         shape = f"({x.shape[0]}, {N})"
         timings[("K6", shape)] = paired_ms(lambda: fused_requant_shiftmax(x, r1, scale, N),
                                            lambda: fused_requant_shiftmax_reference(x, r1, scale, N), 10)
-        bounds[("K6", shape)] = bound_ms(x.numel() * 6, elementwise=per_element(x.numel(), SHIFTMAX_OPS, SPLIT_OPS))
+        bounds[("K6", shape)] = bound_ms(x.numel() * 6, elementwise=per_element(x.numel(), K6_TABLE_OPS))
+        chain_bounds[("K6", shape)] = bound_ms(x.numel() * 6, elementwise=per_element(x.numel(), SHIFTMAX_OPS, SPLIT_OPS))
     library = {}
     for size in x16:
         args4, args5 = k4_inputs[size], k5_inputs[size]
@@ -810,7 +862,8 @@ def main() -> int:
               f"bound {b} ms ({by}), bound/kernel {b / k_ms}{old}{lib}")
     print(f"operation counts per element (float32, int32): K7 WINDOW_TABLE_OPS {WINDOW_TABLE_OPS} + MASK_OPS "
           f"{MASK_OPS} where masked, before: SHIFTMAX_OPS {SHIFTMAX_OPS} + WINDOW_MERGE_OPS {WINDOW_MERGE_OPS}; "
-          f"K4 GELU_TABLE_OPS {GELU_TABLE_OPS}, K5 K5_TABLE_OPS {K5_TABLE_OPS}, before: GELU_OPS {GELU_OPS}")
+          f"K4 GELU_TABLE_OPS {GELU_TABLE_OPS}, K5 K5_TABLE_OPS {K5_TABLE_OPS}, before: GELU_OPS {GELU_OPS}; "
+          f"K6 K6_TABLE_OPS {K6_TABLE_OPS}, before: SHIFTMAX_OPS {SHIFTMAX_OPS} + SPLIT_OPS {SPLIT_OPS}")
 
     # K3 over one batch-128 forward of each model: each launch's shape
     # timed above, times its launches a forward, beside the summed bounds

@@ -1,9 +1,9 @@
 // The fused integer attention kernel of K1 (attention_fused.cu) and K2
 // (attention_fused_v2.cu), on Hopper's int8 tensor cores. Its fragment
-// helpers (ldmatrix_x4, mma_s8s8, mma_u8s8, stage_rows, stage_vt, sigma,
-// floor_bits) also build K7 (window_attention_fused.cu) and K4
-// (linear_gelu_fused.cu); its exact integer <-> float steps (int_to_float,
-// requant_bits) come from shiftmax_common.cuh.
+// helpers (ldmatrix_x4, mma_s8s8, mma_u8s8, stage_rows, stage_vt, sigma)
+// also build K7 (window_attention_fused.cu) and K4 (linear_gelu_fused.cu);
+// its exact integer <-> float steps (int_to_float, requant_bits,
+// floor_bits) come from shiftmax_common.cuh.
 //
 // Per cell g (batch*head) and query row i:
 //   s_ij  = q_i . k_j                        int8 x int8 -> int32 (MMA)
@@ -164,10 +164,6 @@ __device__ __forceinline__ void stage_rows(unsigned dst, int stride, const int8_
                  "r"(ok ? kBytes : 0));
   }
 }
-
-// The bits of 2^23 + floor(w) for 0 <= w < 2^23 (the add rounds toward
-// zero): the low 23 bits are floor(w).
-__device__ __forceinline__ int floor_bits(float w) { return __float_as_int(__fadd_rz(w, 8388608.0f)); }
 
 // Byte kByte of each of a, b, c, d, packed little-endian into one word.
 template <int kByte>

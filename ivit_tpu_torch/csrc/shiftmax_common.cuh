@@ -1,7 +1,7 @@
 // K0: shared Shiftmax building blocks for the fused attention and softmax
 // kernels (K1, K2, K6, K7) and the shift-exp of the GELU kernels (K4, K5);
-// also the exact integer <-> float32 steps (kMagic) of K1-K5 and K7, and
-// the one-wave grid size of the grid-stride kernels K3 and K5.
+// also the exact integer <-> float32 steps (kMagic, floor_bits) of K1-K7,
+// and the one-wave grid size of the grid-stride kernels K3, K5 and K6.
 //
 // Replaces ivit_tpu/kernels/_shiftmax_common.py (exp2i, shift_exp_rows,
 // exact_rowsum_2limb, norm_factor), which the Pallas kernels inline. The
@@ -46,6 +46,10 @@ __device__ __forceinline__ int requant_bits(float y) {
 // clip(rint(y), -128, 127) as an int.
 __device__ __forceinline__ int requant_i8(float y) { return requant_bits(y) - kMagicBits; }
 
+// The bits of 2^23 + floor(w) for 0 <= w < 2^23 (the add rounds toward
+// zero): the low 23 bits are floor(w).
+__device__ __forceinline__ int floor_bits(float w) { return __float_as_int(__fadd_rz(w, 8388608.0f)); }
+
 // Exact 2^k for integer-valued k >= -126 (k truncated toward zero, as
 // astype(int32)); the shift wraps in 32 bits like XLA's.
 __device__ __forceinline__ float exp2i(float k) {
@@ -82,16 +86,13 @@ __device__ __forceinline__ float norm_factor(float esum, int out_bits) {
   return floorf(kI32Max / esum) * shift;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
+// The exact warp sum of per-lane values below 2^35 (K6's lanes hold at
+// most 8 shift-exps of at most 2^31 each): two 32-bit warp reductions of
+// 24-bit limbs, neither of which can overflow (32 * 2^24 and 32 * 2^11).
 __device__ __forceinline__ unsigned long long warp_sum_u64(unsigned long long v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  const unsigned lo = __reduce_add_sync(0xffffffffu, static_cast<unsigned>(v) & 0xffffffu);
+  const unsigned hi = __reduce_add_sync(0xffffffffu, static_cast<unsigned>(v >> 24));
+  return (static_cast<unsigned long long>(hi) << 24) + lo;
 }
 
 constexpr int kMaxDevices = 64;

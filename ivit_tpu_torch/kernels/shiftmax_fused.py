@@ -2,10 +2,15 @@
 
 Replaces ``ivit_tpu/kernels/shiftmax_fused.py:fused_requant_shiftmax``
 (``pl.pallas_call`` at :95). The CUDA kernel is
-``csrc/shiftmax_fused.cu`` on K0 (``csrc/shiftmax_common.cuh``): one warp
-per row, the row in registers, bound by HBM bytes (4 B in, 2 B out per
-element). ``sm = 256·hi + lo + 128`` feeds the exact @V as two int8
-products and a rank-1 term (the engine's ``"softmax"`` route).
+``csrc/shiftmax_fused.cu`` on K0 (``csrc/shiftmax_common.cuh``), bound by
+HBM bytes (4 B in, 2 B out per score): tiles of 16 rows copied flat into
+shared memory by 16-byte ``cp.async`` (4-byte where ``x`` does not start
+on a 16-byte boundary), double-buffered, one resident wave of blocks; a
+warp a row; the shift-exp of the integral ``z − zmax`` one lookup in a
+256-entry table each block fills with the unchanged chain (K1's), the
+split in integers, both outputs stored as flat 16-byte spans.
+``sm = 256·hi + lo + 128`` feeds the exact @V as two int8 products and a
+rank-1 term (the engine's ``"softmax"`` route).
 
 The layout is unpadded (M, N): columns ``j ≥ n_valid`` are masked to
 probability 0 (hi = 0, lo = −128), and the Pallas kernel's lane padding

@@ -11,7 +11,7 @@ B (the same model; K6 + K5 + K3) and Swin-T (K7 + K3), each as ms per
 batch-128 forward by CUDA events over 10 forwards after 3 of warm-up,
 and as the median ms of a batch-1 forward on the host clock (forward and
 synchronize, 50 runs after 10), as ``chip_smoke.py`` times them; and K3
-at every width of those paths and K5 at route B's shape, on seeded
+at every width of those paths and K5 and K6 at route B's shapes, on seeded
 inputs, as ms per launch by CUDA events over 20 launches, launched as a
 caller launches them (``ms``) and queued behind a spin kernel (``queued
 ms``), with ``chip_smoke.py``'s ``cuda_ms`` (this script's own
@@ -40,6 +40,7 @@ HOST_CALLS = 200
 K3_SHAPES = ((25216, 384), (401408, 96), (100352, 192), (25088, 384), (6272, 768),
              (100352, 384), (25088, 768), (6272, 1536))
 K5_SHAPE = (25216, 1536)
+K6_SHAPE = (151296, 197)  # DeiT-S batch 128: 768 heads x 197 query rows, 197 keys
 
 
 def batch1_ms(fn, image) -> float:
@@ -91,7 +92,7 @@ def main() -> int:
     from ivit_tpu_torch.deploy.swin_engine import build_swin_infer
     from ivit_tpu_torch.deploy.swin_synthetic import synthetic_swin_artifact
     from ivit_tpu_torch.deploy.synthetic import synthetic_vit_artifact
-    from ivit_tpu_torch.kernels import fused_layernorm_requant, fused_requant_shiftgelu
+    from ivit_tpu_torch.kernels import fused_layernorm_requant, fused_requant_shiftgelu, fused_requant_shiftmax
 
     dev = torch.device("cuda", 0)
     images = torch.from_numpy(np.random.default_rng(1).standard_normal((BATCH, 224, 224, 3), dtype=np.float32)).to(dev)
@@ -125,6 +126,13 @@ def main() -> int:
         result[f"K5 ({M}, {C}) {label}"] = cuda_ms(lambda: fused_requant_shiftgelu(acc, r1, s_in, r2),
                                                    KERNEL_ITERS, queued=queued)
     result[f"K5 ({M}, {C}) host us"] = host_us(lambda: fused_requant_shiftgelu(acc, r1, s_in, r2))
+    M, N = K6_SHAPE
+    scores = torch.from_numpy(rng.integers(-(2**20), 2**20, (M, N)).astype(np.int32)).to(dev)
+    r1, scale = float(np.float32(3.1e-5)), float(np.float32(0.021))
+    for label, queued in (("ms", False), ("queued ms", True)):
+        result[f"K6 ({M}, {N}) {label}"] = cuda_ms(lambda: fused_requant_shiftmax(scores, r1, scale, N),
+                                                   KERNEL_ITERS, queued=queued)
+    result[f"K6 ({M}, {N}) host us"] = host_us(lambda: fused_requant_shiftmax(scores, r1, scale, N))
     print(json.dumps(result))
     return 0
 

@@ -325,22 +325,42 @@ def test_gelu_table_on_card_matches_twin(dev, s_in, r2):
     torch.testing.assert_close(gelu_table_on(dev, s_in, r2).cpu(), gelu_table(s_in, r2), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("shape", [(1182, 197, 197), (64, 256, 200), (7, 5, 5)])
-def test_shiftmax_kernel_matches_reference(dev, shape):
+# (M, N, n_valid): route B's batch-1 shape, N in (1, 5, 197, 256) with
+# n_valid below and at N, and M not a multiple of the kernel's 16-row tile
+SHIFTMAX_SHAPES = [(1182, 197, 197), (64, 256, 200), (7, 5, 5), (7, 5, 3), (7, 1, 1), (1182, 1, 1),
+                   (7, 197, 99), (1182, 256, 256), (1182, 256, 1)]
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+@pytest.mark.parametrize("out_bits", [8, 16])
+@pytest.mark.parametrize("scale", [0.021, 0.125], ids=["spread", "pow2"])
+@pytest.mark.parametrize("shape", SHIFTMAX_SHAPES)
+def test_shiftmax_kernel_matches_reference(dev, shape, scale, out_bits, offset):
+    """Rows: uniform, one-hot at 2^30, every valid score at −128, spread
+    elsewhere; at a power-of-two 1/scale a one-token row's sm is 2^15 and
+    hi saturates to 127. ``offset`` starts x 4 bytes past a 16-byte
+    boundary (the kernel's 4-byte copies)."""
     M, N, n_valid = shape
     rng = np.random.default_rng(N)
     x = rng.integers(-(2**20), 2**20, (M, N)).astype(np.int32)
     x[0] = 0
     x[1, 0] = 2**30
+    x[2] = -(2**30)
     x = torch.from_numpy(x)
-    r1, scale = float(np.float32(3.1e-5)), float(np.float32(0.021))
+    buf = torch.empty(M * N + offset, dtype=torch.int32, device=dev)
+    buf[offset:] = x.reshape(-1).to(dev)
+    xd = buf[offset:].view(M, N)
+    assert xd.data_ptr() % 16 == 4 * offset
+    r1, scale = float(np.float32(3.1e-5)), float(np.float32(scale))
     before = fused_requant_shiftmax.launches
-    hi, lo = fused_requant_shiftmax(x.to(dev), r1, scale, n_valid)
+    hi, lo = fused_requant_shiftmax(xd, r1, scale, n_valid, out_bits)
     torch.cuda.synchronize()
     assert fused_requant_shiftmax.launches == before + 1
-    rhi, rlo = fused_requant_shiftmax_reference(x, r1, scale, n_valid)
+    rhi, rlo = fused_requant_shiftmax_reference(x, r1, scale, n_valid, out_bits)
     torch.testing.assert_close(hi.cpu(), rhi, rtol=0, atol=0)
     torch.testing.assert_close(lo.cpu(), rlo, rtol=0, atol=0)
+    if n_valid == 1 and scale == 0.125 and out_bits == 16:
+        assert (rhi[:, 0] == 127).all()
 
 
 @pytest.mark.parametrize(

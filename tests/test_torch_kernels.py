@@ -12,6 +12,7 @@ The CUDA kernels themselves run only on a GPU: their tests are in
 """
 
 import ctypes
+import functools
 import math
 import os
 
@@ -30,6 +31,8 @@ from ivit_tpu.kernels.linear_gelu_fused import fused_linear_shiftgelu as jax_fus
 from ivit_tpu.ops import DEPLOY
 from ivit_tpu.ops import shiftgelu as jax_shiftgelu
 from ivit_tpu.ops import shiftmax as jax_shiftmax
+from ivit_tpu_torch.deploy.engine import build_vit_infer
+from ivit_tpu_torch.deploy.synthetic import synthetic_vit_artifact
 from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
 from ivit_tpu_torch.kernels.attention_fused_v2 import scale_gate
 from ivit_tpu_torch.kernels import (
@@ -221,6 +224,25 @@ def test_shift_exp_table_matches_jax(scale):
     assert float(table.max()) == float(table[0]) == p * 2.0**15
 
 
+@functools.cache
+def _route_b_scales() -> tuple:
+    """The Shiftmax input scale of each block of the synthetic DeiT-S
+    artifact at 16-bit probabilities, as route B hands it to K6."""
+    art = synthetic_vit_artifact("deit_small", seed=0, softmax_bits=16, gelu_stable=False)
+    return tuple(b["attn"]["scale"] for b in build_vit_infer(art, "cpu", kernels=()).tensors["blocks"])
+
+
+@pytest.mark.parametrize("block", range(12))
+def test_shift_exp_table_matches_jax_at_route_b_scales(block):
+    """K6's per-launch table (K1's, clip on) at route B's scale of each
+    DeiT-S block: entry i is JAX's shift-exp at z = −i."""
+    scale = _route_b_scales()[block]
+    assert np.float32(scale) == scale
+    z = -np.arange(256, dtype=np.float32)
+    je = jax_k0.shift_exp_rows(jnp.asarray(z), jnp.float32(scale), 15.0, jnp.ones(256, bool), clip_e=True)
+    np.testing.assert_array_equal(k0.shift_exp_table(scale, 15, True).numpy(), np.asarray(je))
+
+
 @pytest.mark.parametrize("out_bits", [8, 16])
 def test_attention_one_token_rows_match_xla(out_bits):
     """N = 1 with a power-of-two 1/scale: each row's one probability is
@@ -281,13 +303,13 @@ def test_cuda_sources_and_build_line():
 
 def test_magic_number_steps_have_one_definition():
     """The exact int <-> float32 steps (kMagic, int_to_float,
-    requant_bits) and the one-wave grid of the grid-stride kernels are
+    requant_bits, floor_bits) and the one-wave grid of the grid-stride kernels are
     defined once, in the header every kernel includes."""
     shared = "shiftmax_common.cuh"
     for f in _build.SOURCES + _build.HEADERS:
         text = open(os.path.join(_build.CSRC, f)).read()
         for definition in ("float kMagic =", "int kMagicBits =", "float int_to_float(", "int requant_bits(",
-                           "cudaOccupancyMaxActiveBlocksPerMultiprocessor("):
+                           "int floor_bits(", "cudaOccupancyMaxActiveBlocksPerMultiprocessor("):
             assert text.count(definition) == (f == shared), (f, definition)
 
 
@@ -490,15 +512,26 @@ def _decode(hi, lo):
     return 256 * np.asarray(hi, np.int32) + np.asarray(lo, np.int32) + 128
 
 
-@pytest.mark.parametrize("N,n_valid,out_bits", [(197, 197, 16), (40, 33, 16), (40, 40, 8)])
-def test_shiftmax_reference_matches_jax_kernel(N, n_valid, out_bits):
+@pytest.mark.parametrize(
+    "N,n_valid,out_bits,scale",
+    [
+        pytest.param(197, 197, 16, 0.021, id="197-197-16"),
+        pytest.param(40, 33, 16, 0.021, id="40-33-16"),
+        pytest.param(40, 40, 8, 0.021, id="40-40-8"),
+        # one-token rows at a power-of-two 1/scale: sm = 2^15, hi saturates
+        pytest.param(1, 1, 16, 0.125, id="1-1-16-pow2"),
+        pytest.param(256, 1, 16, 0.125, id="256-1-16-pow2"),
+        pytest.param(256, 256, 16, 0.021, id="256-256-16"),
+    ],
+)
+def test_shiftmax_reference_matches_jax_kernel(N, n_valid, out_bits, scale):
     M, Npad = 24, 256
     rng = np.random.default_rng(N + n_valid)
     x = rng.integers(-(2**20), 2**20, (M, N)).astype(np.int32)
     x[0] = 0  # a uniform row
     x[1, :n_valid] = -(2**20)  # every valid score at −128
     x[2, 0] = 2**30  # one-hot
-    r1, scale = float(np.float32(3.1e-5)), float(np.float32(0.021))
+    r1, scale = float(np.float32(3.1e-5)), float(np.float32(scale))
     _same_x0(scale)
     hi, lo = fused_requant_shiftmax_reference(_t(x), r1, scale, n_valid, out_bits)
     jhi, jlo = jax_fused_requant_shiftmax(
@@ -509,9 +542,13 @@ def test_shiftmax_reference_matches_jax_kernel(N, n_valid, out_bits):
     np.testing.assert_array_equal(sm, jsm[:, :N])
     np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi)[:, :N])
     np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo)[:, :N])
-    # masked and pad columns decode to exactly 0; the probabilities spread
+    # masked and pad columns decode to exactly 0; the probabilities spread,
+    # or a one-token row's 2^15 saturates hi to 127 (decoding to 2^15 − 256)
     assert (sm[:, n_valid:] == 0).all() and (jsm[:, N:] == 0).all()
-    assert len(np.unique(sm)) > (5 if out_bits == 8 else 20)
+    if n_valid == 1:
+        assert (hi.numpy()[:, 0] == 127).all() and (lo.numpy()[:, 0] == -128).all()
+    else:
+        assert len(np.unique(sm)) > (5 if out_bits == 8 else 20)
     got = fused_requant_shiftmax(_t(x), r1, scale, n_valid, out_bits)
     np.testing.assert_array_equal(got[0].numpy(), hi.numpy())
     np.testing.assert_array_equal(got[1].numpy(), lo.numpy())
