@@ -77,7 +77,26 @@ Phases:
    bounds, and as the profiler reads it in those forwards; device
    time by kernel and the device's idle share over one profiled forward
    (torch.profiler): the main path, routes A and B and Swin-T at batch
-   128, and route A at batch 1.
+   128, and route A at batch 1;
+6. the serving entry points: each of the six paths of ``deploy.graphs``
+   (main, A, B, the sm16 K1 route, Swin-T and ``kernels=()``) captured as
+   a CUDA graph at batch 128 and 1, with every launch count set to 0
+   just before the capture and read just after (the warm-up forwards and
+   the capture; ``replay.launches`` the capture's alone, one forward's),
+   replay logits bit-equal to the eager ones of phase 4, a replay adding
+   no launch; batch-128 images/s graphed; batch-1 ms/image eager and
+   graphed (host clock) and the idle share of one batch-1 forward each
+   way; no host synchronisation inside one eager forward of each path;
+   the benchmark's FP32 leg on the card with TF32 off against the CPU at
+   batch 2 (FP32_RTOL; TF32 on must miss it), ``strict_dyadic`` at full
+   DeiT-S width bit-equal to the CPU, a reference-style DeiT-S checkpoint
+   through ``convert_model`` then the default kernels on the card
+   bit-equal to the plain engine on the CPU (12 K1 + 25 K3); and
+   ``python -m ivit_tpu_torch.bench`` (one JSON line with ``bench.py``'s
+   keys) and ``python -m ivit_tpu_torch.evaluate_latency`` at batch 1
+   (the main path, and ``--model swin_tiny``) run as a user runs them,
+   each required to exit 0, their lines printed and their launches a
+   forward checked.
 
 Any failed check raises and exits nonzero before the result lines. The
 second-to-last line is the kernels' JSON record, the last line
@@ -89,11 +108,14 @@ Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 
 from __future__ import annotations
 
+import ast
 import json
+import math
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -105,6 +127,11 @@ POW2_SCALE = 0.125  # 1/scale a power of two: a one-token row's probability is 2
 ATTN_N = (1, 17, 32, 33, 197, 256)  # K1/K2 edge shapes: tokens ...
 ATTN_HD = (8, 32, 64, 128)          # ... against head widths
 K6_N = (1, 5, 197, 256)             # K6 edge shapes: tokens a row
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")  # host calls that wait on the device
+# the FP32 leg on the card against the CPU: relative to the largest |logit|
+# (float32 products summed in other orders; TF32 rounds every product's
+# inputs to 10 mantissa bits)
+FP32_RTOL = 4e-6
 
 # Published H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/ms and
 # int8 tensor-core ops/ms. 67 TFLOP/s in float32 counts an FMA as two
@@ -212,6 +239,94 @@ def max_abs_err(a, b) -> int:
     return int((a.to(dtype=b.dtype).long() - b.long()).abs().max())
 
 
+def reference_vit_state(a: dict) -> dict:
+    """A reference-style DeiT QAT state dict (the ``weight_integer`` /
+    ``bias_integer`` / ``*_scaling_factor`` buffers the ingester reads, as
+    numpy arrays) holding the integers and scales of artifact ``a``."""
+    import numpy as np
+
+    f32 = np.float32
+    p, D = a["config"]["patch_size"], a["config"]["embed_dim"]
+    sd = {}
+
+    def act(name, scale):
+        sd[f"{name}.act_scaling_factor"] = np.array([scale], f32)
+
+    def linear(prefix, layer, s_in):
+        sd[f"{prefix}.weight_integer"] = layer["w"].T.astype(f32)
+        sd[f"{prefix}.bias_integer"] = layer["b"].astype(f32)
+        sd[f"{prefix}.fc_scaling_factor"] = (layer["out_scale"] / f32(s_in)).astype(f32)
+
+    def norm(prefix, n):
+        sd[f"{prefix}.bias_integer"], sd[f"{prefix}.norm_scaling_factor"] = n["bias_int"], n["out_scale"]
+
+    pe = a["patch_embed"]
+    act("qact_input", a["input_scale"])
+    sd["patch_embed.proj.weight_integer"] = pe["w"].reshape(p, p, 3, D).transpose(3, 2, 0, 1).astype(f32)
+    sd["patch_embed.proj.bias_integer"] = pe["b"].astype(f32)
+    sd["patch_embed.proj.conv_scaling_factor"] = (pe["out_scale"] / f32(a["input_scale"])).astype(f32)
+    act("patch_embed.qact", a["embed_scale"])
+    sd["cls_token"] = (a["cls_q"] * a["embed_scale"]).astype(f32)
+    act("qact_pos", a["pos_scale"])
+    sd["pos_embed"] = (a["pos_q"] * a["pos_scale"]).astype(f32)
+    act("qact1", a["tokens_scale"])
+    for i, blk in enumerate(a["blocks"]):
+        b = f"blocks.{i}"
+        norm(f"{b}.norm1", blk["norm1"])
+        act(f"{b}.qact1", blk["s_qact1"])
+        linear(f"{b}.attn.qkv", blk["qkv"], blk["s_qact1"])
+        for name, key in (("attn.qact1", "s_attn_qact1"), ("attn.qact_attn1", "s_attn_sm_in"), ("attn.qact2", "s_attn_out")):
+            act(f"{b}.{name}", blk[key])
+        linear(f"{b}.attn.proj", blk["proj"], blk["s_attn_out"])
+        act(f"{b}.attn.qact3", blk["s_attn_proj"])
+        act(f"{b}.qact2", blk["s_res1"])
+        norm(f"{b}.norm2", blk["norm2"])
+        act(f"{b}.qact3", blk["s_qact3"])
+        linear(f"{b}.mlp.fc1", blk["fc1"], blk["s_qact3"])
+        act(f"{b}.mlp.qact_gelu", blk["s_gelu_in"])
+        act(f"{b}.mlp.qact1", blk["s_gelu_out"])
+        linear(f"{b}.mlp.fc2", blk["fc2"], blk["s_gelu_out"])
+        act(f"{b}.mlp.qact2", blk["s_mlp_out"])
+        act(f"{b}.qact4", blk["s_res2"])
+    norm("norm", a["norm"])
+    act("qact2", a["head_in_scale"])
+    linear("head", a["head"], a["head_in_scale"])
+    return sd
+
+
+def real_scale_artifact(a: dict) -> dict:
+    """``a`` with its biases, class token and position embedding at the
+    real values they stand for (the integers times their scales). The FP32
+    benchmark leg feeds the raw integers (its timing does not depend on
+    the values), under which its logits are the head's integer bias plus
+    terms below that bias's float32 spacing; at real values the leg is a
+    well-conditioned forward, on which TF32 shows."""
+    import copy
+
+    import numpy as np
+
+    a = copy.deepcopy(a)
+    for layer in [a["patch_embed"], a["head"]] + [blk[k] for blk in a["blocks"] for k in ("qkv", "proj", "fc1", "fc2")]:
+        layer["b"] = (layer["b"].astype(np.float32) * layer["out_scale"]).astype(np.float32)
+    a["pos_q"] = (a["pos_q"] * a["pos_scale"]).astype(np.float32)
+    a["cls_q"] = (a["cls_q"] * a["embed_scale"]).astype(np.float32)
+    return a
+
+
+def run_cli(args: list, timeout: int) -> list:
+    """Run ``python -m <args>`` from the repository root as a user would;
+    print its output; fail unless it exits 0. Returns its stdout lines."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", *args], cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    print(f"cli python -m {' '.join(args)}: exit {run.returncode} in {time.perf_counter() - t0:.1f} s")
+    for line in run.stdout.strip().splitlines():
+        print(f"  stdout: {line}")
+    for line in run.stderr.strip().splitlines()[-6:]:
+        print(f"  stderr: {line}")
+    check(run.returncode == 0, f"python -m {' '.join(args)} exited {run.returncode}")
+    return run.stdout.strip().splitlines()
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -225,7 +340,10 @@ def main() -> int:
         print("chip_smoke: the ivit_tpu_torch package is not beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
+    from ivit_tpu_torch import bench as port_bench
+    from ivit_tpu_torch import convert_model
     from ivit_tpu_torch.deploy.engine import attention_half, attention_inputs, build_vit_infer, embed, int8_linear
+    from ivit_tpu_torch.deploy.graphs import WARMUP, capture_infer
     from ivit_tpu_torch.deploy.swin_engine import (
         build_swin_infer,
         merge_gather,
@@ -258,6 +376,7 @@ def main() -> int:
     from ivit_tpu_torch.kernels.attention_fused_v2 import scale_gate
     from ivit_tpu_torch.kernels.window_attention_fused import window_attention_probabilities
     from ivit_tpu_torch.models.swin import sw_attn_mask
+    from ivit_tpu_torch.utils import load_artifact
 
     # 1. the card
     smi = subprocess.run(
@@ -910,6 +1029,145 @@ def main() -> int:
     device_profile("route A", 1, routes16["A"], 0)
     device_profile("route B", BATCH, routes16["B"], 12)
     k3_in_profile("Swin-T", device_profile("swin (Swin-T, K7+K3)", BATCH, swin, 16))
+
+    # 6. the serving entry points. Graphs: each path captured at batch 128
+    # and 1 (deploy.graphs.capture_infer), its launches counted from 0
+    # through the warm-up and the capture, its replay bit-equal to the eager
+    # logits above; at batch 1, eager against graphed ms/image and idle
+    graph_paths = {
+        "main": (infer, logits, {"K1": depth, "K3": layernorms}),
+        "A": (routes16["A"], route_logits["A"], expects["A"]),
+        "B": (routes16["B"], route_logits["B"], expects["B"]),
+        "K1": (routes16["K1"], route_logits["K1"], expects["K1"]),
+        "swin": (swin, swin_logits, {"K7": swin_blocks, "K3": swin_norms}),
+        "plain": (plain8, plain8(images_dev), {}),
+    }
+
+    def host_ms(fn, x, runs: int = 40) -> float:
+        """Median host ms of ``fn(x)`` to synchronize, after 5 warm calls."""
+        lat = []
+        for i in range(runs + 5):
+            t1 = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            if i >= 5:
+                lat.append((time.perf_counter() - t1) * 1e3)
+        return sorted(lat)[len(lat) // 2]
+
+    for name, (fn, eager128, per_forward) in graph_paths.items():
+        for batch in (BATCH, 1):
+            for w in WRAPPERS.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            graphed = capture_infer(fn, batch, cfg["img_size"], dev)
+            capture_s = time.perf_counter() - t0
+            counts = {k: w.launches for k, w in WRAPPERS.items()}
+            out = graphed(images_dev[:batch])
+            torch.cuda.synchronize()
+            replay_counts = {k: w.launches for k, w in WRAPPERS.items()}
+            print(f"graph {name} batch {batch}: captured in {capture_s:.3f} s; launches through {WARMUP} warm-up "
+                  f"forwards and the capture {counts}, in the capture {graphed.launches}")
+            check(graphed.launches == per_forward, f"graph {name} batch {batch}: {graphed.launches} launches a forward")
+            check(all(counts[k] == (WARMUP + 1) * per_forward.get(k, 0) for k in WRAPPERS),
+                  f"graph {name} batch {batch}: launches {counts}")
+            check(replay_counts == counts, f"graph {name} batch {batch}: a replay counted launches")
+            e_graph = float((out - eager128[:batch]).abs().max())
+            print(f"graph {name} batch {batch}: replay logits vs eager: max_abs_err {e_graph} (tolerance 0)")
+            check(torch.equal(out, eager128[:batch]), f"graph {name} batch {batch}: replay differs from eager")
+            if batch == BATCH:
+                ms = cuda_ms(lambda: graphed(images_dev), 10)
+                print(f"graph {name} batch {BATCH}: {ms} ms/forward, {BATCH / ms * 1e3} images/s (CUDA events)")
+            else:
+                x1 = images_dev[:1]
+                eager_ms, graph_ms = host_ms(fn, x1), host_ms(graphed, x1)
+                device_ms = cuda_ms(lambda: graphed(x1), 50, queued=True)
+                print(f"graph {name} batch 1: eager {eager_ms} ms/image, graphed {graph_ms} ms/image (host clock, "
+                      f"median of 40), eager/graphed {eager_ms / graph_ms}; graphed device {device_ms} ms/forward "
+                      f"back to back, idle share by events {1 - device_ms / graph_ms}")
+                device_profile(f"{name} eager", 1, fn, 0)
+                device_profile(f"{name} graphed", 1, graphed, 0)
+            del graphed, out
+        torch.cuda.empty_cache()
+
+    # host synchronisations inside one eager batch-128 forward of each path
+    # (after a warm one): none, as a capture needs. The profiled window
+    # ends in a synchronize, and the profiler synchronizes too: an empty
+    # window gives the count a forward must not add to
+    def host_syncs(fn) -> dict:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return {c: sum(1 for e in prof.events() if e.device_type == DeviceType.CPU and e.name == c)
+                for c in SYNC_CALLS}
+
+    empty = host_syncs(lambda: None)
+    for name, (fn, _, _) in graph_paths.items():
+        fn(images_dev)
+        syncs = host_syncs(lambda: fn(images_dev))
+        print(f"host synchronisations in one eager batch-{BATCH} forward, {name}: {syncs} (an empty window: {empty})")
+        check(syncs == empty, f"{name}: the forward synchronises with the host {syncs}")
+
+    # the FP32 leg of the benchmark, TF32 off, on the card against the CPU
+    # at batch 2, on the real-scale parameters; then once with TF32 on
+    fp32_art = real_scale_artifact(art8)
+    fp32_card = port_bench._float_vit_infer(fp32_art, dev)
+    port_bench.assert_fp32_highest()
+    fp32_out = fp32_card(images_dev[:2]).cpu()
+    fp32_cpu = port_bench._float_vit_infer(fp32_art, "cpu")(images[:2])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    tf32_out = fp32_card(images_dev[:2]).cpu()
+    port_bench.fp32_highest()
+    tol = FP32_RTOL * float(fp32_cpu.abs().max())
+    e_fp32, e_tf32 = float((fp32_out - fp32_cpu).abs().max()), float((tf32_out - fp32_cpu).abs().max())
+    print(f"fp32 leg, batch 2, card vs CPU: max_abs_err {e_fp32} with TF32 off, {e_tf32} with TF32 on "
+          f"(tolerance {tol}: {FP32_RTOL} x max |logit| {float(fp32_cpu.abs().max())})")
+    check(e_fp32 <= tol, "fp32 leg: the card differs from the CPU beyond the float32 tolerance")
+    check(e_tf32 > tol, "fp32 leg: TF32 on does not miss the tolerance, so the check cannot tell TF32 off")
+
+    # strict_dyadic, DeiT-S at full width, batch 2: the card against the CPU
+    strict_card = build_vit_infer(art8, dev, kernels=(), strict_dyadic=True)(images_dev[:2]).cpu()
+    strict_cpu = build_vit_infer(art8, "cpu", kernels=(), strict_dyadic=True)(images[:2])
+    print(f"strict_dyadic DeiT-S batch 2: logits card vs CPU max_abs_err {float((strict_card - strict_cpu).abs().max())} "
+          f"(tolerance 0); {int((strict_card != logits[:2].cpu()).sum())} of {strict_card.numel()} logits differ from "
+          "the float32-requant engine's")
+    check(torch.equal(strict_card, strict_cpu), "strict_dyadic: the card differs from the CPU")
+
+    # a reference-style DeiT-S checkpoint through convert_model, then the
+    # default kernels on the card against the plain engine on the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, out_path = os.path.join(tmp, "checkpoint.pth.tar"), os.path.join(tmp, "artifact.pkl")
+        torch.save({"model": {k: torch.from_numpy(np.array(v)) for k, v in reference_vit_state(art8).items()}}, ckpt)
+        convert_model.main(["--model", "deit_small", "--torch-checkpoint", ckpt, "--softmax-bits", "8",
+                            "--gelu-stable", "--output", out_path])
+        ingested = load_artifact(out_path)
+    ing_infer = build_vit_infer(ingested, dev)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    ing_logits = ing_infer(images_dev[:2])
+    torch.cuda.synchronize()
+    ing_counts = {k: w.launches for k, w in WRAPPERS.items() if w.launches}
+    ing_cpu = build_vit_infer(ingested, "cpu", kernels=())(images[:2])
+    print(f"ingest: kernels {sorted(ing_infer.kernels)}, launches {ing_counts}; logits vs the plain engine on the "
+          f"CPU max_abs_err {float((ing_logits.cpu() - ing_cpu).abs().max())} (tolerance 0)")
+    check(ing_counts == {"K1": depth, "K3": layernorms}, f"ingest: launches {ing_counts}")
+    check(torch.equal(ing_logits.cpu(), ing_cpu), "ingest: the card differs from the CPU plain engine")
+
+    # the CLIs as a user runs them
+    torch.cuda.empty_cache()
+    bench_lines = run_cli(["ivit_tpu_torch.bench"], 600)
+    result = json.loads(bench_lines[-1])
+    check(set(result) == {"metric", "value", "unit", "vs_baseline"}, f"bench: keys {sorted(result)}")
+    check(all(math.isfinite(result[k]) and result[k] > 0 for k in ("value", "vs_baseline")), f"bench: {result}")
+    for args, per_forward in ((["--softmax-bits", "8", "--gelu-stable"], {"K1": depth, "K3": layernorms}),
+                              (["--model", "swin_tiny"], {"K7": swin_blocks, "K3": swin_norms})):
+        lines = run_cli(["ivit_tpu_torch.evaluate_latency", *args], 300)
+        check(re.match(r"^\S+ int8 batch=1: [0-9.]+ ms/iter, [0-9.]+ img/s$", lines[-1]) is not None,
+              f"evaluate_latency {args}: last line {lines[-1]!r}")
+        captured = re.search(r"launches a forward (\{.*\})", "\n".join(lines))
+        check(captured is not None and ast.literal_eval(captured.group(1)) == per_forward,
+              f"evaluate_latency {args}: launches a forward {captured and captured.group(1)}")
 
     big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",
            "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",

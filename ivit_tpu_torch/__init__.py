@@ -3,7 +3,8 @@
 The JAX package ``ivit_tpu`` stays the reference; this package mirrors
 its module paths and function names so each counterpart is easy to find:
 
-* ``core/``    — scale computation (``symmetric_scale``, ``weight_scale``).
+* ``core/``    — scale computation (``symmetric_scale``, ``weight_scale``)
+  and the dyadic requantization of strict mode.
 * ``ops/``     — the integer-op DEPLOY spec on torch tensors (shift-exp,
   Shiftmax, ShiftGELU, I-LayerNorm, requantization). Runs on any device
   and is what every kernel is checked against.
@@ -12,10 +13,14 @@ its module paths and function names so each counterpart is easy to find:
   ShiftGELU and I-LayerNorm chains, on the shared K0 Shiftmax header),
   each beside its plain torch version.
 * ``deploy/``  — the frozen-artifact carry-overs, seeded synthetic
-  artifacts, and the integer-only ViT and Swin inference engines.
+  artifacts, the integer-only ViT and Swin inference engines, their
+  capture as CUDA graphs, and the ingester of the reference's trained
+  checkpoints.
 * ``models/``  — the ViT/DeiT and Swin configuration tables and Swin's
   window geometry.
 * ``utils/``   — artifact pickling.
+* ``bench``, ``evaluate_latency``, ``convert_model`` — the serving CLIs,
+  run as ``python -m ivit_tpu_torch.<name>``.
 
 Nothing here imports JAX, flax, optax or ``ivit_tpu``.
 """

@@ -13,7 +13,9 @@ JAX engine's XLA path divides them on its device
 attention ratios ``r1``/``r_out``, the softmax input scale, and the GELU
 input scale ``s_in`` and output ratio ``r2`` also come back as Python
 floats holding float32 values (kernel arguments); fc1 also carries its
-weight K-contiguous as ``w_t`` (C, K), the layout K4 reads.
+weight K-contiguous as ``w_t`` (C, K), the layout K4 reads. Every ratio
+a forward's tensor ops read is a device tensor made here, so a forward
+copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -188,13 +190,15 @@ def artifact_to_torch(artifact: dict, device) -> dict:
         fc1 = carry_linear(blk["fc1"], device, s["s_gelu_in"])
         k, n = np.shape(blk["fc1"]["w"])
         fc1["w_t"] = fc1["w"][:k, :n].T.contiguous()  # K-contiguous for K4, unpadded
+        r_out = div(s_sm * sa1, s["s_attn_out"])
         blocks.append({
             "norm1": carry_norm(blk["norm1"], device, s["s_qact1"]),
             "qkv": carry_linear(blk["qkv"], device, sa1),
             "attn": {
                 "r1": float(div((sa1 * sa1) * qk_scale, ssm)),
                 "scale": float(ssm),
-                "r_out": float(div(s_sm * sa1, s["s_attn_out"])),
+                "r_out": float(r_out),
+                "ratio_out": dev(r_out),  # r_out on the device, for route B's plain @V requant
             },
             "proj": carry_linear(blk["proj"], device, s["s_attn_proj"]),
             "res1": {"branch": dev(div(s["s_attn_proj"], s["s_res1"])),

@@ -44,9 +44,21 @@ partial sum is below 2^22): torch has no batched int8 matmul on CUDA,
 and a float32 product could run in TF32. The residual stream is int16.
 The only float op is the final logit dequantization.
 
+``strict_dyadic=True`` is the JAX engine's integer-ISA mode
+(``ivit_tpu/deploy/engine.py:184-197``): every requant the JAX engine
+routes through ``rq`` — patch embed, qkv, the attention scores and
+context, proj, fc1, the GELU output and fc2 (``:381, 511, 592, 622, 711,
+735, 740, 771``; ``:305-355`` and ``:674`` belong to paths the port does
+not have) — becomes the exact dyadic multiply and shift of
+``core.dyadic``; the LayerNorm requants and the residual merges stay
+float32, as in JAX. The kernels requant in float32 inside, so JAX runs
+strict mode without Pallas; here strict mode with any ``kernels=``
+raises ``ValueError`` (a requested kernel never silently disappears),
+and it runs with ``kernels=()``.
+
 Entry points run on the card unless the caller passes ``device="cpu"``,
-where each kernel's wrapper runs its plain version. Not ported:
-``strict_dyadic`` and the TPU layout/HBM probes and XLA barriers.
+where each kernel's wrapper runs its plain version. Not ported: the TPU
+layout/HBM probes and XLA barriers.
 """
 
 from __future__ import annotations
@@ -63,9 +75,10 @@ from ..kernels import (
     fused_requant_shiftgelu,
     fused_requant_shiftmax,
 )
-from ..kernels.attention_fused import MAX_TOKENS
+from ..core.dyadic import dyadic_decompose
+from ..kernels.attention_fused import MAX_TOKENS, SHIFTMAX_N
 from ..kernels.attention_fused_v2 import scale_gate
-from ..ops import INT8, INT16, requant, shiftgelu
+from ..ops import INT8, INT16, requant, shiftgelu, shiftmax
 from ..ops.interp import div, f32
 from .artifact import artifact_to_torch
 
@@ -186,10 +199,23 @@ def split_softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, a
     ctx_lo = torch.matmul(lo.view(G, N, N).to(torch.float64), vd).to(torch.int32)
     v_sum = v.to(torch.int32).sum(1, keepdim=True, dtype=torch.int32)
     ctx = 256 * ctx_hi + ctx_lo + 128 * v_sum
-    return requant(ctx, f32(a["r_out"], q.device), *INT8).to(torch.int8)
+    return requant(ctx, a["ratio_out"], *INT8).to(torch.int8)
+
+
+def dyadic_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, a: dict, bits: int) -> torch.Tensor:
+    """The plain attention of (G, N, hd) int8 q, k, v with its two
+    requants dyadic (``a["dyadic"]``, strict mode): int8 Q·Kᵀ → requant
+    → Shiftmax → @V → requant, exact products in float64."""
+    r1, r_out = a["dyadic"]
+    attn = torch.matmul(q.to(torch.float64), k.to(torch.float64).transpose(-1, -2)).to(torch.int32)
+    sm, _ = shiftmax(requant(attn, r1, *INT8), f32(a["scale"], q.device), out_bits=bits, n=SHIFTMAX_N)
+    ctx = torch.matmul(sm.to(torch.float64), v.to(torch.float64)).to(torch.int32)
+    return requant(ctx, r_out, *INT8).to(torch.int8)
 
 
 def _attention(q, k, v, a: dict, bits: int, kernels: frozenset) -> torch.Tensor:
+    if "dyadic" in a:
+        return dyadic_attention(q, k, v, a, bits)
     if "attention" in kernels:
         return fused_int8_attention(q, k, v, a["r1"], a["scale"], a["r_out"], bits)
     if "attention2" in kernels:
@@ -239,20 +265,45 @@ def vit_block(x: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNELS) ->
     return mlp_half(attention_half(x, blk, cfg, kernels), blk, cfg, kernels).reshape(x.shape)
 
 
-def build_vit_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS):
+def _strict_ratios(t: dict) -> None:
+    """Swap, in carried tensors ``t``, every ratio the JAX engine's
+    strict mode requantizes through ``rq`` for its ``Dyadic`` pair (the
+    module docstring lists them); the attention's two go under
+    ``attn["dyadic"]``."""
+    device = t["head"]["w"].device
+
+    def dyadic(r):
+        return dyadic_decompose(r if isinstance(r, torch.Tensor) else f32(r, device))
+
+    t["patch_embed"]["ratio"] = dyadic(t["patch_embed"]["ratio"])
+    for blk in t["blocks"]:
+        for name in ("qkv", "proj", "fc1", "fc2", "gelu"):
+            blk[name]["ratio"] = dyadic(blk[name]["ratio"])
+        blk["attn"]["dyadic"] = (dyadic(blk["attn"]["r1"]), dyadic(blk["attn"]["r_out"]))
+
+
+def build_vit_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS, strict_dyadic: bool = False):
     """Build the int8 inference function: NHWC float images → logits.
 
     ``artifact`` is a ``freeze_vit`` dict (numpy arrays). ``kernels``
     names the chains that run through hand-written kernels (module
     docstring); ``kernels=()`` is the plain path, the oracle, like the
-    JAX engine's ``use_pallas=False``. The engine runs on the card unless
-    ``device`` says otherwise, and raises if there is none; on the CPU
-    every kernel's wrapper runs its plain version. The kernels in use are
-    ``infer.kernels``.
+    JAX engine's ``use_pallas=False``. ``strict_dyadic`` requantizes as
+    the JAX engine's strict mode does, and needs ``kernels=()``. The
+    engine runs on the card unless ``device`` says otherwise, and raises
+    if there is none; on the CPU every kernel's wrapper runs its plain
+    version. The kernels in use are ``infer.kernels``.
     """
+    if strict_dyadic and kernels:
+        raise ValueError(
+            f"strict_dyadic requantizes in integers; the kernels {sorted(kernels)} requant in float32 "
+            "inside: pass kernels=()"
+        )
     t = artifact_to_torch(artifact, device)
     cfg = t["config"]
     active = select_kernels(cfg, kernels)
+    if strict_dyadic:
+        _strict_ratios(t)
     if "attention2" in active:
         n_tokens = (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
         for i, blk in enumerate(t["blocks"]):

@@ -17,8 +17,9 @@ JAX engine divides them on its device: the qkv requant
 the residuals (``:581-589``, ``:633-640``), the GELU requants
 (``:598-625``), the fc2 requant (``:628-631``), the patch merging
 (``:655-660``), the patch-norm and token scales (``:674-687``) and the pool
-requant (``:704-705``). K7's scalar arguments ``r1``, ``rb``, ``scale``
-and ``r_out`` also come back as Python floats holding float32 values.
+requant (``:704-705``), and the pool's float32 ``1/L``. K7's scalar
+arguments ``r1``, ``rb``, ``scale`` and ``r_out`` also come back as Python
+floats holding float32 values.
 """
 
 from __future__ import annotations
@@ -193,5 +194,7 @@ def swin_artifact_to_torch(artifact: dict, device) -> dict:
     s_qact2 = host_f32(artifact["s_qact2"])
     out["norm"] = carry_norm(artifact["norm"], device, s_qact2)
     out["pool_ratio"] = div(s_qact2, host_f32(artifact["s_qact3"])).to(device)
+    tokens = stage_geometry(cfg, len(cfg["depths"]) - 1, 0)[0] ** 2
+    out["inv_tokens"] = div(host_f32(1.0), host_f32(float(tokens))).to(device)  # the pool's 1/L
     out["head"] = carry_linear(artifact["head"], device)
     return out

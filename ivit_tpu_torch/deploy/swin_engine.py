@@ -41,8 +41,7 @@ from ..kernels import fused_int8_window_attention, fused_int8_window_attention_r
 from ..kernels.attention_fused import MAX_TOKENS
 from ..models.swin import stage_geometry, window_partition, window_reverse
 from ..ops import INT8, INT16, int_layernorm, requant
-from ..ops.interp import div
-from .artifact import host_f32
+from ..ops.interp import div, f32
 from .engine import _layernorm, _residual, int8_linear, mlp_half, qkv_heads
 from .swin_artifact import swin_artifact_to_torch
 
@@ -139,14 +138,17 @@ def merge_gather(x: torch.Tensor, res: int) -> torch.Tensor:
     return q.reshape(B * L // 4, 4 * C)
 
 
-def token_mean(y: torch.Tensor) -> torch.Tensor:
+def token_mean(y: torch.Tensor, inv_tokens: torch.Tensor | None = None) -> torch.Tensor:
     """The mean over tokens of integer (B, L, C) ``y`` as JAX's
     ``jnp.mean`` computes it: the exact sum times float32(1/L). Neither a
     correctly rounded quotient (``torch.mean`` on the CPU) nor ATen's CUDA
-    mean is that value."""
+    mean is that value. ``inv_tokens`` is that 1/L as a tensor on y's
+    device (the engine carries it); without it, it is divided here."""
     L = y.shape[1]
     total = y.to(torch.int32).sum(1, dtype=torch.int32).to(torch.float32)
-    return total * div(host_f32(1.0), float(L)).to(y.device)
+    if inv_tokens is None:
+        inv_tokens = div(f32(1.0, y.device), float(L))
+    return total * inv_tokens
 
 
 def swin_trunk(x: torch.Tensor, t: dict, kernels=DEFAULT_KERNELS, on_layer=None) -> torch.Tensor:
@@ -183,7 +185,7 @@ def build_swin_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS):
         x = swin_trunk(patch_embed(images.to(device=device, dtype=torch.float32), t), t, active)
         B, L, C = x.shape
         y = _layernorm(x.reshape(B * L, C), t["norm"], active).view(B, L, C)
-        y8 = requant(token_mean(y), t["pool_ratio"], *INT8).to(torch.int8)
+        y8 = requant(token_mean(y, t["inv_tokens"]), t["pool_ratio"], *INT8).to(torch.int8)
         head = t["head"]
         return int8_linear(y8, head).to(torch.float32) * head["out_scale"]
 

@@ -66,9 +66,13 @@ def gelu_table(s_in: float, r2: float) -> torch.Tensor:
 def gelu_table_on(device: torch.device, s_in: float, r2: float) -> torch.Tensor:
     """The (256, 256) int8 GELU table of (s_in, r2) on a CUDA device,
     filled there by ``ivit_gelu_table`` at first use and kept; raises if
-    the fill fails."""
+    the fill fails, or if the first use lies inside a CUDA graph capture
+    (a graph would record the fill and keep the table in its pool: warm
+    up first, as ``deploy.graphs.capture_infer`` does)."""
     key = (s_in, r2, device)
     if key not in _TABLES:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"GELU table (s_in={s_in}, r2={r2}) first filled during CUDA graph capture")
         table = torch.empty((256, 256), dtype=torch.int8, device=device)
         with torch.cuda.device(device):
             err = _build.load().ivit_gelu_table(

@@ -1,15 +1,16 @@
-"""Requantization (non-strict: the float32-ratio spec).
+"""Requantization.
 
 Counterpart of ``ivit_tpu/ops/requant.py:requantize`` and of the deploy
 engine's ``_requant`` epilogue (``ivit_tpu/deploy/engine.py:53``), which
-takes a precomputed float32 ratio. The integer-ISA ``strict_dyadic``
-mode is not ported yet.
+takes a precomputed float32 ratio, and of its ``_requant_strict``
+(``:85-97``), which takes the ratio's dyadic pair (``core.dyadic``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..core.dyadic import Dyadic, dyadic_requant
 from ..core.quantizers import int_range
 from .interp import div
 
@@ -17,10 +18,14 @@ INT8 = (-128, 127)
 INT16 = (-(2**15), 2**15 - 1)
 
 
-def requant(acc: torch.Tensor, ratio: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+def requant(acc: torch.Tensor, ratio: torch.Tensor | Dyadic, lo: int, hi: int) -> torch.Tensor:
     """``clip(round(acc·ratio), lo, hi)`` as integer-valued float32;
     ``acc`` (any integer or float dtype) is converted to float32 first,
-    rounding to nearest above 2^24 exactly as the JAX engine does."""
+    rounding to nearest above 2^24 exactly as the JAX engine does. A
+    ``Dyadic`` ratio takes the strict path instead: the exact integer
+    multiply and shift of integer-valued ``acc`` (``core.dyadic``)."""
+    if isinstance(ratio, Dyadic):
+        return torch.clamp(dyadic_requant(acc.to(torch.int32), ratio), lo, hi).to(torch.float32)
     return torch.clamp(torch.round(acc.to(torch.float32) * ratio), lo, hi)
 
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .interp import I32_MAX, div
+from .interp import I32_MAX, div, f32
 from .shiftexp import int_exp_shift
 
 
@@ -26,7 +26,7 @@ def shiftmax(q: torch.Tensor, scale: torch.Tensor, out_bits: int = 8, n: int = 1
     # the final 2^-(32-bits) shift folded into the per-row factor (exact)
     factor = torch.floor(div(I32_MAX, exp_sum)) * (1.0 / 2.0 ** (32 - out_bits))
     q_out = torch.floor(exp_int * factor)
-    scale_out = torch.tensor(1.0 / 2.0 ** (out_bits - 1), dtype=torch.float32, device=q.device)
+    scale_out = f32(1.0 / 2.0 ** (out_bits - 1), q.device)
     return q_out, scale_out
 
 

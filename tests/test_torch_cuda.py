@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from ivit_tpu_torch.deploy.engine import build_vit_infer
+from ivit_tpu_torch.deploy.graphs import capture_infer
 from ivit_tpu_torch.deploy.swin_engine import build_swin_infer
 from ivit_tpu_torch.deploy.swin_synthetic import synthetic_swin_artifact
 from ivit_tpu_torch.deploy.synthetic import synthetic_vit_artifact
@@ -544,3 +545,115 @@ def test_engines_at_widths_not_multiples_of_8(dev, model):
         logits = infer(images)
         torch.testing.assert_close(logits.cpu(), cpu, rtol=0, atol=0)
     assert cpu.shape[1] == artifact["config"]["num_classes"]
+
+
+# The paths of deploy/graphs.py at a reduced depth: (model, softmax_bits,
+# gelu_stable, kernels or None for the engine's default, launches a forward)
+GRAPH_PATHS = {
+    "main": ("vit", 8, True, None, {"K1": 2, "K3": 5}),
+    "A": ("vit", 16, False, ("layernorm", "attention2", "linear_gelu"), {"K2": 2, "K4": 2, "K3": 5}),
+    "B": ("vit", 16, False, ("layernorm", "softmax", "gelu"), {"K6": 2, "K5": 2, "K3": 5}),
+    "K1_sm16": ("vit", 16, False, None, {"K1": 2, "K3": 5}),
+    "swin": ("swin", None, False, None, {"K7": 4, "K3": 10}),
+    "plain": ("vit", 8, True, (), {}),
+}
+
+
+def _graph_engine(dev, path):
+    model, bits, stable, kernels, counts = GRAPH_PATHS[path]
+    if model == "swin":
+        artifact = synthetic_swin_artifact(
+            "swin_tiny", seed=1, img_size=56, patch_size=4, embed_dim=32, depths=(2, 2), num_heads=(2, 4),
+            num_classes=16,
+        )
+        build, size = build_swin_infer, 56
+    else:
+        artifact = synthetic_vit_artifact(
+            "deit_tiny", seed=1, softmax_bits=bits, gelu_stable=stable,
+            img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2, num_classes=16,
+        )
+        build, size = build_vit_infer, 32
+    infer = build(artifact, dev) if kernels is None else build(artifact, dev, kernels=kernels)
+    return infer, size, counts
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
+def test_graph_replay_is_bit_equal_to_eager(dev, path, batch):
+    """The captured forward's logits equal the eager engine's (tolerance
+    0); its launches, counted during the capture, are one forward's, and a
+    replay launches nothing through a wrapper."""
+    infer, size, counts = _graph_engine(dev, path)
+    images = torch.from_numpy(np.random.default_rng(batch).standard_normal((batch, size, size, 3)).astype(np.float32))
+    eager = infer(images.to(dev))
+    graphed = capture_infer(infer, batch, size, dev)
+    assert graphed.launches == counts
+    before = {name: fn.launches for name, fn in WRAPPERS.items()}
+    logits = graphed(images.to(dev))
+    torch.cuda.synchronize()
+    assert {name: fn.launches for name, fn in WRAPPERS.items()} == before
+    torch.testing.assert_close(logits, eager, rtol=0, atol=0)
+
+
+def test_graph_logits_do_not_change_at_the_next_call(dev):
+    infer, size, _ = _graph_engine(dev, "main")
+    rng = np.random.default_rng(5)
+    first, second = (torch.from_numpy(rng.standard_normal((2, size, size, 3)).astype(np.float32)).to(dev)
+                     for _ in range(2))
+    graphed = capture_infer(infer, 2, size, dev)
+    out1 = graphed(first)
+    kept = out1.clone()
+    out2 = graphed(second)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out1, kept, rtol=0, atol=0)
+    assert not torch.equal(out1, out2)
+    torch.testing.assert_close(out2, infer(second), rtol=0, atol=0)
+
+
+def test_forward_makes_no_host_synchronisation(dev):
+    """After its first call a forward copies nothing from the host and
+    never waits for the device (what a capture needs), on every path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def syncs(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+        return sorted(e.name for e in prof.events() if e.device_type == DeviceType.CPU
+                      and e.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy"))
+
+    empty = syncs(lambda: None)  # the profiler's own
+    for path in sorted(GRAPH_PATHS):
+        infer, size, _ = _graph_engine(dev, path)
+        images = torch.from_numpy(np.random.default_rng(0).standard_normal((2, size, size, 3)).astype(np.float32)).to(dev)
+        infer(images)
+        assert syncs(lambda: infer(images)) == empty, path
+
+
+@pytest.mark.parametrize("softmax_bits,gelu_stable", [(8, True), (16, False)])
+def test_strict_engine_on_card_matches_cpu(dev, softmax_bits, gelu_stable):
+    artifact = synthetic_vit_artifact(
+        "deit_tiny", seed=1, softmax_bits=softmax_bits, gelu_stable=gelu_stable,
+        img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2, num_classes=16,
+    )
+    images = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 32, 32, 3)).astype(np.float32))
+    logits = build_vit_infer(artifact, dev, kernels=(), strict_dyadic=True)(images)
+    cpu = build_vit_infer(artifact, "cpu", kernels=(), strict_dyadic=True)(images)
+    torch.testing.assert_close(logits.cpu(), cpu, rtol=0, atol=0)
+
+
+def test_graph_keeps_its_engine_alive(dev):
+    """The graph reads the engine's weights in place: the replay function
+    keeps them alive when the caller drops the engine (and the allocator
+    releases its free memory)."""
+    import gc
+
+    infer, size, _ = _graph_engine(dev, "main")
+    images = torch.from_numpy(np.random.default_rng(6).standard_normal((2, size, size, 3)).astype(np.float32)).to(dev)
+    eager = infer(images)
+    graphed = capture_infer(infer, 2, size, dev)
+    del infer
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.testing.assert_close(graphed(images), eager, rtol=0, atol=0)
