@@ -5,7 +5,8 @@ Drives the port's paths through ``deploy.engine.build_vit_infer`` at the
 full width and depth of DeiT-S and through
 ``deploy.swin_engine.build_swin_infer`` at the full width and depth of
 Swin-T, on seeded synthetic artifacts, and checks every hand-written
-kernel on them:
+kernel on them; then trains DeiT-S through the QAT trainer for a few
+steps and serves the frozen result by route A (phase 7):
 
 * the main path: softmax_bits=8, stable ShiftGELU, K1 attention + K3
   LayerNorm (the default kernels);
@@ -96,7 +97,25 @@ Phases:
    keys) and ``python -m ivit_tpu_torch.evaluate_latency`` at batch 1
    (the main path, and ``--model swin_tiny``) run as a user runs them,
    each required to exit 0, their lines printed and their launches a
-   forward checked.
+   forward checked;
+7. the QAT trainer (``models.create_model``, ``train.create_train_state``,
+   ``train.make_train_step``, ``deploy.convert.freeze_vit``) at the full
+   width and depth of DeiT-S, on seeded normal images with label-smoothed
+   one-hot targets: one train-mode step at batch 2 with drop-path 0 on
+   the card and on the CPU from the same seed, the logits, the loss and
+   every updated range bit-equal and every parameter gradient within
+   QAT_GRAD_RTOL of its leaf's largest entry (the largest error printed);
+   then a warm-up step and TRAIN_STEPS timed steps at TRAIN_BATCH with
+   quant_train.py's defaults (drop-path 0.1, AdamW with weight decay 1e-4
+   on every parameter, the cosine schedule with its lr/15 floor, the EMA
+   of the weights), every loss finite and every range set (min < max),
+   printing ms/step and images/s (CUDA events), ``max_memory_allocated``,
+   the host synchronisations inside one step (as phase 6 counts them)
+   and, over that profiled step, device time by kernel and the idle
+   share; then ``freeze_vit`` of the EMA weights, served by route A at
+   batch 128: exactly 12 K2 + 12 K4 + 25 K3 launches, rows 0-1 bit-equal
+   to the plain engine on the CPU, and within three steps of the head's
+   output scale of the SIM eval forward on the card, argmax equal.
 
 Any failed check raises and exits nonzero before the result lines. The
 second-to-last line is the kernels' JSON record, the last line
@@ -132,6 +151,18 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")  #
 # (float32 products summed in other orders; TF32 rounds every product's
 # inputs to 10 mantissa bits)
 FP32_RTOL = 4e-6
+
+# phase 7, the trainer: quant_train.py's defaults (lr, warm-up lr, weight
+# decay, drop-path, label smoothing, EMA decay) at batch 64, a warm-up step
+# and TRAIN_STEPS timed ones
+TRAIN_BATCH = 64
+TRAIN_STEPS = 5
+TRAIN_LR = 1e-6
+TRAIN_WD = 1e-4
+TRAIN_DROP_PATH = 0.1
+TRAIN_SMOOTHING = 0.1
+TRAIN_EMA = 0.99996
+QAT_GRAD_RTOL = 1e-5  # of each leaf's largest entry (tests/test_torch_qat_model.py)
 
 # Published H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/ms and
 # int8 tensor-core ops/ms. 67 TFLOP/s in float32 counts an FMA as two
@@ -327,12 +358,149 @@ def run_cli(args: list, timeout: int) -> list:
     return run.stdout.strip().splitlines()
 
 
+def trainer_phase(dev) -> None:
+    """Phase 7: the QAT trainer on the card at DeiT-S, then its frozen
+    model served by route A (module docstring)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ivit_tpu_torch.deploy.convert import freeze_vit
+    from ivit_tpu_torch.deploy.engine import build_vit_infer
+    from ivit_tpu_torch.kernels import WRAPPERS
+    from ivit_tpu_torch.models import create_model
+    from ivit_tpu_torch.models.model_utils import eval_variables
+    from ivit_tpu_torch.train import AdamW, cosine_schedule, create_train_state, make_train_step
+    from ivit_tpu_torch.train import soft_target_cross_entropy
+
+    rng = np.random.default_rng(SEED + 7)
+
+    def batch(n: int):
+        """Seeded normal images and label-smoothed one-hot targets."""
+        x = torch.from_numpy(rng.standard_normal((n, 224, 224, 3), dtype=np.float32))
+        t = np.full((n, 1000), TRAIN_SMOOTHING / 1000, np.float32)
+        t[np.arange(n), rng.integers(0, 1000, n)] += 1.0 - TRAIN_SMOOTHING
+        return x, torch.from_numpy(t)
+
+    # 7.1 one train-mode step at batch 2, drop-path 0: the card against the CPU
+    t0 = time.perf_counter()
+    card, host = create_model("deit_small", dev, seed=SEED), create_model("deit_small", "cpu", seed=SEED)
+    x2, t2 = batch(2)
+    lc, lh = card(x2.to(dev), train=True), host(x2, train=True)
+    loss_c, loss_h = soft_target_cross_entropy(lc, t2.to(dev)), soft_target_cross_entropy(lh, t2)
+    stats_equal = all(torch.equal(a.cpu(), b) for a, b in zip(card.buffers(), host.buffers()))
+    print(f"trainer step 1, batch 2: logits card vs CPU max_abs_err {float((lc.detach().cpu() - lh.detach()).abs().max())}, "
+          f"loss {loss_c.item()} vs {loss_h.item()}, {len(list(card.buffers()))} ranges equal {stats_equal} "
+          "(tolerance 0)")
+    check(torch.equal(lc.detach().cpu(), lh.detach()), "trainer: train-mode logits differ between the card and the CPU")
+    check(loss_c.item() == loss_h.item(), "trainer: the loss differs between the card and the CPU")
+    check(stats_equal, "trainer: the updated ranges differ between the card and the CPU")
+    gc = torch.autograd.grad(loss_c, list(card.parameters()), materialize_grads=True)
+    gh = torch.autograd.grad(loss_h, list(host.parameters()), materialize_grads=True)
+    worst, worst_name = 0.0, ""
+    for (name, _), a, b in zip(host.named_parameters(), gc, gh):
+        scale = float(b.abs().max())
+        rel = float((a.cpu() - b).abs().max()) / scale if scale else float((a.cpu() - b).abs().max())
+        if rel >= worst:
+            worst, worst_name = rel, name
+    print(f"trainer step 1: parameter gradients card vs CPU, largest error relative to its leaf's largest entry "
+          f"{worst} ({worst_name}; bound {QAT_GRAD_RTOL}), in {time.perf_counter() - t0:.3f} s")
+    check(worst <= QAT_GRAD_RTOL, f"trainer: gradients differ beyond {QAT_GRAD_RTOL} ({worst_name})")
+    del card, host, gc, gh, lc, lh, loss_c, loss_h
+
+    # 7.2 train steps at TRAIN_BATCH with drop-path 0.1 and the EMA
+    model = create_model("deit_small", dev, seed=SEED, drop_path_rate=TRAIN_DROP_PATH)
+    sched = cosine_schedule(TRAIN_LR, TRAIN_STEPS + 1, 1, warmup_epochs=0, warmup_lr=TRAIN_LR)
+    state = create_train_state(model, AdamW(sched, weight_decay=TRAIN_WD), ema_decay=TRAIN_EMA, device=dev)
+    step = make_train_step(model, ema_decay=TRAIN_EMA)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = [tuple(a.to(dev) for a in batch(TRAIN_BATCH)) for _ in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [step(state, *batches[0], gen)[1]["loss"]]  # the warm-up step
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for x, t in batches[1:]:
+        losses.append(step(state, x, t, gen)[1]["loss"])
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [v.item() for v in losses]
+    print(f"trainer: deit_small, batch {TRAIN_BATCH}, drop-path {TRAIN_DROP_PATH}, AdamW lr {TRAIN_LR} weight decay "
+          f"{TRAIN_WD}, EMA {TRAIN_EMA}: losses {losses}; {step_ms} ms/step, {TRAIN_BATCH * 1000 / step_ms} images/s "
+          f"over {TRAIN_STEPS} steps after a warm-up step (CUDA events); max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)")
+    check(all(math.isfinite(v) for v in losses), f"trainer: a non-finite loss {losses}")
+    ranges = dict(model.named_buffers())
+    unset = [n for n in ranges if n.endswith("min_val") and not ranges[n] < ranges[n[:-7] + "max_val"]]
+    check(not unset, f"trainer: ranges not set (min >= max): {unset}")
+
+    def profiled(fn) -> tuple:
+        """The host synchronisations (as phase 6 counts them), device time
+        by kernel (ms, calls, name) and the wall ms of one profiled call."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        syncs = {c: sum(1 for e in prof.events() if e.device_type == DeviceType.CPU and e.name == c)
+                 for c in SYNC_CALLS}
+        kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA), reverse=True)
+        return syncs, kernels, wall
+
+    empty, _, _ = profiled(lambda: None)
+    syncs, kernels, wall = profiled(lambda: step(state, *batches[1], gen))
+    busy = sum(k[0] for k in kernels)
+    print(f"trainer: host synchronisations in one train step {syncs} (an empty window: {empty}); "
+          f"{sum(syncs.values()) - sum(empty.values())} beyond the window's own")
+    print(f"trainer: profile of one batch-{TRAIN_BATCH} train step: kernel time {busy} ms in {wall} ms wall "
+          f"(profiled), idle share {1 - busy / wall}; against the unprofiled {step_ms} ms/step {1 - busy / step_ms}; "
+          f"{sum(k[1] for k in kernels)} kernels")
+    for ms, calls, key in kernels[:10]:
+        print(f"  {ms} ms ({ms / busy:.4f}) {calls} calls: {key[:150]}")
+
+    # 7.3 freeze the trained state (its EMA weights) and serve it by route A
+    t0 = time.perf_counter()
+    variables = eval_variables(state)
+    art = freeze_vit(model, variables, device=dev)
+    del batches, state, step
+    torch.cuda.empty_cache()
+    infer = build_vit_infer(art, dev, kernels=ROUTE_A)
+    images, _ = batch(BATCH)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    logits = infer(images.to(dev))
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in WRAPPERS.items() if w.launches}
+    depth = art["config"]["depth"]
+    cpu2 = build_vit_infer(art, "cpu", kernels=())(images[:2])
+    with torch.no_grad():
+        sim = torch.func.functional_call(model, {**variables["params"], **variables["quant_stats"]},
+                                         (images.to(dev),), {"train": False})
+    head = float(np.max(art["head"]["out_scale"]))
+    e_sim = float((logits - sim).abs().max())
+    argmax_equal = torch.equal(logits.argmax(-1), sim.argmax(-1))
+    print(f"trainer: frozen (EMA weights) and served by route A at batch {BATCH}: launches {counts}; rows 0-1 vs the "
+          f"plain engine on the CPU max_abs_err {float((logits[:2].cpu() - cpu2).abs().max())} (tolerance 0); vs the SIM "
+          f"eval forward on the card max_abs_err {e_sim} (bound 3 x head out_scale {3 * head}), argmax equal "
+          f"{argmax_equal}; in {time.perf_counter() - t0:.3f} s")
+    check(counts == {"K2": depth, "K4": depth, "K3": 2 * depth + 1}, f"trainer serve: launches {counts}")
+    check(torch.equal(logits[:2].cpu(), cpu2), "trainer serve: route A differs from the CPU plain engine")
+    check(e_sim <= 3 * head and argmax_equal, "trainer serve: route A is off the SIM eval forward")
+
+
 def main() -> int:
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1168,6 +1336,12 @@ def main() -> int:
         captured = re.search(r"launches a forward (\{.*\})", "\n".join(lines))
         check(captured is not None and ast.literal_eval(captured.group(1)) == per_forward,
               f"evaluate_latency {args}: launches a forward {captured and captured.group(1)}")
+
+    # 7. the trainer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trainer_phase(dev)
+    print(f"trainer phase: {time.perf_counter() - t0:.3f} s; chip_smoke so far {time.perf_counter() - t_main:.3f} s")
 
     big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",
            "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",

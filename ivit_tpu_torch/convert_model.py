@@ -18,9 +18,11 @@ checkpoint that pickles objects other than tensors and containers (the
 reference's ``checkpoint.pth.tar`` may hold its ``argparse.Namespace``)
 does not load, on either side.
 
-``--checkpoint`` (this project's own QAT state) comes with the QAT port,
-and ``--export-engine`` with the serialized-engine slice: each exits with
-a message, before any work.
+``--checkpoint`` (this project's own QAT state, a flax checkpoint) comes
+with the port's checkpoint format, and ``--export-engine`` with the
+serialized-engine slice: each exits with a message, before any work. A
+model trained by ``ivit_tpu_torch.train`` freezes in process with
+``ivit_tpu_torch.deploy.freeze_vit``.
 """
 
 from __future__ import annotations
@@ -64,8 +66,9 @@ def main(argv=None):
         )
     if args.checkpoint is not None:
         raise SystemExit(
-            "--checkpoint (our own flax QAT state) comes with the QAT port of "
-            "ivit_tpu_torch; convert it with the JAX package's convert_model.py"
+            "--checkpoint (our own flax QAT state) comes with the checkpoint format of "
+            "ivit_tpu_torch's trainer; convert it with the JAX package's convert_model.py, "
+            "or freeze a model trained by ivit_tpu_torch.train with ivit_tpu_torch.deploy.freeze_vit"
         )
     if args.export_engine:
         raise SystemExit(

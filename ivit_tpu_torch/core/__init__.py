@@ -1,3 +1,14 @@
-from .quantizers import per_channel_minmax, quantize, symmetric_scale, weight_scale
+from .qtensor import QTensor
+from .quantizers import int_range, per_channel_minmax, symmetric_scale, weight_scale
+from .ste import floor_ste, quantize, round_ste
 
-__all__ = ["per_channel_minmax", "quantize", "symmetric_scale", "weight_scale"]
+__all__ = [
+    "QTensor",
+    "floor_ste",
+    "int_range",
+    "per_channel_minmax",
+    "quantize",
+    "round_ste",
+    "symmetric_scale",
+    "weight_scale",
+]

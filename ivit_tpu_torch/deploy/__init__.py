@@ -1,4 +1,5 @@
 from .artifact import artifact_to_torch, validate_artifact
+from .convert import freeze_vit
 from .engine import build_vit_infer
 from .swin_artifact import swin_artifact_spec, swin_artifact_to_torch, validate_swin_artifact
 from .swin_engine import build_swin_infer
@@ -9,6 +10,7 @@ __all__ = [
     "artifact_to_torch",
     "build_swin_infer",
     "build_vit_infer",
+    "freeze_vit",
     "swin_artifact_spec",
     "swin_artifact_to_torch",
     "synthetic_swin_artifact",

@@ -80,18 +80,12 @@ from ..kernels.attention_fused import MAX_TOKENS, SHIFTMAX_N
 from ..kernels.attention_fused_v2 import scale_gate
 from ..ops import INT8, INT16, requant, shiftgelu, shiftmax
 from ..ops.interp import div, f32
+from ..ops.intmm import int8_matmul
 from .artifact import artifact_to_torch
 
 KERNEL_NAMES = ("attention", "attention2", "softmax", "gelu", "linear_gelu", "layernorm")
 DEFAULT_KERNELS = ("attention", "layernorm")
 _ATTENTION_KERNELS = {"attention", "attention2", "softmax"}
-
-# torch._int_mm on CUDA refuses 16 rows or fewer, and fewer than 800 rows
-# when K < 128 (CUBLAS_STATUS_NOT_SUPPORTED; measured on the H100 with
-# torch 2.11.0+cu128 over K 16-128, M 17-3136): int8_linear pads the rows
-def _int_mm_min_rows(k: int) -> int:
-    return 17 if k >= 128 else 800
-
 
 def select_kernels(cfg: dict, kernels=DEFAULT_KERNELS) -> frozenset:
     """The kernels a model of config ``cfg`` runs when ``kernels`` are
@@ -122,19 +116,12 @@ def select_kernels(cfg: dict, kernels=DEFAULT_KERNELS) -> frozenset:
 
 
 def int8_linear(x: torch.Tensor, layer: dict) -> torch.Tensor:
-    """(M, K) int8 @ w (K, N) int8 [+ b] → (M, N) int32, exact; the
-    bias is added where the layer has one (Swin's patch-merging
-    ``reduction`` has none). A ``w`` carried zero-padded to multiples of
-    8 (``artifact.carry_linear``, which sets the true N as ``n``) gets
-    x's columns padded with zeros and its product cut back to N."""
-    w = layer["w"]
-    M, K = x.shape
-    rows = max(M, _int_mm_min_rows(w.shape[0])) if x.is_cuda else M
-    if rows > M or w.shape[0] > K:
-        x = torch.nn.functional.pad(x, (0, w.shape[0] - K, 0, rows - M))
-    acc = torch._int_mm(x.contiguous(), w)
-    if rows > M or "n" in layer:
-        acc = acc[:M, : layer.get("n", w.shape[1])].contiguous()
+    """(M, K) int8 @ w (K, N) int8 [+ b] → (M, N) int32, exact, through
+    ``ops.intmm.int8_matmul``; the bias is added where the layer has one
+    (Swin's patch-merging ``reduction`` has none). A ``w`` carried
+    zero-padded to multiples of 8 (``artifact.carry_linear``, which sets
+    the true N as ``n``) is cut back to N."""
+    acc = int8_matmul(x, layer["w"], layer.get("n"))
     return acc + layer["b"] if "b" in layer else acc
 
 

@@ -31,6 +31,7 @@ from ..models import create_config
 from ..models.swin import relative_position_index, stage_geometry, sw_attn_mask, window_partition, window_reverse
 from ..ops import requantize, shiftmax
 from ..ops.interp import div
+from .convert import freeze_linear
 from .swin_artifact import swin_artifact_to_torch, validate_swin_artifact
 from .swin_engine import patch_embed, swin_trunk, token_mean, window_attention_inputs
 from .synthetic import (
@@ -39,7 +40,6 @@ from .synthetic import (
     _calib_linear,
     _calib_mlp_half,
     _calib_norm,
-    _freeze_linear,
     _Init,
     _matmul_exact,
     _np,
@@ -178,7 +178,7 @@ def synthetic_swin_artifact(name: str, seed: int = 0, gelu_stable: bool = False,
     s2 = _qact(y * s_y, 8, "s_qact2", a)
     pooled = token_mean(requantize(y, s_y, s2, 8))
     s3 = _qact(pooled * s2, 8, "s_qact3", a)
-    a["head"] = _freeze_linear(*head_params, s3)
+    a["head"] = freeze_linear(*head_params, s3)
     validate_swin_artifact(a)
     return a
 

@@ -22,17 +22,16 @@ The result has exactly ``freeze_vit``'s keys, dtypes and shapes
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
-from ..core import quantize, symmetric_scale, weight_scale
+from ..core import quantize, symmetric_scale
 from ..kernels.attention_fused import attention_probabilities
 from ..models import create_config
 from ..ops import int_layernorm, requantize, shiftgelu, shiftmax
 from ..ops.interp import div
 from .artifact import artifact_to_torch, validate_artifact
+from .convert import _np, freeze_linear, freeze_norm
 from .engine import attention_inputs, embed, int8_linear, vit_block
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to ±2
@@ -41,10 +40,6 @@ _CALIB_IMAGES = 2  # bench.py initializes on two sample images
 
 def _act_scale(real: torch.Tensor, bits: int) -> torch.Tensor:
     return symmetric_scale(real.min(), real.max(), bits)
-
-
-def _np(t: torch.Tensor, dtype) -> np.ndarray:
-    return t.detach().cpu().numpy().astype(dtype)
 
 
 def _matmul_exact(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -76,24 +71,6 @@ class _Init:
         return 1.0 + self.normal((d,), 0.1), self.normal((d,), 0.02)
 
 
-def _freeze_linear(kernel: torch.Tensor, bias: torch.Tensor | None, in_scale: torch.Tensor) -> dict:
-    """int8 weights, the int32 bias where there is one, and the output scale."""
-    w_scale = weight_scale(kernel.T, 8)
-    out_scale = w_scale * in_scale
-    layer = {"w": _np(quantize(kernel, w_scale, 8), np.int8), "out_scale": _np(out_scale, np.float32)}
-    if bias is not None:
-        layer["b"] = _np(quantize(bias, out_scale, 32), np.float64).astype(np.int32)
-    return layer
-
-
-def _freeze_norm(gamma: torch.Tensor, beta: torch.Tensor) -> dict:
-    base = torch.tensor(np.float32(math.sqrt(gamma.shape[0]) / 2.0**30))
-    return {
-        "bias_int": _np(torch.floor(div(div(beta, gamma), base)), np.float32),
-        "out_scale": _np(gamma * base, np.float32),
-    }
-
-
 def _linear_t(layer: dict) -> dict:
     return {k: torch.from_numpy(layer[k]) for k in ("w", "b") if k in layer}
 
@@ -110,7 +87,7 @@ def _calib_linear(x_q: torch.Tensor, params, in_scale: torch.Tensor, key: str, i
     """Freeze ``params`` (kernel, bias or None) into ``into[key]`` and run
     it on the integer rows ``x_q``: the int32 accumulator (as float32)
     and its per-channel scale."""
-    into[key] = layer = _freeze_linear(*params, in_scale)
+    into[key] = layer = freeze_linear(*params, in_scale)
     acc = int8_linear(x_q.to(torch.int8), _linear_t(layer)).to(torch.float32)
     return acc, torch.from_numpy(layer["out_scale"])
 
@@ -118,7 +95,7 @@ def _calib_linear(x_q: torch.Tensor, params, in_scale: torch.Tensor, key: str, i
 def _calib_norm(x_q: torch.Tensor, params, key: str, into: dict):
     """Freeze the LayerNorm ``params`` (γ, β) into ``into[key]`` and run
     the I-LayerNorm on ``x_q``."""
-    into[key] = _freeze_norm(*params)
+    into[key] = freeze_norm(*params)
     return int_layernorm(x_q, *params)
 
 
@@ -220,7 +197,7 @@ def synthetic_vit_artifact(
     y, s_y = _calib_norm(x, norm_params, "norm", a)
     cls = y[:, 0]
     s_head = _qact(cls * s_y, 8, "head_in_scale", a)
-    a["head"] = _freeze_linear(*head_params, s_head)
+    a["head"] = freeze_linear(*head_params, s_head)
     validate_artifact(a)
     return a
 

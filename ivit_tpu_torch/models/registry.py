@@ -1,10 +1,15 @@
-"""Model registry: name → configuration factory.
+"""Model registry: name → configuration factory, and the QAT models.
 
 Counterpart of ``ivit_tpu/models/registry.py`` for the integer-only
-ViT/DeiT and Swin families (the float models come with their slice).
+ViT/DeiT and Swin families (the float models come with their slice):
+``create_config`` gives a model's artifact ``config`` dict,
+``create_model`` the QAT ``VisionTransformer`` of a ViT/DeiT name (Swin
+QAT is not ported yet).
 """
 
 from __future__ import annotations
+
+import torch
 
 from . import swin, vit
 
@@ -19,6 +24,9 @@ MODEL_REGISTRY = {
     "swin_base": swin.swin_base_patch4_window7_224,
 }
 
+# VisionTransformer arguments that are not part of the artifact config
+_TRAIN_ONLY = ("in_chans", "qkv_bias", "drop_rate", "attn_drop_rate", "drop_path_rate", "interp")
+
 
 def create_config(name: str, **kwargs) -> dict:
     """The configuration of registered model ``name``; keyword arguments
@@ -26,3 +34,24 @@ def create_config(name: str, **kwargs) -> dict:
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name](**kwargs)
+
+
+def create_model(name: str, device="cuda", seed: int = 0, **kwargs) -> vit.VisionTransformer:
+    """The QAT model of registered ViT/DeiT ``name`` on ``device``, its
+    parameters drawn on the CPU from ``seed`` (flax's initializers:
+    truncated normals of std 0.02, zero biases, unit LayerNorm scales),
+    so a model on the card and one on the CPU start equal. Keyword
+    arguments override config fields or set ``VisionTransformer``'s own
+    (drop rates, ``interp``). Raises for a Swin name (Swin QAT is not
+    ported) and, for a CUDA device, on a machine without one."""
+    from ..deploy.artifact import target_device
+
+    if name.startswith("swin"):
+        raise NotImplementedError(f"{name}: Swin QAT is not ported yet; the Swin engine serves frozen artifacts")
+    device = target_device(device)
+    own = {k: kwargs.pop(k) for k in _TRAIN_ONLY if k in kwargs}
+    cfg = create_config(name, **kwargs)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = vit.VisionTransformer(**cfg, **own)
+    return model.to(device)

@@ -1,14 +1,33 @@
-"""ViT / DeiT configurations.
+"""Integer-only Vision Transformer (DeiT / ViT): configurations and the
+QAT model.
 
-Counterpart of the factories at the end of ``ivit_tpu/models/vit.py``:
-the port runs frozen artifacts only, so a model here is its
-configuration dict — the same keys ``freeze_vit`` records under
-``artifact["config"]``.
+Counterpart of ``ivit_tpu/models/vit.py``. ``vit_config`` is the artifact
+``config`` dict the engines read (the keys ``freeze_vit`` records), and
+the five factories at the end give it for each registered width;
+``VisionTransformer`` is the QAT model those configurations build
+(``models.registry.create_model``), run under the ``SIM`` interpreter:
+input ``QuantAct`` → patch embed → cls concat at the patch scale →
+pos-embed quantized on its own and merged in a 16-bit ``QuantAct`` →
+pre-norm blocks → I-LayerNorm → CLS token → ``QuantAct`` → quantized
+head, whose output is the only dequantization.
+
+JAX's ``remat`` is not ported: ``torch.utils.checkpoint`` runs the
+forward again in the backward, which would move every ``QuantAct``'s
+EMA range twice, where JAX's functional remat does not.
 """
 
 from __future__ import annotations
 
 from functools import partial
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.qtensor import QTensor
+from ..nn.quant import IntLayerNorm, QuantAct, QuantLinear, QuantPatchEmbed, trunc_normal_
+from ..nn.vit_blocks import Block
+from ..ops.interp import SIM, Interp, div
 
 
 def vit_config(
@@ -34,6 +53,85 @@ def vit_config(
         softmax_bits=softmax_bits,
         gelu_stable=gelu_stable,
     )
+
+
+class VisionTransformer(nn.Module):
+    """The QAT ViT on NHWC float images; returns float logits.
+
+    ``softmax_bits`` 16 is the reference's QAT spec, 8 the precision its
+    deployed graph runs; ``gelu_stable`` selects the elementwise ShiftGELU.
+    Both are model properties the frozen artifact records. ``drop_rate``,
+    ``attn_drop_rate`` and ``drop_path_rate`` (stochastic depth, rising
+    linearly over the blocks) act only under ``train=True``.
+    """
+
+    def __init__(
+        self,
+        img_size: int = 224,
+        patch_size: int = 16,
+        in_chans: int = 3,
+        num_classes: int = 1000,
+        embed_dim: int = 768,
+        depth: int = 12,
+        num_heads: int = 12,
+        mlp_ratio: float = 4.0,
+        qkv_bias: bool = True,
+        drop_rate: float = 0.0,
+        attn_drop_rate: float = 0.0,
+        drop_path_rate: float = 0.0,
+        softmax_bits: int = 16,
+        gelu_stable: bool = False,
+        interp: Interp = SIM,
+    ):
+        super().__init__()
+        self.config = vit_config(img_size, patch_size, num_classes, embed_dim, depth, num_heads,
+                                 mlp_ratio, softmax_bits, gelu_stable)
+        self.interp = interp
+        num_patches = (img_size // patch_size) ** 2
+        self.qact_input = QuantAct(8, interp=interp)
+        self.patch_embed = QuantPatchEmbed(patch_size, in_chans, embed_dim, interp=interp)
+        self.qact_embed = QuantAct(16, interp=interp)
+        self.cls_token = nn.Parameter(trunc_normal_(torch.empty(1, 1, embed_dim), 0.02))
+        self.pos_embed = nn.Parameter(trunc_normal_(torch.empty(1, num_patches + 1, embed_dim), 0.02))
+        self.qact_pos = QuantAct(16, interp=interp)
+        self.qact1 = QuantAct(16, interp=interp)
+        # flax's names (blocks_0, ...), so torch names map onto flax paths
+        self.blocks = [
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, drop_rate, attn_drop_rate, float(rate),
+                  softmax_bits, gelu_stable, interp)
+            for rate in np.linspace(0.0, drop_path_rate, depth)
+        ]
+        for i, blk in enumerate(self.blocks):
+            self.add_module(f"blocks_{i}", blk)
+        self.norm = IntLayerNorm(embed_dim, interp=interp)
+        self.qact2 = QuantAct(8, interp=interp)
+        self.head = QuantLinear(embed_dim, num_classes, interp=interp)
+
+    def forward(self, images: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        it = self.interp
+        B = images.shape[0]
+        D = self.config["embed_dim"]
+        x = self.qact_input(images, update_stats=train)
+        x = self.qact_embed(self.patch_embed(x), update_stats=train)
+
+        # the cls token joins the patch tokens at their scale. it.round
+        # (straight through under SIM) lets the token train, as the
+        # reference's raw float concat does; rounding it keeps SIM equal
+        # to the engine, which needs an integer carrier
+        cls_q = it.round(div(self.cls_token, x.scale.detach())).expand(B, 1, D)
+        x = x.replace(q=torch.cat([cls_q, x.q], dim=1))
+
+        # the pos-embed at its own scale, merged by the dual-scale requant
+        pos = self.qact_pos(self.pos_embed, update_stats=train)
+        x = self.qact1(x, identity=pos.replace(q=pos.q.expand(x.q.shape)), update_stats=train)
+
+        for blk in self.blocks:
+            x = blk(x, train, generator)
+
+        x = self.norm(x)
+        x = self.qact2(x.replace(q=x.q[:, 0]), update_stats=train)  # CLS token
+        return self.head(x).dequantize()
 
 
 deit_tiny_patch16_224 = partial(vit_config, embed_dim=192, depth=12, num_heads=3)

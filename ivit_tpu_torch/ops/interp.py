@@ -1,31 +1,39 @@
-"""DEPLOY interpreter primitives on torch tensors.
+"""Interpreter parameterization: one integer-op spec, two executions.
 
-Counterpart of the DEPLOY half of ``ivit_tpu/ops/interp.py``. The ops
-use ``torch.floor``, ``torch.round`` (half to even, as ``jnp.round``)
-and ``torch.clamp`` directly; what needs care lives here:
+Counterpart of ``ivit_tpu/ops/interp.py``. Every integer op is written
+once against ``Interp``:
+
+* ``DEPLOY`` — inference: ``torch.floor``, ``torch.round`` (half to
+  even, as ``jnp.round``), ``torch.clamp`` and the exact ``exp2_int``;
+* ``SIM`` — QAT: the same float32 integer-carrier forward, bit for bit,
+  with straight-through gradients: floor and round pass the gradient
+  unchanged (``core.ste``), the clip is the exact residue form
+  (``core.ste.clip_ste``), and ``exp2`` returns ``exp2_int`` forward
+  with the transcendental's gradient ``g·ln2·2^k``.
+
+What else needs care lives here too:
 
 * ``exp2_int`` — exact ``2^k`` built in the float32 exponent field,
   never the approximate transcendental ``exp2``;
-* ``div`` — a float32 true division whose divisor is a tensor on the
-  numerator's device. PyTorch's CUDA ``div`` turns a Python-scalar
-  divisor into a reciprocal multiply, which rounds differently from the
-  correctly rounded division the spec takes the floor of;
-* ``f32`` — the float32 scalar tensors the spec's constants become. On a
-  CUDA device each is made once per (value, device) and kept: building
-  one from a Python number copies it from pageable host memory, which
-  synchronises the stream and cannot be recorded in a CUDA graph, so a
-  forward makes no such copy after its first call.
-
-The QAT interpreter (straight-through floor/round) comes with the QAT
-port.
+* ``div`` and ``f32`` (``core.scalars``) — correctly rounded float32
+  division by a device tensor, and the spec's constants as float32
+  scalar tensors kept once per CUDA device.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
+from typing import Callable
+
 import torch
 
+from ..core.scalars import div, f32
+from ..core.ste import clip_ste, floor_ste, round_ste
+
+__all__ = ["DEPLOY", "I32_MAX", "SIM", "Interp", "div", "exp2_int", "f32"]
+
 I32_MAX = 2.0**31 - 1.0  # rounds to 2^31 in float32, as in the JAX spec
+_LN2 = 0.6931471805599453
 
 
 def exp2_int(k: torch.Tensor) -> torch.Tensor:
@@ -36,34 +44,39 @@ def exp2_int(k: torch.Tensor) -> torch.Tensor:
     return torch.bitwise_left_shift(ki + 127, 23).view(torch.float32)
 
 
-_CONSTANTS: dict = {}  # (float32 bits, CUDA device) -> the scalar tensor there
+class _Exp2Sim(torch.autograd.Function):
+    """Forward exactly ``exp2_int``; gradient ``(g·ln2)·2^k`` with 2^k
+    from the same exact construction, in the order of
+    ``ivit_tpu/ops/interp.py:_exp2_sim_bwd``."""
+
+    @staticmethod
+    def forward(k):
+        return exp2_int(k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+
+    @staticmethod
+    def backward(ctx, g):
+        (two_k,) = ctx.saved_tensors
+        return g * _LN2 * two_k
 
 
-def div(num, den) -> torch.Tensor:
-    """Correctly rounded float32 ``num / den``; either side may be a
-    Python number, which becomes ``f32`` on the other's device."""
-    like = den if isinstance(den, torch.Tensor) else num
-    if not isinstance(num, torch.Tensor):
-        num = f32(num, like.device)
-    if not isinstance(den, torch.Tensor):
-        den = f32(den, like.device)
-    return torch.div(num, den)
+def _exp2_sim(k: torch.Tensor) -> torch.Tensor:
+    return _Exp2Sim.apply(k) if k.requires_grad else exp2_int(k)
 
 
-def f32(value: float, device) -> torch.Tensor:
-    """A float32 scalar tensor on ``device`` (a Python float is rounded
-    to float32, as a kernel's float argument is). On a CUDA device the
-    tensor is made at the first call for its value and shared after:
-    callers must not write to it."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return torch.tensor(value, dtype=torch.float32, device=device)
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    key = (int(np.float32(value).view(np.uint32)), device)
-    if key not in _CONSTANTS:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(f"f32({value}) first made during CUDA graph capture: warm up before capturing")
-        with torch.inference_mode(False):
-            _CONSTANTS[key] = torch.tensor(value, dtype=torch.float32, device=device)
-    return _CONSTANTS[key]
+@dataclasses.dataclass(frozen=True)
+class Interp:
+    """Floor, round, clip and exp2 of one interpreter."""
+
+    floor: Callable
+    round: Callable
+    clip: Callable
+    exp2: Callable
+    is_sim: bool
+
+
+SIM = Interp(floor=floor_ste, round=round_ste, clip=clip_ste, exp2=_exp2_sim, is_sim=True)
+DEPLOY = Interp(floor=torch.floor, round=torch.round, clip=torch.clamp, exp2=exp2_int, is_sim=False)

@@ -12,7 +12,7 @@ import torch
 
 from ..core.dyadic import Dyadic, dyadic_requant
 from ..core.quantizers import int_range
-from .interp import div
+from .interp import DEPLOY, Interp, div
 
 INT8 = (-128, 127)
 INT16 = (-(2**15), 2**15 - 1)
@@ -36,12 +36,15 @@ def requantize(
     bits: int,
     identity_q: torch.Tensor | None = None,
     identity_scale: torch.Tensor | None = None,
+    interp: Interp = DEPLOY,
 ) -> torch.Tensor:
     """Requantize ``q`` from ``s_in`` to ``s_out``, optionally merging a
     residual ``identity_q`` held at ``identity_scale`` (the dual-scale
-    residual add)."""
-    out = torch.round(q * div(s_in, s_out))
+    residual add). ``s_out`` is detached; ``s_in`` is not (a LayerNorm's
+    γ reaches the loss through its output scale)."""
+    s_out = s_out.detach()
+    out = interp.round(q * div(s_in, s_out))
     if identity_q is not None:
-        out = out + torch.round(identity_q * div(identity_scale, s_out))
+        out = out + interp.round(identity_q * div(identity_scale, s_out))
     lo, hi = int_range(bits)
-    return torch.clamp(out, lo, hi)
+    return interp.clip(out, lo, hi)

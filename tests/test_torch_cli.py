@@ -61,7 +61,7 @@ def test_convert_torch_checkpoint_roundtrip(family, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--model", "deit_small", "--checkpoint", "ckpt.pkl"], "comes with the QAT port"),
+    (["--model", "deit_small", "--checkpoint", "ckpt.pkl"], "comes with the checkpoint format"),
     (["--model", "deit_small", "--torch-checkpoint", "x.pth", "--export-engine", "e.bin"],
      "comes with the serialized-engine slice"),
     (["--torch-checkpoint", "x.pth"], "requires a --model name"),

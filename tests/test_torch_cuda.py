@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from ivit_tpu_torch.deploy.convert import freeze_vit
 from ivit_tpu_torch.deploy.engine import build_vit_infer
 from ivit_tpu_torch.deploy.graphs import capture_infer
 from ivit_tpu_torch.deploy.swin_engine import build_swin_infer
@@ -38,7 +39,9 @@ from ivit_tpu_torch.kernels import (
 )
 from ivit_tpu_torch.kernels._gelu_common import gelu_table, gelu_table_on
 from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
+from ivit_tpu_torch.models import create_model
 from ivit_tpu_torch.models.swin import sw_attn_mask
+from ivit_tpu_torch.train import AdamW, create_train_state, make_train_step, soft_target_cross_entropy
 
 pytestmark = pytest.mark.cuda
 
@@ -657,3 +660,113 @@ def test_graph_keeps_its_engine_alive(dev):
     gc.collect()
     torch.cuda.empty_cache()
     torch.testing.assert_close(graphed(images), eager, rtol=0, atol=0)
+
+
+# the QAT trainer on the card: the tiny model of tests/test_torch_qat_model.py
+QAT_TINY = dict(img_size=16, patch_size=8, num_classes=8, embed_dim=32, depth=2, num_heads=4)
+QAT_GRAD_RTOL = 1e-5  # of each leaf's largest entry: float32 sums in other orders
+ROUTE_A = ("layernorm", "attention2", "linear_gelu")
+
+
+def _qat_batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    for _ in range(n):
+        x = rng.standard_normal((4, 16, 16, 3)).astype(np.float32)
+        t = np.full((4, 8), 0.1 / 8, np.float32)
+        t[np.arange(4), rng.integers(0, 8, 4)] += 0.9
+        yield torch.from_numpy(x), torch.from_numpy(t)
+
+
+@pytest.mark.parametrize("softmax_bits,gelu_stable", [(16, False), (8, False), (8, True)])
+def test_qat_train_forward_on_card_matches_cpu(dev, softmax_bits, gelu_stable):
+    """Two train-mode forwards (the ranges assigned, then moved): logits,
+    loss and every range bit-equal to the CPU; the parameter gradients
+    within QAT_GRAD_RTOL of each leaf's largest entry. The int8 dots of
+    this small model go through int8_matmul's row padding."""
+    kw = dict(softmax_bits=softmax_bits, gelu_stable=gelu_stable, **QAT_TINY)
+    card, cpu = create_model("deit_tiny", device=dev, **kw), create_model("deit_tiny", device="cpu", **kw)
+    for x, t in _qat_batches(2):
+        lc, lh = card(x.to(dev), train=True), cpu(x, train=True)
+        torch.testing.assert_close(lc.detach().cpu(), lh.detach(), rtol=0, atol=0)
+        for (name, a), (_, b) in zip(card.named_buffers(), cpu.named_buffers()):
+            assert torch.equal(a.cpu(), b), name
+        loss_c, loss_h = soft_target_cross_entropy(lc, t.to(dev)), soft_target_cross_entropy(lh, t)
+        assert loss_c.item() == loss_h.item()
+    gc = torch.autograd.grad(loss_c, list(card.parameters()), materialize_grads=True)
+    gh = torch.autograd.grad(loss_h, list(cpu.parameters()), materialize_grads=True)
+    for (name, _), a, b in zip(cpu.named_parameters(), gc, gh):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=QAT_GRAD_RTOL * float(b.abs().max()), msg=name)
+
+
+def test_qat_optimizer_on_card_matches_cpu(dev):
+    """AdamW (optax's order, weight decay, a schedule) on the same
+    parameters and gradients on the card and the CPU: three updates
+    within 8 float32 ulps of each parameter, or 1e-6 of the learning rate
+    where an update cancels the parameter (a scalar division on the card
+    is a reciprocal multiply, an ulp off the CPU's quotient)."""
+    from ivit_tpu_torch.train import cosine_schedule
+
+    rng = np.random.default_rng(4)
+    params = [torch.from_numpy(rng.normal(0, 0.02, s).astype(np.float32)) for s in ((96, 32), (32,), (7, 3, 5))]
+    grads = [[torch.from_numpy(rng.normal(0, 1e-3, p.shape).astype(np.float32)) for p in params] for _ in range(3)]
+    tx = AdamW(cosine_schedule(1e-3, 2, 3, warmup_epochs=1, warmup_lr=1e-4), weight_decay=0.05)
+    on_card = [p.to(dev) for p in params]
+    s_card, s_cpu = tx.init(on_card), tx.init(params)
+    for g in grads:
+        tx.update(on_card, [t.to(dev) for t in g], s_card)
+        tx.update(params, g, s_cpu)
+    for a, b in zip(on_card, params):
+        torch.testing.assert_close(a.cpu(), b, rtol=2.0**-20, atol=1e-6 * 1e-3)
+
+
+def test_qat_train_steps_on_card(dev):
+    """Three train steps with the EMA (drop-path 0): the first step's loss
+    equal to the CPU's (the forward is bit-equal), every loss finite,
+    every range set (min < max)."""
+    states, steps = [], []
+    for d in (dev, "cpu"):
+        m = create_model("deit_tiny", device=d, **QAT_TINY)
+        states.append(create_train_state(m, AdamW(1e-3, weight_decay=0.05), ema_decay=0.9, device=d))
+        steps.append(make_train_step(m, ema_decay=0.9))
+    for i, (x, t) in enumerate(_qat_batches(3, seed=1)):
+        (_, met), (_, met_h) = (step(s, x.to(s.model.cls_token.device), t.to(s.model.cls_token.device))
+                                for s, step in zip(states, steps))
+        assert np.isfinite(met["loss"].item()) and np.isfinite(met_h["loss"].item())
+        if i == 0:
+            assert met["loss"].item() == met_h["loss"].item()
+    ranges = dict(states[0].model.named_buffers())
+    for name, b in ranges.items():
+        if name.endswith("min_val"):
+            assert b.item() < ranges[name[:-7] + "max_val"].item(), name
+
+
+def test_qat_freeze_serves_route_a_on_card(dev):
+    """A model trained on the card, frozen there: the artifact equals the
+    one frozen from the same variables on the CPU, and route A (12 K2 +
+    12 K4 + 25 K3 at DeiT-S depth; depth, depth and 2·depth + 1 here)
+    serves it bit-equal to the plain engine on the CPU."""
+    m = create_model("deit_tiny", device=dev, **QAT_TINY)
+    state = create_train_state(m, AdamW(1e-3), ema_decay=0.9, device=dev)
+    step = make_train_step(m, ema_decay=0.9)
+    for x, t in _qat_batches(2, seed=2):
+        step(state, x.to(dev), t.to(dev))
+    from ivit_tpu_torch.models.model_utils import eval_variables
+
+    art = freeze_vit(m, eval_variables(state), device=dev)
+    art_cpu = freeze_vit(m, eval_variables(state), device="cpu")
+    for key in ("input_scale", "embed_scale", "head_in_scale", "cls_q", "pos_q"):
+        np.testing.assert_array_equal(art[key], art_cpu[key], err_msg=key)
+    for blk, blk_cpu in zip(art["blocks"], art_cpu["blocks"]):
+        for name in ("qkv", "proj", "fc1", "fc2"):
+            for k in ("w", "b", "out_scale"):
+                np.testing.assert_array_equal(blk[name][k], blk_cpu[name][k], err_msg=f"{name}.{k}")
+    images = torch.from_numpy(np.random.default_rng(3).standard_normal((40, 16, 16, 3)).astype(np.float32))
+    infer = build_vit_infer(art, dev, kernels=ROUTE_A)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    logits = infer(images.to(dev))
+    torch.cuda.synchronize()
+    depth = QAT_TINY["depth"]
+    assert {k: w.launches for k, w in WRAPPERS.items() if w.launches} == {"K2": depth, "K4": depth, "K3": 2 * depth + 1}
+    torch.testing.assert_close(logits.cpu(), build_vit_infer(art_cpu, "cpu", kernels=())(images), rtol=0, atol=0)
+
