@@ -158,7 +158,7 @@ def main(argv=None) -> dict:
     args = p.parse_args(argv)
 
     from .deploy import build_vit_infer, synthetic_vit_artifact
-    from .deploy.artifact import target_device
+    from .core.device import target_device
     from .deploy.graphs import capture_infer
 
     device = target_device(args.device)

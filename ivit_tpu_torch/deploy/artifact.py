@@ -2,9 +2,10 @@
 
 The artifact is what ``ivit_tpu/deploy/convert.py:freeze_vit`` returns: a
 nested dict of numpy arrays (int8 weights (K, N), int32 biases, float32
-scale vectors and float32 scalars) plus a ``config`` dict. Freezing
-stays in JAX; the port reads its artifacts (``utils.artifact.load_artifact``)
-or builds a seeded stand-in (``deploy.synthetic``).
+scale vectors and float32 scalars) plus a ``config`` dict. The port
+freezes its own QAT models (``deploy.convert.freeze_vit``), reads JAX's
+artifacts (``utils.artifact.load_artifact``) or builds a seeded stand-in
+(``deploy.synthetic``).
 
 ``artifact_to_torch`` moves the arrays onto a device and precomputes
 every requantization ratio once, in float32 tensor ops in the order the
@@ -23,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import target_device
 from ..ops.interp import div
 
 _CONFIG_KEYS = (
@@ -113,15 +115,6 @@ def validate_artifact(artifact: dict) -> None:
 def host_f32(v) -> torch.Tensor:
     """A float32 tensor on the host, where every ratio is divided."""
     return torch.from_numpy(np.array(v, dtype=np.float32))
-
-
-def target_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises ``RuntimeError`` for a
-    CUDA device on a machine without one."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
-    return device
 
 
 def carry_linear(layer: dict, device, s_next=None) -> dict:

@@ -16,9 +16,10 @@ import numpy as np
 import torch
 
 from ..core import quantize, symmetric_scale, weight_scale
+from ..core.device import target_device
 from ..models.model_utils import model_variables
 from ..ops.interp import div, f32
-from .artifact import target_device, validate_artifact
+from .artifact import validate_artifact
 
 
 def _np(t: torch.Tensor, dtype) -> np.ndarray:

@@ -27,8 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.device import target_device
 from ..kernels import WRAPPERS
-from .artifact import target_device
 
 WARMUP = 3
 

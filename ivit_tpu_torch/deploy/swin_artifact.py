@@ -27,9 +27,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.device import target_device
 from ..models.swin import stage_geometry
 from ..ops.interp import div
-from .artifact import carry_linear, carry_norm, check_schema, host_f32, target_device
+from .artifact import carry_linear, carry_norm, check_schema, host_f32
 
 _CONFIG_KEYS = (
     "img_size", "patch_size", "embed_dim", "depths", "num_heads",

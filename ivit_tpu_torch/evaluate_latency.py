@@ -61,7 +61,7 @@ def main(argv=None):
     import torch
 
     from .deploy import build_swin_infer, build_vit_infer, synthetic_swin_artifact, synthetic_vit_artifact
-    from .deploy.artifact import target_device
+    from .core.device import target_device
     from .deploy.graphs import capture_infer
     from .utils import load_artifact
 

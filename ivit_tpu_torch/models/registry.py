@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.device import target_device
 from . import swin, vit
 
 MODEL_REGISTRY = {
@@ -25,7 +26,7 @@ MODEL_REGISTRY = {
 }
 
 # VisionTransformer arguments that are not part of the artifact config
-_TRAIN_ONLY = ("in_chans", "qkv_bias", "drop_rate", "attn_drop_rate", "drop_path_rate", "interp")
+_TRAIN_ONLY = ("in_chans", "qkv_bias", "drop_rate", "attn_drop_rate", "drop_path_rate")
 
 
 def create_config(name: str, **kwargs) -> dict:
@@ -42,10 +43,8 @@ def create_model(name: str, device="cuda", seed: int = 0, **kwargs) -> vit.Visio
     truncated normals of std 0.02, zero biases, unit LayerNorm scales),
     so a model on the card and one on the CPU start equal. Keyword
     arguments override config fields or set ``VisionTransformer``'s own
-    (drop rates, ``interp``). Raises for a Swin name (Swin QAT is not
+    (the drop rates). Raises for a Swin name (Swin QAT is not
     ported) and, for a CUDA device, on a machine without one."""
-    from ..deploy.artifact import target_device
-
     if name.startswith("swin"):
         raise NotImplementedError(f"{name}: Swin QAT is not ported yet; the Swin engine serves frozen artifacts")
     device = target_device(device)

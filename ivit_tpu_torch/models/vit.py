@@ -27,7 +27,7 @@ from torch import nn
 from ..core.qtensor import QTensor
 from ..nn.quant import IntLayerNorm, QuantAct, QuantLinear, QuantPatchEmbed, trunc_normal_
 from ..nn.vit_blocks import Block
-from ..ops.interp import SIM, Interp, div
+from ..ops.interp import SIM, div
 
 
 def vit_config(
@@ -81,45 +81,42 @@ class VisionTransformer(nn.Module):
         drop_path_rate: float = 0.0,
         softmax_bits: int = 16,
         gelu_stable: bool = False,
-        interp: Interp = SIM,
     ):
         super().__init__()
         self.config = vit_config(img_size, patch_size, num_classes, embed_dim, depth, num_heads,
                                  mlp_ratio, softmax_bits, gelu_stable)
-        self.interp = interp
         num_patches = (img_size // patch_size) ** 2
-        self.qact_input = QuantAct(8, interp=interp)
-        self.patch_embed = QuantPatchEmbed(patch_size, in_chans, embed_dim, interp=interp)
-        self.qact_embed = QuantAct(16, interp=interp)
+        self.qact_input = QuantAct(8)
+        self.patch_embed = QuantPatchEmbed(patch_size, in_chans, embed_dim)
+        self.qact_embed = QuantAct(16)
         self.cls_token = nn.Parameter(trunc_normal_(torch.empty(1, 1, embed_dim), 0.02))
         self.pos_embed = nn.Parameter(trunc_normal_(torch.empty(1, num_patches + 1, embed_dim), 0.02))
-        self.qact_pos = QuantAct(16, interp=interp)
-        self.qact1 = QuantAct(16, interp=interp)
+        self.qact_pos = QuantAct(16)
+        self.qact1 = QuantAct(16)
         # flax's names (blocks_0, ...), so torch names map onto flax paths
         self.blocks = [
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, drop_rate, attn_drop_rate, float(rate),
-                  softmax_bits, gelu_stable, interp)
+                  softmax_bits, gelu_stable)
             for rate in np.linspace(0.0, drop_path_rate, depth)
         ]
         for i, blk in enumerate(self.blocks):
             self.add_module(f"blocks_{i}", blk)
-        self.norm = IntLayerNorm(embed_dim, interp=interp)
-        self.qact2 = QuantAct(8, interp=interp)
-        self.head = QuantLinear(embed_dim, num_classes, interp=interp)
+        self.norm = IntLayerNorm(embed_dim)
+        self.qact2 = QuantAct(8)
+        self.head = QuantLinear(embed_dim, num_classes)
 
     def forward(self, images: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        it = self.interp
         B = images.shape[0]
         D = self.config["embed_dim"]
         x = self.qact_input(images, update_stats=train)
         x = self.qact_embed(self.patch_embed(x), update_stats=train)
 
-        # the cls token joins the patch tokens at their scale. it.round
+        # the cls token joins the patch tokens at their scale. SIM.round
         # (straight through under SIM) lets the token train, as the
         # reference's raw float concat does; rounding it keeps SIM equal
         # to the engine, which needs an integer carrier
-        cls_q = it.round(div(self.cls_token, x.scale.detach())).expand(B, 1, D)
+        cls_q = SIM.round(div(self.cls_token, x.scale.detach())).expand(B, 1, D)
         x = x.replace(q=torch.cat([cls_q, x.q], dim=1))
 
         # the pos-embed at its own scale, merged by the dual-scale requant

@@ -10,7 +10,8 @@ Counterpart of ``ivit_tpu/nn/quant.py``:
   live kernel on every call, the bias quantized at ``w_scale · s_in``,
   an exact int8 forward dot. The kernel is stored ``(in, out)`` as flax
   stores it.
-* ``quant_matmul`` — the exact activation·activation product.
+* ``quant_matmul`` — the exact activation·activation product (at most
+  16 × 8 bits).
 * ``QuantPatchEmbed`` — the stride = kernel patch convolution as
   space-to-depth and one ``QuantLinear``.
 * ``IntLayerNorm``, ``IntGELU``, ``IntSoftmax`` — the integer ops as
@@ -34,7 +35,7 @@ from ..core.qtensor import QTensor
 from ..core.quantizers import symmetric_scale, weight_scale
 from ..core.ste import quantize
 from ..ops import int_layernorm, requantize, shiftgelu, shiftmax
-from ..ops.interp import SIM, Interp
+from ..ops.interp import SIM
 from ..ops.intmm import int8_matmul
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to ±2
@@ -57,9 +58,9 @@ class QuantAct(nn.Module):
     ``momentum``.
     """
 
-    def __init__(self, bits: int = 8, momentum: float = 0.95, interp: Interp = SIM):
+    def __init__(self, bits: int = 8, momentum: float = 0.95):
         super().__init__()
-        self.bits, self.momentum, self.interp = bits, momentum, interp
+        self.bits, self.momentum = bits, momentum
         self.register_buffer("min_val", torch.zeros((), dtype=torch.float32))
         self.register_buffer("max_val", torch.zeros((), dtype=torch.float32))
 
@@ -85,7 +86,7 @@ class QuantAct(nn.Module):
                 x.q, x.scale, scale, self.bits,
                 identity_q=None if identity is None else identity.q,
                 identity_scale=None if identity is None else identity.scale,
-                interp=self.interp,
+                interp=SIM,
             )
         return QTensor(q, scale, self.bits)
 
@@ -171,18 +172,14 @@ def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _ExactIntMatmul.apply(a, b)
 
 
-exact_int_matmul_8x8 = exact_int_matmul_16x8 = exact_int_matmul
-
-
 def quant_matmul(a: QTensor, b: QTensor) -> QTensor:
     """Integer activation·activation matmul over the last two axes, at
-    the scale ``s_a · s_b``."""
-    if a.bits <= 16 and b.bits <= 8:
-        y = exact_int_matmul(a.q, b.q)
-    else:
-        with _fp32_highest():
-            y = torch.matmul(a.q, b.q)
-    return QTensor(y, a.scale * b.scale, 32)
+    the scale ``s_a · s_b``. The ViT's operands are 8 × 8 bits (q·kᵀ,
+    attn·v at 8-bit Shiftmax) or 16 × 8 (attn·v at 16-bit); wider ones
+    raise (JAX's float32 fallback for them is not ported)."""
+    if a.bits > 16 or b.bits > 8:
+        raise ValueError(f"quant_matmul takes at most 16 x 8-bit operands, got {a.bits} x {b.bits}")
+    return QTensor(exact_int_matmul(a.q, b.q), a.scale * b.scale, 32)
 
 
 class QuantLinear(nn.Module):
@@ -191,9 +188,9 @@ class QuantLinear(nn.Module):
     ``w_scale · s_in`` (a ``QuantAct`` after it requantizes)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 weight_bits: int = 8, bias_bits: int = 32, interp: Interp = SIM):
+                 weight_bits: int = 8, bias_bits: int = 32):
         super().__init__()
-        self.weight_bits, self.bias_bits, self.interp = weight_bits, bias_bits, interp
+        self.weight_bits, self.bias_bits = weight_bits, bias_bits
         self.kernel = nn.Parameter(trunc_normal_(torch.empty(in_features, features), 0.02))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
@@ -214,11 +211,11 @@ class QuantPatchEmbed(nn.Module):
     (``proj``) on NHWC input; the kernel rows are ordered (ph, pw, c)."""
 
     def __init__(self, patch_size: int = 16, in_chans: int = 3, features: int = 768,
-                 weight_bits: int = 8, bias_bits: int = 32, interp: Interp = SIM):
+                 weight_bits: int = 8, bias_bits: int = 32):
         super().__init__()
         self.patch_size = patch_size
         self.proj = QuantLinear(patch_size * patch_size * in_chans, features,
-                                weight_bits=weight_bits, bias_bits=bias_bits, interp=interp)
+                                weight_bits=weight_bits, bias_bits=bias_bits)
 
     def forward(self, x: QTensor) -> QTensor:
         B, H, W, C = x.shape
@@ -232,36 +229,35 @@ class IntLayerNorm(nn.Module):
     """I-LayerNorm: γ (``scale``) folds into the differentiable
     per-channel output scale, β (``bias``) into an integer bias."""
 
-    def __init__(self, features: int, interp: Interp = SIM):
+    def __init__(self, features: int):
         super().__init__()
-        self.interp = interp
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: QTensor) -> QTensor:
-        q, s = int_layernorm(x.q, self.scale, self.bias, interp=self.interp)
+        q, s = int_layernorm(x.q, self.scale, self.bias, interp=SIM)
         return QTensor(q, s, 32)
 
 
 class IntGELU(nn.Module):
     """ShiftGELU; ``stable`` selects the elementwise-stable form."""
 
-    def __init__(self, out_bits: int = 8, stable: bool = False, interp: Interp = SIM):
+    def __init__(self, out_bits: int = 8, stable: bool = False):
         super().__init__()
-        self.out_bits, self.stable, self.interp = out_bits, stable, interp
+        self.out_bits, self.stable = out_bits, stable
 
     def forward(self, x: QTensor) -> QTensor:
-        q, s = shiftgelu(x.q, x.scale, out_bits=self.out_bits, stable=self.stable, interp=self.interp)
+        q, s = shiftgelu(x.q, x.scale, out_bits=self.out_bits, stable=self.stable, interp=SIM)
         return QTensor(q, s, 32)
 
 
 class IntSoftmax(nn.Module):
     """Shiftmax at ``out_bits`` output precision."""
 
-    def __init__(self, out_bits: int = 16, interp: Interp = SIM):
+    def __init__(self, out_bits: int = 16):
         super().__init__()
-        self.out_bits, self.interp = out_bits, interp
+        self.out_bits = out_bits
 
     def forward(self, x: QTensor) -> QTensor:
-        q, s = shiftmax(x.q, x.scale, out_bits=self.out_bits, interp=self.interp)
+        q, s = shiftmax(x.q, x.scale, out_bits=self.out_bits, interp=SIM)
         return QTensor(q, s, self.out_bits)

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from ..core.qtensor import QTensor
-from ..ops.interp import SIM, Interp, div, f32
+from ..ops.interp import div, f32
 from .quant import IntGELU, IntLayerNorm, IntSoftmax, QuantAct, QuantLinear, quant_matmul
 
 
@@ -51,15 +51,15 @@ class Mlp(nn.Module):
     """fc1 → qact → ShiftGELU → qact → fc2 → qact(16 bits)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int, drop: float = 0.0,
-                 gelu_stable: bool = False, interp: Interp = SIM):
+                 gelu_stable: bool = False):
         super().__init__()
         self.drop = drop
-        self.fc1 = QuantLinear(in_features, hidden_features, interp=interp)
-        self.qact_gelu = QuantAct(8, interp=interp)
-        self.act = IntGELU(out_bits=8, stable=gelu_stable, interp=interp)
-        self.qact1 = QuantAct(8, interp=interp)
-        self.fc2 = QuantLinear(hidden_features, out_features, interp=interp)
-        self.qact2 = QuantAct(16, interp=interp)
+        self.fc1 = QuantLinear(in_features, hidden_features)
+        self.qact_gelu = QuantAct(8)
+        self.act = IntGELU(out_bits=8, stable=gelu_stable)
+        self.qact1 = QuantAct(8)
+        self.fc2 = QuantLinear(hidden_features, out_features)
+        self.qact2 = QuantAct(16)
 
     def forward(self, x: QTensor, train: bool = False, generator: torch.Generator | None = None) -> QTensor:
         x = self.qact_gelu(self.fc1(x), update_stats=train)
@@ -78,16 +78,16 @@ class Attention(nn.Module):
     exact attn·v → qact → proj → qact(16 bits)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0, softmax_bits: int = 16, interp: Interp = SIM):
+                 proj_drop: float = 0.0, softmax_bits: int = 16):
         super().__init__()
         self.num_heads, self.attn_drop, self.proj_drop = num_heads, attn_drop, proj_drop
-        self.qkv = QuantLinear(dim, 3 * dim, use_bias=qkv_bias, interp=interp)
-        self.qact1 = QuantAct(8, interp=interp)
-        self.qact_attn1 = QuantAct(8, interp=interp)
-        self.int_softmax = IntSoftmax(out_bits=softmax_bits, interp=interp)
-        self.qact2 = QuantAct(8, interp=interp)
-        self.proj = QuantLinear(dim, dim, interp=interp)
-        self.qact3 = QuantAct(16, interp=interp)
+        self.qkv = QuantLinear(dim, 3 * dim, use_bias=qkv_bias)
+        self.qact1 = QuantAct(8)
+        self.qact_attn1 = QuantAct(8)
+        self.int_softmax = IntSoftmax(out_bits=softmax_bits)
+        self.qact2 = QuantAct(8)
+        self.proj = QuantLinear(dim, dim)
+        self.qact3 = QuantAct(16)
 
     def forward(self, x: QTensor, train: bool = False, generator: torch.Generator | None = None) -> QTensor:
         B, N, C = x.shape
@@ -119,18 +119,18 @@ class Block(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  drop: float = 0.0, attn_drop: float = 0.0, drop_path_rate: float = 0.0,
-                 softmax_bits: int = 16, gelu_stable: bool = False, interp: Interp = SIM):
+                 softmax_bits: int = 16, gelu_stable: bool = False):
         super().__init__()
         self.drop_path_rate = drop_path_rate
-        self.norm1 = IntLayerNorm(dim, interp=interp)
-        self.qact1 = QuantAct(8, interp=interp)
+        self.norm1 = IntLayerNorm(dim)
+        self.qact1 = QuantAct(8)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, attn_drop=attn_drop, proj_drop=drop,
-                              softmax_bits=softmax_bits, interp=interp)
-        self.qact2 = QuantAct(16, interp=interp)
-        self.norm2 = IntLayerNorm(dim, interp=interp)
-        self.qact3 = QuantAct(8, interp=interp)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop, gelu_stable=gelu_stable, interp=interp)
-        self.qact4 = QuantAct(16, interp=interp)
+                              softmax_bits=softmax_bits)
+        self.qact2 = QuantAct(16)
+        self.norm2 = IntLayerNorm(dim)
+        self.qact3 = QuantAct(8)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop=drop, gelu_stable=gelu_stable)
+        self.qact4 = QuantAct(16)
 
     def forward(self, x1: QTensor, train: bool = False, generator: torch.Generator | None = None) -> QTensor:
         x = self.qact1(self.norm1(x1), update_stats=train)

@@ -17,6 +17,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core.device import target_device
+
 
 @dataclasses.dataclass
 class AdamWState:
@@ -89,8 +91,6 @@ def create_train_state(model: torch.nn.Module, tx: AdamW, ema_decay: float = 0.0
     fresh ``QuantAct``'s ``min == max == 0`` sentinel makes the first
     real batch assign its range, as JAX's ``create_train_state``
     (``init`` with ``train=False``) leaves it."""
-    from ..deploy.artifact import target_device
-
     model = model.to(target_device(device))
     params = list(model.parameters())
     ema = {n: p.detach().clone() for n, p in model.named_parameters()} if ema_decay > 0 else None

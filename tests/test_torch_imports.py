@@ -35,7 +35,7 @@ def test_package_has_modules():
               "kernels/window_attention_fused.py", "models/swin.py", "deploy/swin_artifact.py",
               "deploy/swin_engine.py", "deploy/swin_synthetic.py", "core/dyadic.py", "deploy/graphs.py",
               "deploy/ingest_torch.py", "convert_model.py", "evaluate_latency.py", "bench.py",
-              "core/ste.py", "core/qtensor.py", "core/scalars.py", "ops/intmm.py", "nn/quant.py",
+              "core/ste.py", "core/qtensor.py", "core/scalars.py", "core/device.py", "ops/intmm.py", "nn/quant.py",
               "nn/vit_blocks.py", "nn/flax_state.py", "models/vit.py", "models/model_utils.py",
               "deploy/convert.py", "train/losses.py", "train/schedule.py", "train/state.py", "train/steps.py"):
         assert f in files

@@ -27,8 +27,8 @@ from ivit_tpu.ops import requantize as jax_requantize
 from ivit_tpu.ops import shiftgelu as jax_shiftgelu
 from ivit_tpu.ops import shiftmax as jax_shiftmax
 from ivit_tpu.ops.shiftexp import int_exp_shift as jax_int_exp_shift
-from ivit_tpu_torch.core import floor_ste, quantize, round_ste, symmetric_scale
-from ivit_tpu_torch.nn.quant import exact_int8_dot, exact_int8_dot_bias, exact_int_matmul_8x8, exact_int_matmul_16x8
+from ivit_tpu_torch.core import QTensor, floor_ste, quantize, round_ste, symmetric_scale
+from ivit_tpu_torch.nn.quant import exact_int8_dot, exact_int8_dot_bias, exact_int_matmul, quant_matmul
 from ivit_tpu_torch.ops import int_exp_shift, int_layernorm, requantize, shiftgelu, shiftmax
 from ivit_tpu_torch.ops.interp import SIM
 from ivit_tpu_torch.ops.intmm import int8_matmul
@@ -277,8 +277,21 @@ def test_exact_int_matmuls_match_jax(a_bits):
     a = rng.integers(-hi if a_bits == 8 else 0, hi, (2, 3, 17, 17)).astype(np.float32)
     b = rng.integers(-128, 128, (2, 3, 17, 8)).astype(np.float32)
     w = rng.normal(size=(2, 3, 17, 8)).astype(np.float32)
-    ours, theirs = (exact_int_matmul_8x8, jax_mm_8x8) if a_bits == 8 else (exact_int_matmul_16x8, jax_mm_16x8)
+    ours, theirs = exact_int_matmul, (jax_mm_8x8 if a_bits == 8 else jax_mm_16x8)
     args = (_t(a, True), _t(b, True))
     _eq(ours(*args), theirs(jnp.asarray(a), jnp.asarray(b)))
     for g, jg in zip(_grads(ours, args, w), _jax_grads(theirs, (a, b), w)):
         _close(g, jg, rtol=1e-6, atol=1e-6 * float(np.abs(jg).max()))
+
+
+def test_quant_matmul_takes_at_most_16x8_bits():
+    """The ViT's products are 8 × 8 and 16 × 8 bits; a wider operand
+    raises rather than taking an inexact float32 product."""
+    a = QTensor(torch.ones(2, 4, 4), torch.tensor(0.5), 16)
+    b = QTensor(torch.ones(2, 4, 3), torch.tensor(0.25), 8)
+    out = quant_matmul(a, b)
+    assert out.bits == 32 and float(out.scale) == 0.125 and torch.equal(out.q, torch.full((2, 4, 3), 4.0))
+    with pytest.raises(ValueError, match="16 x 8"):
+        quant_matmul(a.replace(bits=32), b)
+    with pytest.raises(ValueError, match="16 x 8"):
+        quant_matmul(a, b.replace(bits=16))

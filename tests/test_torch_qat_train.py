@@ -1,5 +1,8 @@
-"""The port's trainer against JAX's on the CPU: schedule, losses, train
-and eval steps, dropout and stochastic depth.
+"""The port's trainer against JAX's on the CPU: schedule, losses, the
+optimizer, train and eval steps, dropout and stochastic depth.
+
+``AdamW.update`` alone is held bit-equal to ``optax.adamw`` run op by
+op. The bounds below are only for the whole jitted train step.
 
 Three train steps run on both sides from the same variables (carried
 from flax, tiny model of ``tests/test_torch_qat_model.py``): JAX's
@@ -99,6 +102,36 @@ def test_losses_match_jax():
     for k in (1, 5):
         assert float(topk_accuracy(t, torch.from_numpy(labels), k)) == float(
             jax_topk_accuracy(jl, jnp.asarray(labels), k))
+
+
+@pytest.mark.parametrize("b1,b2,wd", [(0.9, 0.999, 0.05), (0.8, 0.99, 1e-4)])
+def test_adamw_update_matches_optax(b1, b2, wd):
+    """``AdamW.update`` against ``optax.adamw`` on ``cosine_schedule``,
+    both run op by op, on the same parameters (some zero) and five
+    gradients whose entries span 1e-9 to 1 (so eps, both moments and
+    their decays all show in the update): parameters and both moments
+    bit-equal after every step."""
+    rng = np.random.default_rng(3)
+    shapes = [(7, 5), (13,), (3, 4, 2)]
+    params = [rng.normal(0, 0.05, s).astype(np.float32) for s in shapes]
+    params[1][:3] = 0.0
+    sched = dict(base_lr=LR, steps_per_epoch=2, epochs=4, warmup_epochs=1, warmup_lr=LR / 2)
+    tx = optax.adamw(jax_cosine_schedule(**sched), b1=b1, b2=b2, weight_decay=wd)
+    jp = [jnp.asarray(a) for a in params]
+    js = tx.init(jp)
+    opt = AdamW(cosine_schedule(**sched), b1=b1, b2=b2, weight_decay=wd)
+    tp = [torch.from_numpy(a.copy()) for a in params]
+    ts = opt.init(tp)
+    for step in range(5):
+        grads = [(rng.normal(0, 1, s) * 10.0 ** rng.integers(-9, 1, s)).astype(np.float32) for s in shapes]
+        upd, js = tx.update([jnp.asarray(g) for g in grads], js, jp)
+        jp = optax.apply_updates(jp, upd)
+        opt.update(tp, [torch.from_numpy(g) for g in grads], ts)
+        adam = js[0]
+        assert ts.count == int(adam.count) == step + 1
+        for name, ours, theirs in (("param", tp, jp), ("mu", ts.mu, adam.mu), ("nu", ts.nu, adam.nu)):
+            for i, (a, b) in enumerate(zip(ours, theirs)):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f"step {step} {name} {i}")
 
 
 def _batches(n):
