@@ -6,7 +6,8 @@ full width and depth of DeiT-S and through
 ``deploy.swin_engine.build_swin_infer`` at the full width and depth of
 Swin-T, on seeded synthetic artifacts, and checks every hand-written
 kernel on them; then trains DeiT-S through the QAT trainer for a few
-steps and serves the frozen result by route A (phase 7):
+steps and serves the frozen result by route A (phase 7), and trains
+Swin-T with mixup/cutmix and serves it by K7 + K3 (phase 8):
 
 * the main path: softmax_bits=8, stable ShiftGELU, K1 attention + K3
   LayerNorm (the default kernels);
@@ -115,7 +116,28 @@ Phases:
    share; then ``freeze_vit`` of the EMA weights, served by route A at
    batch 128: exactly 12 K2 + 12 K4 + 25 K3 launches, rows 0-1 bit-equal
    to the plain engine on the CPU, and within three steps of the head's
-   output scale of the SIM eval forward on the card, argmax equal.
+   output scale of the SIM eval forward on the card, argmax equal;
+8. the QAT trainer at the full width and depth of Swin-T (row-max
+   ShiftGELU, the JAX model's default) with mixup/cutmix
+   (``train.mixup_cutmix``, quant_train.py's defaults: mixup 0.8, cutmix
+   1.0, switch prob 0.5, label smoothing 0.1): one train-mode step at
+   batch 2 with drop-path 0 and smoothed one-hot targets on the card and
+   on the CPU from the same seed, the logits, the loss and every updated
+   range bit-equal, every parameter gradient within QAT_GRAD_RTOL of its
+   leaf's largest entry and every block's relative-position bias table
+   with a nonzero gradient; the mixup/cutmix arithmetic on the card and
+   the CPU from the same draws, once on each branch, bit-equal; a
+   warm-up step and TRAIN_STEPS timed steps at TRAIN_BATCH with
+   drop-path 0.1, mixup/cutmix targets drawn each step, AdamW and the
+   EMA, reported as phase 7's are; then ``deploy.swin_engine.freeze_swin``
+   of the EMA weights, served by ``build_swin_infer`` with its default
+   kernels at batch 128: exactly 12 K7 + 28 K3 launches, rows 0-1
+   bit-equal to the plain engine on the CPU, within 4 × the head's
+   output scale of the SIM eval forward on the card (the engine
+   pre-rounds the bias where SIM merges it), argmax equal on every row
+   whose top two SIM logits lie more than 8 head scales apart; and K7
+   against its plain version (tolerance 0) on the trained model's first
+   shifted block's own inputs.
 
 Any failed check raises and exits nonzero before the result lines. The
 second-to-last line is the kernels' JSON record, the last line
@@ -358,13 +380,65 @@ def run_cli(args: list, timeout: int) -> list:
     return run.stdout.strip().splitlines()
 
 
+def card_vs_cpu_gradients(label: str, card, host, loss_c, loss_h, t0: float) -> dict:
+    """Every parameter gradient of ``loss_c`` (on the card) against that of
+    ``loss_h`` (on the CPU) within QAT_GRAD_RTOL of its leaf's largest
+    entry; prints the largest error. Returns the card's gradients by name."""
+    import torch
+
+    names = [n for n, _ in host.named_parameters()]
+    gc = torch.autograd.grad(loss_c, list(card.parameters()), materialize_grads=True)
+    gh = torch.autograd.grad(loss_h, list(host.parameters()), materialize_grads=True)
+    worst, worst_name = 0.0, ""
+    for name, a, b in zip(names, gc, gh):
+        scale = float(b.abs().max())
+        rel = float((a.cpu() - b).abs().max()) / scale if scale else float((a.cpu() - b).abs().max())
+        if rel >= worst:
+            worst, worst_name = rel, name
+    print(f"{label} step 1: parameter gradients card vs CPU, largest error relative to its leaf's largest entry "
+          f"{worst} ({worst_name}; bound {QAT_GRAD_RTOL}), in {time.perf_counter() - t0:.3f} s")
+    check(worst <= QAT_GRAD_RTOL, f"{label}: gradients differ beyond {QAT_GRAD_RTOL} ({worst_name})")
+    return dict(zip(names, gc))
+
+
+def profile_step(label: str, fn, step_ms: float) -> None:
+    """Profile one call of the train step ``fn``: print the host
+    synchronisations inside it (as phase 6 counts them, beside an empty
+    window's), device time by kernel and the device's idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(call) -> tuple:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        syncs = {c: sum(1 for e in prof.events() if e.device_type == DeviceType.CPU and e.name == c)
+                 for c in SYNC_CALLS}
+        kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA), reverse=True)
+        return syncs, kernels, wall
+
+    empty, _, _ = profiled(lambda: None)
+    syncs, kernels, wall = profiled(fn)
+    busy = sum(k[0] for k in kernels)
+    print(f"{label}: host synchronisations in one train step {syncs} (an empty window: {empty}); "
+          f"{sum(syncs.values()) - sum(empty.values())} beyond the window's own")
+    print(f"{label}: profile of one batch-{TRAIN_BATCH} train step: kernel time {busy} ms in {wall} ms wall "
+          f"(profiled), idle share {1 - busy / wall}; against the unprofiled {step_ms} ms/step {1 - busy / step_ms}; "
+          f"{sum(k[1] for k in kernels)} kernels")
+    for ms, calls, key in kernels[:10]:
+        print(f"  {ms} ms ({ms / busy:.4f}) {calls} calls: {key[:150]}")
+
+
 def trainer_phase(dev) -> None:
     """Phase 7: the QAT trainer on the card at DeiT-S, then its frozen
     model served by route A (module docstring)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from ivit_tpu_torch.deploy.convert import freeze_vit
     from ivit_tpu_torch.deploy.engine import build_vit_infer
@@ -396,18 +470,8 @@ def trainer_phase(dev) -> None:
     check(torch.equal(lc.detach().cpu(), lh.detach()), "trainer: train-mode logits differ between the card and the CPU")
     check(loss_c.item() == loss_h.item(), "trainer: the loss differs between the card and the CPU")
     check(stats_equal, "trainer: the updated ranges differ between the card and the CPU")
-    gc = torch.autograd.grad(loss_c, list(card.parameters()), materialize_grads=True)
-    gh = torch.autograd.grad(loss_h, list(host.parameters()), materialize_grads=True)
-    worst, worst_name = 0.0, ""
-    for (name, _), a, b in zip(host.named_parameters(), gc, gh):
-        scale = float(b.abs().max())
-        rel = float((a.cpu() - b).abs().max()) / scale if scale else float((a.cpu() - b).abs().max())
-        if rel >= worst:
-            worst, worst_name = rel, name
-    print(f"trainer step 1: parameter gradients card vs CPU, largest error relative to its leaf's largest entry "
-          f"{worst} ({worst_name}; bound {QAT_GRAD_RTOL}), in {time.perf_counter() - t0:.3f} s")
-    check(worst <= QAT_GRAD_RTOL, f"trainer: gradients differ beyond {QAT_GRAD_RTOL} ({worst_name})")
-    del card, host, gc, gh, lc, lh, loss_c, loss_h
+    card_vs_cpu_gradients("trainer", card, host, loss_c, loss_h, t0)
+    del card, host, lc, lh, loss_c, loss_h
 
     # 7.2 train steps at TRAIN_BATCH with drop-path 0.1 and the EMA
     model = create_model("deit_small", dev, seed=SEED, drop_path_rate=TRAIN_DROP_PATH)
@@ -438,31 +502,7 @@ def trainer_phase(dev) -> None:
     unset = [n for n in ranges if n.endswith("min_val") and not ranges[n] < ranges[n[:-7] + "max_val"]]
     check(not unset, f"trainer: ranges not set (min >= max): {unset}")
 
-    def profiled(fn) -> tuple:
-        """The host synchronisations (as phase 6 counts them), device time
-        by kernel (ms, calls, name) and the wall ms of one profiled call."""
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t1) * 1e3
-        syncs = {c: sum(1 for e in prof.events() if e.device_type == DeviceType.CPU and e.name == c)
-                 for c in SYNC_CALLS}
-        kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA), reverse=True)
-        return syncs, kernels, wall
-
-    empty, _, _ = profiled(lambda: None)
-    syncs, kernels, wall = profiled(lambda: step(state, *batches[1], gen))
-    busy = sum(k[0] for k in kernels)
-    print(f"trainer: host synchronisations in one train step {syncs} (an empty window: {empty}); "
-          f"{sum(syncs.values()) - sum(empty.values())} beyond the window's own")
-    print(f"trainer: profile of one batch-{TRAIN_BATCH} train step: kernel time {busy} ms in {wall} ms wall "
-          f"(profiled), idle share {1 - busy / wall}; against the unprofiled {step_ms} ms/step {1 - busy / step_ms}; "
-          f"{sum(k[1] for k in kernels)} kernels")
-    for ms, calls, key in kernels[:10]:
-        print(f"  {ms} ms ({ms / busy:.4f}) {calls} calls: {key[:150]}")
+    profile_step("trainer", lambda: step(state, *batches[1], gen), step_ms)
 
     # 7.3 freeze the trained state (its EMA weights) and serve it by route A
     t0 = time.perf_counter()
@@ -492,6 +532,149 @@ def trainer_phase(dev) -> None:
     check(counts == {"K2": depth, "K4": depth, "K3": 2 * depth + 1}, f"trainer serve: launches {counts}")
     check(torch.equal(logits[:2].cpu(), cpu2), "trainer serve: route A differs from the CPU plain engine")
     check(e_sim <= 3 * head and argmax_equal, "trainer serve: route A is off the SIM eval forward")
+
+
+def swin_trainer_phase(dev) -> None:
+    """Phase 8: the QAT trainer on the card at Swin-T with mixup/cutmix,
+    then its frozen model served by K7 + K3 (module docstring)."""
+    import numpy as np
+    import torch
+
+    from ivit_tpu_torch.deploy.swin_engine import build_swin_infer, freeze_swin, swin_trunk, patch_embed
+    from ivit_tpu_torch.deploy.swin_engine import window_attention_inputs
+    from ivit_tpu_torch.kernels import WRAPPERS, fused_int8_window_attention, fused_int8_window_attention_reference
+    from ivit_tpu_torch.models import create_model
+    from ivit_tpu_torch.models.model_utils import eval_variables
+    from ivit_tpu_torch.train import AdamW, MixupConfig, cosine_schedule, create_train_state, make_train_step
+    from ivit_tpu_torch.train import mixup_cutmix, soft_target_cross_entropy
+    from ivit_tpu_torch.train.augment import apply_mixup, draw_mixup, one_hot_smooth
+
+    rng = np.random.default_rng(SEED + 8)
+    mix_cfg = MixupConfig()  # quant_train.py's defaults: 0.8, 1.0, 0.5, smoothing 0.1, 1000 classes
+
+    def batch(n: int):
+        """Seeded normal images and labels."""
+        x = torch.from_numpy(rng.standard_normal((n, 224, 224, 3), dtype=np.float32))
+        return x, torch.from_numpy(rng.integers(0, 1000, n))
+
+    # 8.1 one train-mode step at batch 2, drop-path 0: the card against the CPU
+    t0 = time.perf_counter()
+    card = create_model("swin_tiny", dev, seed=SEED, drop_path_rate=0.0)
+    host = create_model("swin_tiny", "cpu", seed=SEED, drop_path_rate=0.0)
+    x2, y2 = batch(2)
+    t2 = one_hot_smooth(y2, mix_cfg.num_classes, mix_cfg.label_smoothing)
+    lc, lh = card(x2.to(dev), train=True), host(x2, train=True)
+    loss_c, loss_h = soft_target_cross_entropy(lc, t2.to(dev)), soft_target_cross_entropy(lh, t2)
+    stats_equal = all(torch.equal(a.cpu(), b) for a, b in zip(card.buffers(), host.buffers()))
+    print(f"swin trainer step 1, batch 2: logits card vs CPU max_abs_err "
+          f"{float((lc.detach().cpu() - lh.detach()).abs().max())}, loss {loss_c.item()} vs {loss_h.item()}, "
+          f"{len(list(card.buffers()))} ranges equal {stats_equal} (tolerance 0)")
+    check(torch.equal(lc.detach().cpu(), lh.detach()), "swin trainer: train-mode logits differ between the card and the CPU")
+    check(loss_c.item() == loss_h.item(), "swin trainer: the loss differs between the card and the CPU")
+    check(stats_equal, "swin trainer: the updated ranges differ between the card and the CPU")
+    grads = card_vs_cpu_gradients("swin trainer", card, host, loss_c, loss_h, t0)
+    tables = {n: float(g.abs().max()) for n, g in grads.items() if n.endswith("relative_position_bias_table")}
+    print(f"swin trainer step 1: {len(tables)} relative-position bias tables, smallest largest |gradient| "
+          f"{min(tables.values())}")
+    check(len(tables) == 12 and min(tables.values()) > 0, f"swin trainer: a bias table has no gradient {tables}")
+    del card, host, grads, lc, lh, loss_c, loss_h
+
+    # 8.2 mixup/cutmix arithmetic on the card against the CPU, from the same draws
+    xm, ym = batch(TRAIN_BATCH)
+    for use_cutmix in (False, True):
+        draws = draw_mixup(mix_cfg, 224, 224, rng)._replace(use_cutmix=use_cutmix)
+        (ic, tc), (ih, th) = apply_mixup(xm.to(dev), ym.to(dev), mix_cfg, draws), apply_mixup(xm, ym, mix_cfg, draws)
+        print(f"swin trainer: {'cutmix' if use_cutmix else 'mixup'} {draws} at batch {TRAIN_BATCH}: images card vs "
+              f"CPU max_abs_err {float((ic.cpu() - ih).abs().max())}, targets {float((tc.cpu() - th).abs().max())} "
+              "(tolerance 0)")
+        check(torch.equal(ic.cpu(), ih) and torch.equal(tc.cpu(), th), f"swin trainer: {draws} differs card vs CPU")
+
+    # 8.3 train steps at TRAIN_BATCH with drop-path 0.1, mixup/cutmix, AdamW and the EMA
+    model = create_model("swin_tiny", dev, seed=SEED, drop_path_rate=TRAIN_DROP_PATH)
+    sched = cosine_schedule(TRAIN_LR, TRAIN_STEPS + 1, 1, warmup_epochs=0, warmup_lr=TRAIN_LR)
+    state = create_train_state(model, AdamW(sched, weight_decay=TRAIN_WD), ema_decay=TRAIN_EMA, device=dev)
+    step = make_train_step(model, ema_decay=TRAIN_EMA)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batches = [tuple(a.to(dev) for a in batch(TRAIN_BATCH)) for _ in range(TRAIN_STEPS + 1)]
+
+    def mixed_step(x, y):
+        return step(state, *mixup_cutmix(x, y, mix_cfg, rng, device=dev), gen)[1]["loss"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [mixed_step(*batches[0])]  # the warm-up step
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for x, y in batches[1:]:
+        losses.append(mixed_step(x, y))
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [v.item() for v in losses]
+    print(f"swin trainer: swin_tiny, batch {TRAIN_BATCH}, drop-path {TRAIN_DROP_PATH}, mixup/cutmix {tuple(mix_cfg)}, "
+          f"AdamW lr {TRAIN_LR} weight decay {TRAIN_WD}, EMA {TRAIN_EMA}: losses {losses}; {step_ms} ms/step, "
+          f"{TRAIN_BATCH * 1000 / step_ms} images/s over {TRAIN_STEPS} steps after a warm-up step (CUDA events, "
+          f"mixup/cutmix included); max_memory_allocated {peak} bytes ({peak / 2**30:.3f} GiB)")
+    check(all(math.isfinite(v) for v in losses), f"swin trainer: a non-finite loss {losses}")
+    ranges = dict(model.named_buffers())
+    unset = [n for n in ranges if n.endswith("min_val") and not ranges[n] < ranges[n[:-7] + "max_val"]]
+    check(not unset, f"swin trainer: ranges not set (min >= max): {unset}")
+    profile_step("swin trainer", lambda: mixed_step(*batches[1]), step_ms)
+
+    # 8.4 freeze the trained state (its EMA weights) and serve it by K7 + K3
+    t0 = time.perf_counter()
+    variables = eval_variables(state)
+    art = freeze_swin(model, variables, device=dev)
+    del batches, state, step
+    torch.cuda.empty_cache()
+    infer = build_swin_infer(art, dev)
+    images, _ = batch(BATCH)
+    images_dev = images.to(dev)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    logits = infer(images_dev)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in WRAPPERS.items() if w.launches}
+    blocks = sum(art["config"]["depths"])
+    cpu2 = build_swin_infer(art, "cpu", kernels=())(images[:2])
+    with torch.no_grad():
+        sim = torch.func.functional_call(model, {**variables["params"], **variables["quant_stats"]},
+                                         (images_dev,), {"train": False})
+    head = float(np.max(art["head"]["out_scale"]))
+    e_sim = float((logits - sim).abs().max())
+    top2 = sim.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 8 * head
+    agree = logits.argmax(-1) == sim.argmax(-1)
+    print(f"swin trainer: frozen (EMA weights) and served by {sorted(infer.kernels)} at batch {BATCH}: launches "
+          f"{counts}; rows 0-1 vs the plain engine on the CPU max_abs_err {float((logits[:2].cpu() - cpu2).abs().max())} "
+          f"(tolerance 0); vs the SIM eval forward on the card max_abs_err {e_sim} (bound 4 x head out_scale "
+          f"{4 * head}); argmax equal on {int(agree.sum())} of {BATCH} rows, on {int(agree[clear].sum())} of the "
+          f"{int(clear.sum())} whose top two SIM logits lie more than 8 head scales apart; in "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(counts == {"K7": blocks, "K3": 2 * blocks + len(art["config"]["depths"])}, f"swin trainer serve: launches {counts}")
+    check(torch.equal(logits[:2].cpu(), cpu2), "swin trainer serve: the engine differs from the CPU plain engine")
+    check(e_sim <= 4 * head, "swin trainer serve: the engine is off the SIM eval forward")
+    check(bool(agree[clear].all()), "swin trainer serve: argmax differs on a row with a clear SIM top logit")
+
+    # K7 against its plain version on the trained model's first shifted block
+    t = infer.tensors
+    shifted = t["stages"][0]["blocks"][1]
+    captured = {}
+
+    def visit(layer, x) -> None:
+        if layer is shifted:
+            captured["qkv"] = window_attention_inputs(x, layer, kernels=())
+
+    with torch.inference_mode():
+        swin_trunk(patch_embed(images_dev, t), t, (), on_layer=visit)
+    a = shifted["attn"]
+    args = (*captured["qkv"], a["bias"], a["mask"], a["r1"], a["rb"], a["scale"], a["r_out"], shifted["heads"])
+    e_k7 = max_abs_err(fused_int8_window_attention(*args), fused_int8_window_attention_reference(*args))
+    print(f"swin trainer: K7 on the trained model's stage 1 block 1 inputs {tuple(captured['qkv'][0].shape)} masked, "
+          f"s_bias {a['scale']}: max_abs_err {e_k7} against its plain version (tolerance 0)")
+    check(shifted["shift"] > 0 and a["mask"] is not None and e_k7 == 0, "swin trainer: K7 differs on the trained model")
 
 
 def main() -> int:
@@ -1342,6 +1525,13 @@ def main() -> int:
     t0 = time.perf_counter()
     trainer_phase(dev)
     print(f"trainer phase: {time.perf_counter() - t0:.3f} s; chip_smoke so far {time.perf_counter() - t_main:.3f} s")
+
+    # 8. the Swin trainer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    swin_trainer_phase(dev)
+    print(f"swin trainer phase: {time.perf_counter() - t0:.3f} s; chip_smoke so far "
+          f"{time.perf_counter() - t_main:.3f} s")
 
     big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",
            "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",

@@ -2,7 +2,7 @@ from .artifact import artifact_to_torch, validate_artifact
 from .convert import freeze_vit
 from .engine import build_vit_infer
 from .swin_artifact import swin_artifact_spec, swin_artifact_to_torch, validate_swin_artifact
-from .swin_engine import build_swin_infer
+from .swin_engine import build_swin_infer, freeze_swin
 from .swin_synthetic import synthetic_swin_artifact
 from .synthetic import synthetic_vit_artifact
 
@@ -10,6 +10,7 @@ __all__ = [
     "artifact_to_torch",
     "build_swin_infer",
     "build_vit_infer",
+    "freeze_swin",
     "freeze_vit",
     "swin_artifact_spec",
     "swin_artifact_to_torch",

@@ -48,6 +48,35 @@ def freeze_norm(gamma: torch.Tensor, beta: torch.Tensor) -> dict:
     }
 
 
+class TrainedVariables:
+    """A QAT model's variables (``{"params", "quant_stats"}`` keyed by
+    torch name, as ``models.model_utils.eval_variables`` gives them; the
+    model's own when None) on the device freezing runs on (raises for a
+    CUDA device on a machine without one), read as the artifact holds
+    them: a ``QuantAct``'s scale, a ``QuantLinear``, an ``IntLayerNorm``."""
+
+    def __init__(self, model: torch.nn.Module, variables: dict | None, device):
+        device = target_device(device)
+        if variables is None:
+            variables = model_variables(model)
+        self.params = {k: t.detach().to(device) for k, t in variables["params"].items()}
+        self.stats = {k: t.detach().to(device) for k, t in variables["quant_stats"].items()}
+
+    def act(self, name: str, bits: int) -> torch.Tensor:
+        return symmetric_scale(self.stats[f"{name}.min_val"], self.stats[f"{name}.max_val"], bits)
+
+    def linear(self, name: str, in_scale: torch.Tensor) -> dict:
+        return freeze_linear(self.params[f"{name}.kernel"], self.params.get(f"{name}.bias"), in_scale)
+
+    def norm(self, name: str) -> dict:
+        return freeze_norm(self.params[f"{name}.scale"], self.params[f"{name}.bias"])
+
+
+def scalar(s: torch.Tensor) -> np.float32:
+    """A scale as the artifact holds it."""
+    return np.float32(s.item())
+
+
 def freeze_vit(model: torch.nn.Module, variables: dict | None = None, device="cuda") -> dict:
     """The artifact of the QAT ``VisionTransformer`` ``model`` on
     ``variables`` (``{"params", "quant_stats"}`` keyed by torch name, as
@@ -55,25 +84,9 @@ def freeze_vit(model: torch.nn.Module, variables: dict | None = None, device="cu
     when None), computed on ``device`` (raises for a CUDA device on a
     machine without one). It has ``freeze_vit``'s keys, dtypes and
     shapes (``deploy.artifact.validate_artifact``)."""
-    device = target_device(device)
-    if variables is None:
-        variables = model_variables(model)
-    params = {k: t.detach().to(device) for k, t in variables["params"].items()}
-    stats = {k: t.detach().to(device) for k, t in variables["quant_stats"].items()}
+    v = TrainedVariables(model, variables, device)
+    act, linear, norm, params = v.act, v.linear, v.norm, v.params
     cfg = dict(model.config)
-    D = cfg["embed_dim"]
-
-    def act(name: str, bits: int) -> torch.Tensor:
-        return symmetric_scale(stats[f"{name}.min_val"], stats[f"{name}.max_val"], bits)
-
-    def linear(name: str, in_scale: torch.Tensor) -> dict:
-        return freeze_linear(params[f"{name}.kernel"], params.get(f"{name}.bias"), in_scale)
-
-    def norm(name: str) -> dict:
-        return freeze_norm(params[f"{name}.scale"], params[f"{name}.bias"])
-
-    def scalar(s: torch.Tensor) -> np.float32:
-        return np.float32(s.item())
 
     a: dict = {"config": cfg}
     s_input = act("qact_input", 8)

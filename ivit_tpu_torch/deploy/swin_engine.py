@@ -1,6 +1,13 @@
-"""Integer-only Swin inference engine (PyTorch).
+"""Integer-only Swin deployment: freezing and the inference engine
+(PyTorch).
 
-Counterpart of ``ivit_tpu/deploy/swin_engine.py:build_swin_infer`` in its
+``freeze_swin`` is the counterpart of ``ivit_tpu/deploy/swin_engine.py:
+freeze_swin``: a trained QAT ``SwinTransformer`` into the artifact the
+engine serves, each block's relative-position bias pre-gathered and
+pre-requantized into the merged score scale (``window_bias``) and its
+shifted-window mask divided by that scale (``window_mask``).
+
+``build_swin_infer`` is the counterpart of ``build_swin_infer`` in its
 default layout (the TPU layout probes ``win_pad``, ``qkv_hmajor``,
 ``qkv_wmajor``, ``scores_f32`` and the int-lane twins give the same
 integers and are not ported). JAX's kernel selection (``use_pallas`` with
@@ -27,7 +34,8 @@ The GEMMs are ``torch._int_mm`` with plain epilogues, as in
 ``_layernorm`` and ``_residual`` the blocks reuse. The residual stream is
 int16; a patch merging's int8 output rides in it. The token-mean pool is
 an exact integer sum times the float32 reciprocal of the token count,
-which is what ``jnp.mean`` computes on the JAX side (``token_mean``).
+which is what the jitted ``jnp.mean`` computes on the JAX side
+(``models.swin.token_mean``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
 where each kernel's wrapper runs its plain version.
@@ -35,18 +43,131 @@ where each kernel's wrapper runs its plain version.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..core import quantize
 from ..kernels import fused_int8_window_attention, fused_int8_window_attention_reference
 from ..kernels.attention_fused import MAX_TOKENS
-from ..models.swin import stage_geometry, window_partition, window_reverse
+from ..models.swin import (
+    gather_bias,
+    stage_geometry,
+    sw_attn_mask,
+    token_mean,
+    window_partition,
+    window_reverse,
+)
 from ..ops import INT8, INT16, int_layernorm, requant
-from ..ops.interp import div, f32
+from ..ops.interp import div
+from .convert import TrainedVariables, _np, scalar
 from .engine import _layernorm, _residual, int8_linear, mlp_half, qkv_heads
-from .swin_artifact import swin_artifact_to_torch
+from .swin_artifact import swin_artifact_to_torch, validate_swin_artifact
 
 KERNEL_NAMES = ("attention", "layernorm")
 DEFAULT_KERNELS = KERNEL_NAMES
+
+
+def window_bias(table: torch.Tensor, s_table: torch.Tensor, s_bias: torch.Tensor, ws: int) -> torch.Tensor:
+    """A block's relative-position bias as it is frozen, ``bias_req``: the
+    (T, H) table quantized at ``s_table``, ``tq = clip(round(table /
+    s_table))``, gathered to (H, N, N), and requantized into the merged
+    score scale, ``round(tq · f32(s_table/s_bias))``; integer-valued
+    float32 on the table's device (the scales there too)."""
+    bias_q = gather_bias(quantize(table, s_table, 8), ws)
+    return torch.round(bias_q * div(s_table, s_bias))
+
+
+def window_mask(res: int, ws: int, shift: int, s_bias: torch.Tensor) -> torch.Tensor | None:
+    """A block's shifted-window mask at the merged score scale,
+    ``mask_int = f32(mask/s_bias)``, (nW, N, N) on ``s_bias``'s device;
+    None for an unshifted block."""
+    mask = sw_attn_mask(res, res, ws, shift)
+    return None if mask is None else div(torch.from_numpy(mask).to(s_bias.device), s_bias)
+
+
+def freeze_swin(model: torch.nn.Module, variables: dict | None = None, device="cuda") -> dict:
+    """The artifact of the QAT ``SwinTransformer`` ``model`` on
+    ``variables`` (``{"params", "quant_stats"}`` keyed by torch name, as
+    ``models.model_utils.eval_variables`` gives them; the model's own
+    when None), computed on ``device`` (raises for a CUDA device on a
+    machine without one). It has ``freeze_swin``'s keys, dtypes, shapes
+    and geometry (``deploy.swin_artifact.validate_swin_artifact``).
+
+    Raises ``NotImplementedError`` for a model with an absolute position
+    embedding (``ape``): JAX's ``freeze_swin`` never reads it, so its
+    artifact would compute another function than the model."""
+    if model.ape:
+        raise NotImplementedError("freeze_swin: the artifact has no absolute position embedding (ape=True); "
+                                  "JAX's freeze_swin drops it, so the frozen model would differ")
+    v = TrainedVariables(model, variables, device)
+    act, linear, norm = v.act, v.linear, v.norm
+    cfg = dict(model.config)
+
+    a: dict = {"config": cfg}
+    s_input = act("qact_input", 8)
+    a["input_scale"] = scalar(s_input)
+    a["patch_embed"] = linear("patch_embed.proj", s_input)
+    a["s_before_norm"] = scalar(act("qact_before_norm", 8))
+    a["patch_norm"] = norm("patch_norm")
+    a["embed_scale"] = scalar(act("qact_embed", 16))
+    a["tokens_scale"] = scalar(act("qact1", 16))
+
+    stages = []
+    for i, depth in enumerate(cfg["depths"]):
+        blocks = []
+        for j in range(depth):
+            b = f"layers_{i}_blocks_{j}"
+            res, ws, shift = stage_geometry(cfg, i, j)
+            s_qact1, s_bias = act(f"{b}.qact1", 8), act(f"{b}.attn.qact2", 8)
+            s_attn_out, s_qact3 = act(f"{b}.attn.qact3", 8), act(f"{b}.qact3", 8)
+            s_gelu_out = act(f"{b}.mlp.qact1", 8)
+            bias_req = window_bias(v.params[f"{b}.attn.relative_position_bias_table"],
+                                      act(f"{b}.attn.qact_table", 8), s_bias, ws)
+            mask_int = window_mask(res, ws, shift, s_bias)
+            blocks.append({
+                "res": res, "ws": ws, "shift": shift, "heads": cfg["num_heads"][i],
+                "norm1": norm(f"{b}.norm1"),
+                "s_qact1": scalar(s_qact1),
+                "qkv": linear(f"{b}.attn.qkv", s_qact1),
+                "s_attn_qact1": scalar(act(f"{b}.attn.qact1", 8)),
+                "s_attn1": scalar(act(f"{b}.attn.qact_attn1", 8)),
+                "bias_req": _np(bias_req, np.float32),
+                "s_bias": scalar(s_bias),
+                "mask_int": None if mask_int is None else _np(mask_int, np.float32),
+                "s_attn_out": scalar(s_attn_out),
+                "proj": linear(f"{b}.attn.proj", s_attn_out),
+                "s_attn_proj": scalar(act(f"{b}.attn.qact4", 16)),
+                "s_res1": scalar(act(f"{b}.qact2", 16)),
+                "norm2": norm(f"{b}.norm2"),
+                "s_qact3": scalar(s_qact3),
+                "fc1": linear(f"{b}.mlp.fc1", s_qact3),
+                "s_gelu_in": scalar(act(f"{b}.mlp.qact_gelu", 8)),
+                "s_gelu_out": scalar(s_gelu_out),
+                "fc2": linear(f"{b}.mlp.fc2", s_gelu_out),
+                "s_mlp_out": scalar(act(f"{b}.mlp.qact2", 16)),
+                "s_res2": scalar(act(f"{b}.qact4", 16)),
+            })
+        stage = {"blocks": blocks}
+        if i < len(cfg["depths"]) - 1:
+            d = f"layers_{i}_downsample"
+            s_dq1 = act(f"{d}.qact1", 8)
+            stage["downsample"] = {
+                "res": stage_geometry(cfg, i, 0)[0], "dim": cfg["embed_dim"] * 2**i,
+                "norm": norm(f"{d}.norm"),
+                "s_qact1": scalar(s_dq1),
+                "reduction": linear(f"{d}.reduction", s_dq1),
+                "s_out": scalar(act(f"{d}.qact2", 8)),
+            }
+        stages.append(stage)
+    a["stages"] = stages
+
+    a["norm"] = norm("norm")
+    a["s_qact2"] = scalar(act("qact2", 8))
+    s_qact3 = act("qact3", 8)
+    a["s_qact3"] = scalar(s_qact3)
+    a["head"] = linear("head", s_qact3)
+    validate_swin_artifact(a)
+    return a
 
 
 def select_swin_kernels(cfg: dict, kernels=DEFAULT_KERNELS) -> frozenset:
@@ -136,19 +257,6 @@ def merge_gather(x: torch.Tensor, res: int) -> torch.Tensor:
     g = x.view(B, res, res, C)
     q = torch.cat([g[:, 0::2, 0::2], g[:, 1::2, 0::2], g[:, 0::2, 1::2], g[:, 1::2, 1::2]], -1)
     return q.reshape(B * L // 4, 4 * C)
-
-
-def token_mean(y: torch.Tensor, inv_tokens: torch.Tensor | None = None) -> torch.Tensor:
-    """The mean over tokens of integer (B, L, C) ``y`` as JAX's
-    ``jnp.mean`` computes it: the exact sum times float32(1/L). Neither a
-    correctly rounded quotient (``torch.mean`` on the CPU) nor ATen's CUDA
-    mean is that value. ``inv_tokens`` is that 1/L as a tensor on y's
-    device (the engine carries it); without it, it is divided here."""
-    L = y.shape[1]
-    total = y.to(torch.int32).sum(1, dtype=torch.int32).to(torch.float32)
-    if inv_tokens is None:
-        inv_tokens = div(f32(1.0, y.device), float(L))
-    return total * inv_tokens
 
 
 def swin_trunk(x: torch.Tensor, t: dict, kernels=DEFAULT_KERNELS, on_layer=None) -> torch.Tensor:

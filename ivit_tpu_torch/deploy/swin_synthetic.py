@@ -14,7 +14,9 @@ torch alone, so a machine without JAX can serve a Swin of real width:
   residual acts with their identities;
 * then the freeze of ``ivit_tpu/deploy/swin_engine.py:freeze_swin``:
   ``tq = clip(round(table/s_table))``, ``bias_req = round(tq[idx] ·
-  f32(s_table/s_bias))`` shaped (H, N, N), ``mask_int = f32(mask/s_bias)``.
+  f32(s_table/s_bias))`` shaped (H, N, N), ``mask_int = f32(mask/s_bias)``,
+  by the helpers ``freeze_swin`` calls (``deploy.swin_engine.window_bias``
+  and ``window_mask``).
 
 The result has exactly ``freeze_swin``'s keys, dtypes, shapes and
 geometry (``deploy.swin_artifact.validate_swin_artifact``).
@@ -28,12 +30,11 @@ import torch
 from ..core import quantize
 from ..kernels.window_attention_fused import window_attention_probabilities
 from ..models import create_config
-from ..models.swin import relative_position_index, stage_geometry, sw_attn_mask, window_partition, window_reverse
+from ..models.swin import gather_bias, stage_geometry, token_mean, window_partition, window_reverse
 from ..ops import requantize, shiftmax
-from ..ops.interp import div
 from .convert import freeze_linear
 from .swin_artifact import swin_artifact_to_torch, validate_swin_artifact
-from .swin_engine import patch_embed, swin_trunk, token_mean, window_attention_inputs
+from .swin_engine import patch_embed, swin_trunk, window_attention_inputs, window_bias, window_mask
 from .synthetic import (
     _CALIB_IMAGES,
     _act_scale,
@@ -74,15 +75,13 @@ def _window_attention_half(x, s_x, bp, blk, geometry, B):
     # the relative-position bias: qact_table, gathered, merged by qact2
     table = bp["table"]
     s_table = _act_scale(table, 8)
-    bias_q = quantize(table, s_table, 8)[torch.from_numpy(relative_position_index(ws).reshape(-1)).long()]
-    bias_q = bias_q.reshape(N, N, H).permute(2, 0, 1)
+    bias_q = gather_bias(quantize(table, s_table, 8), ws)
     sb = _qact(a8 * s_a1 + bias_q * s_table, 8, "s_bias", blk)
     merged = requantize(a8, s_a1, sb, 8, bias_q, s_table)
-    blk["bias_req"] = _np(torch.round(bias_q * div(s_table, sb)), np.float32)
-    mask = sw_attn_mask(res, res, ws, shift)
+    blk["bias_req"] = _np(window_bias(table, s_table, sb, ws), np.float32)
+    mask_int = window_mask(res, ws, shift, sb)
     blk["mask_int"] = None
-    if mask is not None:
-        mask_int = div(torch.from_numpy(mask), sb)
+    if mask_int is not None:
         blk["mask_int"] = _np(mask_int, np.float32)
         merged = (merged.reshape(Bw // nW, nW, H, N, N) + mask_int[None, :, None]).reshape(Bw, H, N, N)
     sm, s_sm = shiftmax(merged, sb, out_bits=8)

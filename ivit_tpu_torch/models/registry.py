@@ -3,8 +3,7 @@
 Counterpart of ``ivit_tpu/models/registry.py`` for the integer-only
 ViT/DeiT and Swin families (the float models come with their slice):
 ``create_config`` gives a model's artifact ``config`` dict,
-``create_model`` the QAT ``VisionTransformer`` of a ViT/DeiT name (Swin
-QAT is not ported yet).
+``create_model`` the QAT ``VisionTransformer`` or ``SwinTransformer``.
 """
 
 from __future__ import annotations
@@ -25,8 +24,8 @@ MODEL_REGISTRY = {
     "swin_base": swin.swin_base_patch4_window7_224,
 }
 
-# VisionTransformer arguments that are not part of the artifact config
-_TRAIN_ONLY = ("in_chans", "qkv_bias", "drop_rate", "attn_drop_rate", "drop_path_rate")
+# model arguments that are not part of the artifact config
+_TRAIN_ONLY = ("in_chans", "qkv_bias", "drop_rate", "attn_drop_rate", "drop_path_rate", "ape", "remat")
 
 
 def create_config(name: str, **kwargs) -> dict:
@@ -37,20 +36,20 @@ def create_config(name: str, **kwargs) -> dict:
     return MODEL_REGISTRY[name](**kwargs)
 
 
-def create_model(name: str, device="cuda", seed: int = 0, **kwargs) -> vit.VisionTransformer:
-    """The QAT model of registered ViT/DeiT ``name`` on ``device``, its
+def create_model(name: str, device="cuda", seed: int = 0, **kwargs) -> vit.VisionTransformer | swin.SwinTransformer:
+    """The QAT model of registered model ``name`` on ``device``, its
     parameters drawn on the CPU from ``seed`` (flax's initializers:
     truncated normals of std 0.02, zero biases, unit LayerNorm scales),
     so a model on the card and one on the CPU start equal. Keyword
-    arguments override config fields or set ``VisionTransformer``'s own
-    (the drop rates). Raises for a Swin name (Swin QAT is not
-    ported) and, for a CUDA device, on a machine without one."""
-    if name.startswith("swin"):
-        raise NotImplementedError(f"{name}: Swin QAT is not ported yet; the Swin engine serves frozen artifacts")
+    arguments override config fields or set the model's own (the drop
+    rates; for a Swin ``ape`` and ``remat``). The defaults are JAX's: a
+    Swin's drop-path rate is 0.1, a ViT's 0. Raises for a CUDA device on
+    a machine without one."""
     device = target_device(device)
     own = {k: kwargs.pop(k) for k in _TRAIN_ONLY if k in kwargs}
     cfg = create_config(name, **kwargs)
+    cls = swin.SwinTransformer if "depths" in cfg else vit.VisionTransformer
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = vit.VisionTransformer(**cfg, **own)
+        model = cls(**cfg, **own)
     return model.to(device)

@@ -1,11 +1,13 @@
 """Exact int8 × int8 → int32 GEMM through ``torch._int_mm``, at any shape.
 
-``torch._int_mm`` on CUDA refuses 16 rows or fewer, fewer than 800 rows
-when K < 128 (CUBLAS_STATUS_NOT_SUPPORTED; measured on the H100 with
-torch 2.11.0+cu128 over K 16-128, M 17-3136), and K or N that are not
-multiples of 8. ``int8_matmul`` pads with zero rows and columns, which
-change no integer, and cuts the product back. The deploy engine's
-GEMMs and the QAT layers' exact forward dots both go through it.
+``torch._int_mm`` on CUDA refuses 16 rows or fewer; below K = 128, at N
+of 32 or more, every row count that is not a multiple of 32
+(CUBLAS_STATUS_NOT_SUPPORTED); and K or N that are not multiples of 8
+(measured on the H100 with torch 2.11.0+cu128 by
+``scripts/torch_int_mm_domain.py``: K and N from 8 to 256, every M to
+2,048). ``int8_matmul`` pads with zero rows and columns, which change no
+integer, and cuts the product back. The deploy engine's GEMMs and the
+QAT layers' exact forward dots both go through it.
 """
 
 from __future__ import annotations
@@ -14,9 +16,10 @@ import torch
 import torch.nn.functional as F
 
 
-def int_mm_min_rows(k: int) -> int:
-    """The fewest rows ``torch._int_mm`` takes on CUDA at inner width k."""
-    return 17 if k >= 128 else 800
+def int_mm_rows(m: int, k: int) -> int:
+    """The rows to give ``torch._int_mm`` on CUDA for ``m`` rows at inner
+    width k: at least 17, and below k = 128 a multiple of 32."""
+    return max(m, 17) if k >= 128 else max(32, -(-m // 32) * 32)
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor, n: int | None = None) -> torch.Tensor:
@@ -29,7 +32,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, n: int | None = None) -> torch
     k8, n8 = -(-kw // 8) * 8, -(-nw // 8) * 8
     if (k8, n8) != (kw, nw):
         w = F.pad(w, (0, n8 - nw, 0, k8 - kw))
-    rows = max(M, int_mm_min_rows(k8)) if x.is_cuda else M
+    rows = int_mm_rows(M, k8) if x.is_cuda else M
     if rows > M or k8 > K:
         x = F.pad(x, (0, k8 - K, 0, rows - M))
     acc = torch._int_mm(x.contiguous(), w)

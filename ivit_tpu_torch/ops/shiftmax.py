@@ -1,7 +1,9 @@
 """Shiftmax: integer-only softmax.
 
-Counterpart of ``ivit_tpu/ops/shiftmax.py:shiftmax`` without the Swin
-mask (it comes with Swin QAT) and the TPU pass-boundary knobs (``q_max``,
+Counterpart of ``ivit_tpu/ops/shiftmax.py:shiftmax`` without its
+``mask`` argument (no JAX model passes one: the Swin model adds its mask
+to the scores itself, ``ivit_tpu/models/swin.py:141-151``) and the TPU
+pass-boundary knobs (``q_max``,
 ``split_normalize``, ``static_p``, ``packed_exp``, ``col_valid``):
 max-subtracted shift-exp, an exact row sum, normalization by
 ``⌊(2^31−1)/Σ⌋``, output at the fixed scale ``1/2^(bits−1)``.

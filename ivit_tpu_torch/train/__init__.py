@@ -1,9 +1,10 @@
-"""QAT training: state, steps, losses and the learning-rate schedule.
+"""QAT training: state, steps, losses, the learning-rate schedule, and
+mixup/cutmix.
 
-Counterpart of ``ivit_tpu/train/`` without ``augment.py`` (mixup and
-cutmix come with the data pipeline).
+Counterpart of ``ivit_tpu/train/``.
 """
 
+from .augment import MixupConfig, mixup_cutmix
 from .losses import cross_entropy, distillation_loss, soft_target_cross_entropy, topk_accuracy
 from .schedule import cosine_schedule
 from .state import AdamW, TrainState, create_train_state
@@ -11,6 +12,7 @@ from .steps import make_eval_step, make_train_step
 
 __all__ = [
     "AdamW",
+    "MixupConfig",
     "TrainState",
     "cosine_schedule",
     "create_train_state",
@@ -18,6 +20,7 @@ __all__ = [
     "distillation_loss",
     "make_eval_step",
     "make_train_step",
+    "mixup_cutmix",
     "soft_target_cross_entropy",
     "topk_accuracy",
 ]

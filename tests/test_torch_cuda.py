@@ -770,3 +770,113 @@ def test_qat_freeze_serves_route_a_on_card(dev):
     assert {k: w.launches for k, w in WRAPPERS.items() if w.launches} == {"K2": depth, "K4": depth, "K3": 2 * depth + 1}
     torch.testing.assert_close(logits.cpu(), build_vit_infer(art_cpu, "cpu", kernels=())(images), rtol=0, atol=0)
 
+
+
+# the Swin QAT trainer on the card: full Swin-T for one step, config (b) of
+# tests/test_torch_qat_swin.py (window 7 over a 14 x 14 grid, L = 49) for
+# training, freezing and serving
+QAT_SWIN_TINY = dict(img_size=28, patch_size=2, num_classes=8, embed_dim=16, depths=(2, 2), num_heads=(2, 4),
+                     window_size=7)
+
+
+def test_qat_swin_step_on_card_matches_cpu(dev):
+    """One train-mode step of Swin-T at full width and depth, batch 2,
+    drop-path 0, smoothed one-hot targets: logits, loss and every range
+    bit-equal to the CPU; every parameter gradient within QAT_GRAD_RTOL
+    of its leaf's largest entry; every bias table's gradient nonzero."""
+    from ivit_tpu_torch.train.augment import one_hot_smooth
+
+    card = create_model("swin_tiny", device=dev, drop_path_rate=0.0)
+    cpu = create_model("swin_tiny", device="cpu", drop_path_rate=0.0)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((2, 224, 224, 3)).astype(np.float32))
+    t = one_hot_smooth(torch.from_numpy(rng.integers(0, 1000, 2)), 1000, 0.1)
+    lc, lh = card(x.to(dev), train=True), cpu(x, train=True)
+    torch.testing.assert_close(lc.detach().cpu(), lh.detach(), rtol=0, atol=0)
+    for (name, a), (_, b) in zip(card.named_buffers(), cpu.named_buffers()):
+        assert torch.equal(a.cpu(), b), name
+    loss_c, loss_h = soft_target_cross_entropy(lc, t.to(dev)), soft_target_cross_entropy(lh, t)
+    assert loss_c.item() == loss_h.item()
+    gc = torch.autograd.grad(loss_c, list(card.parameters()), materialize_grads=True)
+    gh = torch.autograd.grad(loss_h, list(cpu.parameters()), materialize_grads=True)
+    for (name, _), a, b in zip(cpu.named_parameters(), gc, gh):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=QAT_GRAD_RTOL * float(b.abs().max()), msg=name)
+        if name.endswith("relative_position_bias_table"):
+            assert a.abs().max() > 0, name
+
+
+@pytest.mark.parametrize("use_cutmix", [False, True], ids=["mixup", "cutmix"])
+def test_mixup_cutmix_on_card_matches_cpu(dev, use_cutmix):
+    """The mixup/cutmix arithmetic on the card and on the CPU from the same
+    draws: images and soft targets bit-equal, on each branch."""
+    from ivit_tpu_torch.train import MixupConfig
+    from ivit_tpu_torch.train.augment import apply_mixup, draw_mixup
+
+    cfg = MixupConfig()
+    rng = np.random.default_rng(9)
+    images = torch.from_numpy(rng.standard_normal((16, 224, 224, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 1000, 16))
+    draws = draw_mixup(cfg, 224, 224, rng)._replace(use_cutmix=use_cutmix)
+    (ic, tc), (ih, th) = apply_mixup(images.to(dev), labels.to(dev), cfg, draws), apply_mixup(images, labels, cfg, draws)
+    torch.testing.assert_close(ic.cpu(), ih, rtol=0, atol=0)
+    torch.testing.assert_close(tc.cpu(), th, rtol=0, atol=0)
+
+
+def test_qat_swin_freeze_serves_on_card(dev):
+    """A Swin trained on the card with mixup/cutmix targets, frozen there:
+    the artifact equals the one frozen from the same variables on the
+    CPU, and the default kernels (one K7 a block; two K3 a block, one a
+    patch merging and the final norm) serve it bit-equal to the plain
+    engine on the CPU."""
+    from ivit_tpu_torch.deploy.swin_engine import freeze_swin
+    from ivit_tpu_torch.models.model_utils import eval_variables
+    from ivit_tpu_torch.train import MixupConfig, mixup_cutmix
+
+    m = create_model("swin_tiny", device=dev, **QAT_SWIN_TINY)
+    state = create_train_state(m, AdamW(1e-3), ema_decay=0.9, device=dev)
+    step = make_train_step(m, ema_decay=0.9)
+    rng = np.random.default_rng(10)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        x = torch.from_numpy(rng.standard_normal((4, 28, 28, 3)).astype(np.float32))
+        y = torch.from_numpy(rng.integers(0, 8, 4))
+        step(state, *mixup_cutmix(x, y, MixupConfig(num_classes=8), rng, device=dev), gen)
+    art = freeze_swin(m, eval_variables(state), device=dev)
+    art_cpu = freeze_swin(m, eval_variables(state), device="cpu")
+
+    def walk(a, b, path):
+        if isinstance(b, dict):
+            for k in b:
+                walk(a[k], b[k], f"{path}.{k}")
+        elif isinstance(b, list):
+            for i, (u, v) in enumerate(zip(a, b)):
+                walk(u, v, f"{path}[{i}]")
+        elif b is not None:
+            np.testing.assert_array_equal(a, b, err_msg=path)
+
+    walk(art, art_cpu, "")
+    images = torch.from_numpy(np.random.default_rng(11).standard_normal((40, 28, 28, 3)).astype(np.float32))
+    infer = build_swin_infer(art, dev)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    logits = infer(images.to(dev))
+    torch.cuda.synchronize()
+    blocks, stages = sum(QAT_SWIN_TINY["depths"]), len(QAT_SWIN_TINY["depths"])
+    assert {k: w.launches for k, w in WRAPPERS.items() if w.launches} == {"K7": blocks, "K3": 2 * blocks + stages}
+    torch.testing.assert_close(logits.cpu(), build_swin_infer(art_cpu, "cpu", kernels=())(images), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("M,K,N", [(1960, 64, 32), (799, 120, 256), (17, 8, 32), (24, 16, 8), (17, 128, 40),
+                                   (1000, 96, 288)])
+def test_int8_matmul_pads_rows_int_mm_refuses(dev, M, K, N):
+    """``ops.intmm.int8_matmul`` exact at row counts that ``torch._int_mm``
+    refuses on the card (below K = 128 every M that is not a multiple of
+    32, at N of 32 or more; 16 rows or fewer at any K), and at shapes it
+    takes as they are."""
+    from ivit_tpu_torch.ops.intmm import int8_matmul
+
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8))
+    exact = (x.to(torch.int64) @ w.to(torch.int64)).to(torch.int32)
+    torch.testing.assert_close(int8_matmul(x.to(dev), w.to(dev)).cpu(), exact, rtol=0, atol=0)

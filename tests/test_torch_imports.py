@@ -37,8 +37,24 @@ def test_package_has_modules():
               "deploy/ingest_torch.py", "convert_model.py", "evaluate_latency.py", "bench.py",
               "core/ste.py", "core/qtensor.py", "core/scalars.py", "core/device.py", "ops/intmm.py", "nn/quant.py",
               "nn/vit_blocks.py", "nn/flax_state.py", "models/vit.py", "models/model_utils.py",
-              "deploy/convert.py", "train/losses.py", "train/schedule.py", "train/state.py", "train/steps.py"):
+              "deploy/convert.py", "train/losses.py", "train/schedule.py", "train/state.py", "train/steps.py",
+              "train/augment.py"):
         assert f in files
+
+
+def test_models_import_no_deploy_module():
+    """The model layer sits below the deploy layer: ``models/`` imports
+    nothing from ``deploy/`` (the Swin pool, ``token_mean``, lives in
+    ``models/swin.py`` and the engine imports it from there)."""
+    for f in sorted(_py_files()):
+        if not f.startswith("models/"):
+            continue
+        tree = ast.parse(open(os.path.join(_PKG, f)).read(), filename=f)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                module = node.module or ""
+                assert not (node.level >= 2 and module.startswith("deploy")), f"{f} imports ..{module}"
+                assert not module.startswith("ivit_tpu_torch.deploy"), f"{f} imports {module}"
 
 
 @pytest.mark.parametrize("relpath", sorted(_py_files()))
@@ -50,7 +66,7 @@ def test_no_jax_imports(relpath):
 _REPO = os.path.dirname(_PKG)
 
 
-@pytest.mark.parametrize("relpath", ["chip_smoke.py", "scripts/torch_engine_turns.py"])
+@pytest.mark.parametrize("relpath", ["chip_smoke.py", "scripts/torch_engine_turns.py", "scripts/torch_int_mm_domain.py"])
 def test_card_scripts_import_no_jax(relpath):
     """The scripts that run on the card's machine import no JAX either."""
     roots = set(_imported_roots(os.path.join(_REPO, relpath)))

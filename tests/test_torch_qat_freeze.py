@@ -104,8 +104,8 @@ def test_flax_variables_round_trip():
 
 def test_scale_report_and_entry_points():
     """Every QuantAct's range and scale, in flax's module paths; the
-    entry points default to the card and raise without one; Swin QAT is
-    not ported."""
+    entry points default to the card and raise without one; a Swin name
+    builds the QAT Swin."""
     _, v, tm = _trained(steps=1)
     report = scale_report(model_variables(tm))
     assert len(report) == 5 + 11 * TINY["depth"] and "blocks_1/attn/qact_attn1" in report
@@ -118,5 +118,5 @@ def test_scale_report_and_entry_points():
             freeze_vit(tm)
         with pytest.raises(RuntimeError):
             create_train_state(tm, AdamW(1e-3))
-    with pytest.raises(NotImplementedError):
-        create_model("swin_tiny", device="cpu")
+    swin = create_model("swin_tiny", device="cpu")
+    assert type(swin).__name__ == "SwinTransformer" and swin.config["depths"] == (2, 2, 6, 2)
