@@ -6,8 +6,10 @@ full width and depth of DeiT-S and through
 ``deploy.swin_engine.build_swin_infer`` at the full width and depth of
 Swin-T, on seeded synthetic artifacts, and checks every hand-written
 kernel on them; then trains DeiT-S through the QAT trainer for a few
-steps and serves the frozen result by route A (phase 7), and trains
-Swin-T with mixup/cutmix and serves it by K7 + K3 (phase 8):
+steps and serves the frozen result by route A (phase 7), trains Swin-T
+with mixup/cutmix and serves it by K7 + K3 (phase 8), and runs the
+trainer's entry points (``quant_train``, ``convert_model --checkpoint``,
+``evaluate_accuracy``) end to end on both models (phase 9):
 
 * the main path: softmax_bits=8, stable ShiftGELU, K1 attention + K3
   LayerNorm (the default kernels);
@@ -137,7 +139,33 @@ Phases:
    pre-rounds the bias where SIM merges it), argmax equal on every row
    whose top two SIM logits lie more than 8 head scales apart; and K7
    against its plain version (tolerance 0) on the trained model's first
-   shifted block's own inputs.
+   shifted block's own inputs;
+9. the trainer's entry points as a user runs them, on the synthetic set
+   at 224 with the Pillow-free flags (``--aa none --color-jitter 0``):
+   ``ops.intmm.int8_matmul`` exact at every GEMM width of the registry's
+   models at the CLIs' row counts; whether Pillow imports; the train
+   loader's images/s on this host; ``quant_train`` at DeiT-S (batch 64,
+   4 steps an epoch, sm16 with the row-max GELU and mixup/cutmix, the
+   CLI's defaults), in process: a two-epoch run killed before the first
+   step of epoch 1 (it wrote ``checkpoint.pkl`` and ``best.pkl``) and
+   resumed, and two uninterrupted two-epoch runs, the resumed run's
+   epoch-1 losses and parameters no further from the first uninterrupted
+   run than the two uninterrupted runs are from each other (both gaps
+   printed); the CLI's ms per step beside phase 7's library step, and the
+   device's idle share over two profiled CLI steps; ``--eval --resume
+   --dump-logits``, ``convert_model --checkpoint`` (every flag from the
+   record) and ``evaluate_accuracy --batch-size 128 --dump-logits`` on
+   the captured K1 + K3 engine (launches a forward 12 K1 + 25 K3), the
+   engine's logits against the SIM dump (the same labels in the same
+   order, within CLI_HEAD_SCALES head output scales, argmax equal on rows
+   whose top two SIM logits lie more than CLI_CLEAR_SCALES head scales
+   apart), K1 and K3 against their plain versions on the trained
+   artifact's block-0 inputs and the kernel engine's logits equal to the
+   plain engine's; then Swin-T (batch 32, 2 steps, trained through
+   ``python -m ivit_tpu_torch.quant_train``), its SIM dump, conversion and
+   ``python -m ivit_tpu_torch.evaluate_accuracy --max-batches 1`` on K7 +
+   K3 (12 K7 + 28 K3 a forward), with the same checks and K7 and K3 on
+   the trained artifact's stage-1 inputs.
 
 Any failed check raises and exits nonzero before the result lines. The
 second-to-last line is the kernels' JSON record, the last line
@@ -185,6 +213,18 @@ TRAIN_DROP_PATH = 0.1
 TRAIN_SMOOTHING = 0.1
 TRAIN_EMA = 0.99996
 QAT_GRAD_RTOL = 1e-5  # of each leaf's largest entry (tests/test_torch_qat_model.py)
+# phase 9, the trainer's entry points: the synthetic set at 224 with the
+# Pillow-free flags, one log line a step; --best-acc1 -1 makes the first
+# validation a new best, so the run writes best.pkl
+CLI_SIZE = 224
+CLI_EVAL = ["--data-set", "SYNTHETIC", "--input-size", str(CLI_SIZE), "--nb-classes", "1000"]
+CLI_TRAIN = [*CLI_EVAL, "--aa", "none", "--color-jitter", "0", "--best-acc1", "-1", "--print-freq", "1"]
+CLI_TRAIN_BATCH = 64
+CLI_DEIT_STEPS = 4
+CLI_DEIT = ["--model", "deit_small", "--batch-size", str(CLI_TRAIN_BATCH), "--max-steps-per-epoch", str(CLI_DEIT_STEPS)]
+CLI_SWIN = ["--model", "swin_tiny", "--batch-size", "32", "--max-steps-per-epoch", "2"]
+CLI_HEAD_SCALES = 4   # the engine against SIM, in head output scales (phases 7-8)
+CLI_CLEAR_SCALES = 8  # rows whose top two SIM logits lie further apart must agree in argmax
 
 # Published H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/ms and
 # int8 tensor-core ops/ms. 67 TFLOP/s in float32 counts an FMA as two
@@ -434,9 +474,10 @@ def profile_step(label: str, fn, step_ms: float) -> None:
         print(f"  {ms} ms ({ms / busy:.4f}) {calls} calls: {key[:150]}")
 
 
-def trainer_phase(dev) -> None:
+def trainer_phase(dev) -> float:
     """Phase 7: the QAT trainer on the card at DeiT-S, then its frozen
-    model served by route A (module docstring)."""
+    model served by route A (module docstring). Returns the library's
+    ms per train step."""
     import numpy as np
     import torch
 
@@ -532,6 +573,7 @@ def trainer_phase(dev) -> None:
     check(counts == {"K2": depth, "K4": depth, "K3": 2 * depth + 1}, f"trainer serve: launches {counts}")
     check(torch.equal(logits[:2].cpu(), cpu2), "trainer serve: route A differs from the CPU plain engine")
     check(e_sim <= 3 * head and argmax_equal, "trainer serve: route A is off the SIM eval forward")
+    return step_ms
 
 
 def swin_trainer_phase(dev) -> None:
@@ -675,6 +717,336 @@ def swin_trainer_phase(dev) -> None:
     print(f"swin trainer: K7 on the trained model's stage 1 block 1 inputs {tuple(captured['qkv'][0].shape)} masked, "
           f"s_bias {a['scale']}: max_abs_err {e_k7} against its plain version (tolerance 0)")
     check(shifted["shift"] > 0 and a["mask"] is not None and e_k7 == 0, "swin trainer: K7 differs on the trained model")
+
+
+class RunKilled(Exception):
+    """Raised in place of a CLI's train step: the run dies there."""
+
+
+def probe_cli_steps(profile: tuple | None = None, kill_at: int | None = None):
+    """Wrap ``ivit_tpu_torch.train.make_train_step``, which ``quant_train``
+    looks up when it starts, for the in-process CLI runs: the wrapper
+    records the host time at the start of each step; with ``profile`` =
+    (first, stop) it runs the CLI's steps first .. stop-1 under
+    torch.profiler (from a synchronize before step ``first`` to one
+    before step ``stop``: the steps and the CLI's host work between
+    them); with ``kill_at`` it raises ``RunKilled`` in place of that
+    step. Returns the record and a function that undoes the wrap."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    import ivit_tpu_torch.train as train_pkg
+
+    real = train_pkg.make_train_step
+    record: dict = {"starts": []}
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def timed(*step_args):
+            i = len(record["starts"])
+            if profile and i == profile[1] and "prof" in record:
+                torch.cuda.synchronize()
+                prof = record.pop("prof")
+                prof.stop()
+                record["wall_ms"] = (time.perf_counter() - record.pop("t0")) * 1e3
+                kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+                record["busy_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
+                record["kernels"] = sum(e.count for e in kernels)
+            if profile and i == profile[0]:
+                torch.cuda.synchronize()
+                record["prof"] = torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                record["prof"].start()
+                record["t0"] = time.perf_counter()
+            if i == kill_at:
+                raise RunKilled(f"killed before step {i}")
+            record["starts"].append(time.perf_counter())
+            return step(*step_args)
+
+        return timed
+
+    train_pkg.make_train_step = make
+    return record, lambda: setattr(train_pkg, "make_train_step", real)
+
+
+def epoch_losses(log_path: str, epoch: int) -> list:
+    """The losses of ``epoch``'s steps, from the last such line of a
+    quant_train log."""
+    with open(log_path) as f:
+        found = re.findall(rf"epoch {epoch} losses (\[.*\])", f.read())
+    check(bool(found), f"{log_path}: no losses logged for epoch {epoch}")
+    return ast.literal_eval(found[-1])
+
+
+def engine_vs_sim(label: str, sim_path: str, eng_path: str, art: dict) -> None:
+    """``tests/test_dump_logits.py``'s checks of the engine's dumped
+    logits against the SIM model's: the same labels in the same order,
+    the logits within CLI_HEAD_SCALES head output scales, the argmax
+    equal on every row whose top two SIM logits lie more than
+    CLI_CLEAR_SCALES head scales apart."""
+    import numpy as np
+
+    sim, eng = np.load(sim_path), np.load(eng_path)
+    n = len(eng["labels"])
+    check(len(sim["labels"]) >= n and np.array_equal(sim["labels"][:n], eng["labels"]),
+          f"{label}: the dumps' labels differ")
+    s, e = sim["logits"][:n], eng["logits"]
+    head = float(np.max(art["head"]["out_scale"]))
+    err = float(np.abs(e - s).max())
+    top2 = np.sort(s, -1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > CLI_CLEAR_SCALES * head
+    agree = s.argmax(-1) == e.argmax(-1)
+    print(f"{label}: engine vs SIM over {n} images, labels equal; logits max_abs_err {err} (bound "
+          f"{CLI_HEAD_SCALES} x head out_scale {CLI_HEAD_SCALES * head}); argmax equal on {int(agree.sum())} of {n} "
+          f"rows, on {int(agree[clear].sum())} of the {int(clear.sum())} whose top two SIM logits lie more than "
+          f"{CLI_CLEAR_SCALES} head scales apart")
+    check(err <= CLI_HEAD_SCALES * head, f"{label}: the engine is off the SIM logits")
+    check(bool(agree[clear].all()), f"{label}: argmax differs on a row with a clear SIM top logit")
+
+
+def zoo_int8_matmul(dev) -> None:
+    """``ops.intmm.int8_matmul`` at every GEMM of the registry's models, at
+    the row counts the CLIs give it, against the exact product (the full
+    sweep, every M to 2,048 as well, is scripts/torch_int_mm_domain.py)."""
+    import importlib.util
+
+    import torch
+
+    from ivit_tpu_torch.ops.intmm import int8_matmul
+
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location("torch_int_mm_domain",
+                                                  os.path.join(REPO, "scripts", "torch_int_mm_domain.py"))
+    domain = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(domain)
+    zoo = domain.zoo_gemms()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shapes, bad = 0, []
+    for (K, N), tokens in sorted(zoo.items()):
+        w = torch.randint(-128, 128, (K, N), generator=gen, dtype=torch.int8, device=dev)
+        rows = sorted({b * t for b in domain.CLI_BATCHES for t in tokens})
+        x_all = torch.randint(-128, 128, (rows[-1], K), generator=gen, dtype=torch.int8, device=dev)
+        exact_all = (x_all.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
+        for M in rows:
+            shapes += 1
+            if not torch.equal(int8_matmul(x_all[:M], w), exact_all[:M]):
+                bad.append((M, K, N))
+        del x_all, exact_all
+    print(f"int8_matmul at the zoo's {len(zoo)} GEMM widths x the CLIs' row counts at batches "
+          f"{domain.CLI_BATCHES}: {shapes} shapes, not exact at {bad} (tolerance 0), in "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(not bad, f"int8_matmul is not exact at {bad}")
+
+
+def cli_phase(dev, library_step_ms: float) -> None:
+    """Phase 9: the trainer's entry points on the card (module docstring)."""
+    import gc
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from ivit_tpu_torch import convert_model, evaluate_accuracy, quant_train
+    from ivit_tpu_torch.data import DataLoader, SyntheticDataset
+    from ivit_tpu_torch.data.transforms import EvalTransform, TrainTransform
+    from ivit_tpu_torch.deploy.engine import attention_inputs, build_vit_infer, embed
+    from ivit_tpu_torch.deploy.graphs import WARMUP
+    from ivit_tpu_torch.deploy.swin_engine import build_swin_infer, patch_embed, swin_trunk, window_attention_inputs
+    from ivit_tpu_torch.kernels import (
+        WRAPPERS,
+        fused_int8_attention,
+        fused_int8_attention_reference,
+        fused_int8_window_attention,
+        fused_int8_window_attention_reference,
+        fused_layernorm_requant,
+        fused_layernorm_requant_reference,
+    )
+    from ivit_tpu_torch.nn.flax_state import flatten
+    from ivit_tpu_torch.utils import load_artifact, load_checkpoint_raw
+
+    t_phase = time.perf_counter()
+    device_args = ["--device", str(dev)]
+
+    zoo_int8_matmul(dev)
+
+    # 9.0 Pillow on this machine, and the loader's rate on its host (the
+    # Pillow-free train transform: numpy bicubic crop, flip, normalize,
+    # erasing) with 8 threads and with 8 processes
+    print(f"Pillow importable here: {importlib.util.find_spec('PIL') is not None} (the CLI runs below use "
+          "--aa none --color-jitter 0, which import none)")
+    for procs in (False, True):
+        loader = DataLoader(SyntheticDataset(512, CLI_SIZE), CLI_TRAIN_BATCH,
+                            TrainTransform(CLI_SIZE, color_jitter_strength=0.0, use_rand_augment=False),
+                            num_workers=8, use_processes=procs)
+        it = iter(loader)
+        next(it)  # the pool's start
+        t0 = time.perf_counter()
+        n_img = sum(len(next(it)[1]) for _ in range(4))
+        load_s = time.perf_counter() - t0
+        del it
+        print(f"loader: {n_img / load_s} images/s at {CLI_SIZE} (4 batches of {CLI_TRAIN_BATCH}, 8 "
+              f"{'spawned processes (--loader-procs)' if procs else 'threads (the default)'}, host clock, "
+              f"{os.cpu_count()} host cores)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def d(*parts):
+            return os.path.join(tmp, *parts)
+
+        def train(name: str, *extra, profile=None, kill_at=None) -> dict:
+            t1 = time.perf_counter()
+            record, undo = probe_cli_steps(profile, kill_at)
+            try:
+                quant_train.main([*CLI_TRAIN, *CLI_DEIT, *device_args, *extra, "--output-dir", d(name)])
+            except RunKilled:
+                check(kill_at is not None, f"quant_train {name}: killed unasked")
+            finally:
+                undo()
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"cli quant_train {name} {' '.join(extra)}: {time.perf_counter() - t1:.3f} s")
+            return record
+
+        # 9.1 DeiT-S, full width and depth, at 224: a two-epoch run killed
+        # before the first step of epoch 1 (after epoch 0's checkpoints),
+        # then --resume; two uninterrupted two-epoch runs. (The cosine
+        # schedule spans --epochs, so an --epochs 1 run would take other
+        # learning rates in epoch 0 from its third step on.)
+        first = train("split", "--epochs", "2", kill_at=CLI_DEIT_STEPS)
+        check(os.path.exists(d("split", "checkpoint.pkl")) and os.path.exists(d("split", "best.pkl")),
+              "quant_train wrote no checkpoint.pkl or best.pkl")
+        starts = first["starts"]
+        cli_ms = (starts[3] - starts[1]) / 2 * 1e3
+        print(f"cli train step: {cli_ms} ms/step, steps 1-2 of epoch 0 (host clock from a step's start to the "
+              f"next's: the loader's wait, mixup, the step and reading its loss); the library's step in phase 7 "
+              f"{library_step_ms} ms (CUDA events, batch {TRAIN_BATCH}); ratio {cli_ms / library_step_ms}")
+        train("split", "--epochs", "2", "--resume", d("split", "checkpoint.pkl"))
+        train("whole1", "--epochs", "2")
+        prof = train("whole2", "--epochs", "2", profile=(1, 3))
+        print(f"cli train steps 1-2 profiled: kernel time {prof['busy_ms']} ms in {prof['wall_ms']} ms wall, idle "
+              f"share {1 - prof['busy_ms'] / prof['wall_ms']}; {prof['kernels']} kernels")
+        losses = {name: epoch_losses(d(name, "log.log"), 1) for name in ("split", "whole1", "whole2")}
+        params = {name: flatten(load_checkpoint_raw(d(name, "checkpoint.pkl"))[0]["params"])
+                  for name in ("split", "whole1", "whole2")}
+
+        def gaps(a: str, b: str) -> tuple:
+            return (max(abs(x - y) for x, y in zip(losses[a], losses[b])),
+                    max(float(np.abs(params[a][k] - params[b][k]).max()) for k in params[b]))
+
+        resume_gap, runs_gap = gaps("split", "whole1"), gaps("whole1", "whole2")
+        print(f"cli resume: epoch-1 losses resumed {losses['split']}, uninterrupted {losses['whole1']} and "
+              f"{losses['whole2']}; resumed vs uninterrupted: loss {resume_gap[0]}, parameters {resume_gap[1]}; "
+              f"two uninterrupted runs: loss {runs_gap[0]}, parameters {runs_gap[1]} (largest absolute gaps)")
+        check(len(losses["split"]) == len(losses["whole1"]) == CLI_DEIT_STEPS, f"cli resume: steps {losses}")
+        check(resume_gap[0] <= runs_gap[0] and resume_gap[1] <= runs_gap[1],
+              "cli resume: the resumed run differs from the uninterrupted one more than two uninterrupted runs do")
+        del params
+
+        # 9.2 - 9.5 the SIM logits, the conversion, the engine's accuracy
+        t1 = time.perf_counter()
+        ckpt = d("whole1", "checkpoint.pkl")
+        quant_train.main([*CLI_TRAIN, *CLI_DEIT, *device_args, "--eval", "--resume", ckpt, "--dump-logits",
+                          d("sim.npz"), "--output-dir", d("eval")])
+        convert_model.main(["--checkpoint", ckpt, "--output", d("deit.pkl"), *device_args])
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"cli quant_train --eval --dump-logits and convert_model --checkpoint: {time.perf_counter() - t1:.3f} s")
+        t1 = time.perf_counter()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        top1, top5, seen = evaluate_accuracy.main(["--model", CLI_DEIT[1], "--artifact", d("deit.pkl"), *CLI_EVAL,
+                                                   "--batch-size", str(BATCH), "--dump-logits", d("eng.npz"),
+                                                   *device_args])
+        counts = {k: w.launches for k, w in WRAPPERS.items() if w.launches}
+        art = load_artifact(d("deit.pkl"))
+        depth = art["config"]["depth"]
+        per_forward = {"K1": depth, "K3": 2 * depth + 1}
+        print(f"cli evaluate_accuracy {CLI_DEIT[1]}: top1 {100 * top1 / seen} top5 {100 * top5 / seen} over {seen}; "
+              f"launches {counts} through {WARMUP} warm-up forwards and the capture, {per_forward} a forward "
+              f"expected; {time.perf_counter() - t1:.3f} s")
+        check(counts == {k: (WARMUP + 1) * n for k, n in per_forward.items()}, f"cli evaluate_accuracy: launches {counts}")
+        engine_vs_sim(f"cli {CLI_DEIT[1]}", d("sim.npz"), d("eng.npz"), art)
+
+        # K1 and K3 against their plain versions on the trained artifact's
+        # own inputs (block 0), and the engine against its plain ops
+        images = torch.from_numpy(np.stack([EvalTransform(CLI_SIZE)(SyntheticDataset(BATCH, CLI_SIZE).load(i)[0])
+                                            for i in range(BATCH)])).to(dev)
+        infer = build_vit_infer(art, dev)
+        t, cfg = infer.tensors, art["config"]
+        blk = t["blocks"][0]
+        with torch.inference_mode():
+            x = embed(images, t)
+            norm_args = (x.reshape(-1, cfg["embed_dim"]), blk["norm1"]["bias_int"], blk["norm1"]["ratio"])
+            e_k3 = max_abs_err(fused_layernorm_requant(*norm_args), fused_layernorm_requant_reference(*norm_args))
+            q, k, v = attention_inputs(x, blk, cfg["num_heads"])
+            a = blk["attn"]
+            attn_args = (q, k, v, a["r1"], a["scale"], a["r_out"], int(cfg["softmax_bits"]))
+            e_k1 = max_abs_err(fused_int8_attention(*attn_args), fused_int8_attention_reference(*attn_args))
+            same = torch.equal(infer(images), build_vit_infer(art, dev, kernels=())(images))
+        torch.cuda.synchronize()
+        print(f"cli {CLI_DEIT[1]} artifact: K3 on block 0's norm1 input {tuple(norm_args[0].shape)} max_abs_err {e_k3}, "
+              f"K1 on block 0's q, k, v {tuple(q.shape)} at softmax_bits {cfg['softmax_bits']} max_abs_err {e_k1} "
+              f"(tolerance 0); logits of {sorted(infer.kernels)} equal to the plain engine's {same}")
+        check(e_k3 == 0 and e_k1 == 0 and same, f"cli {CLI_DEIT[1]}: a kernel differs from its plain version")
+        del infer, x, q, k, v
+
+        # 9.6 Swin-T: train through python -m, the SIM logits, convert,
+        # evaluate one batch on K7 + K3
+        t1 = time.perf_counter()
+        swin_train = [*CLI_TRAIN, *CLI_SWIN, *device_args]
+        run_cli(["ivit_tpu_torch.quant_train", *swin_train, "--epochs", "1", "--output-dir", d("swin")], 900)
+        sckpt = d("swin", "checkpoint.pkl")
+        quant_train.main([*swin_train, "--eval", "--resume", sckpt, "--dump-logits", d("swin_sim.npz"),
+                          "--output-dir", d("swin_eval")])
+        convert_model.main(["--checkpoint", sckpt, "--output", d("swin.pkl"), *device_args])
+        gc.collect()
+        torch.cuda.empty_cache()
+        lines = run_cli(["ivit_tpu_torch.evaluate_accuracy", "--model", CLI_SWIN[1], "--artifact", d("swin.pkl"),
+                         *CLI_EVAL, "--batch-size", str(BATCH), "--max-batches", "1",
+                         "--dump-logits", d("swin_eng.npz"), *device_args], 600)
+        sart = load_artifact(d("swin.pkl"))
+        blocks = sum(sart["config"]["depths"])
+        captured = re.search(r"launches a forward (\{.*\})", "\n".join(lines))
+        check(captured is not None and ast.literal_eval(captured.group(1)) == {
+            "K7": blocks, "K3": 2 * blocks + len(sart["config"]["depths"])},
+            f"cli evaluate_accuracy {CLI_SWIN[1]}: launches a forward {captured and captured.group(1)}")
+        print(f"cli {CLI_SWIN[1]}: train, --eval --dump-logits, convert and evaluate_accuracy in "
+              f"{time.perf_counter() - t1:.3f} s")
+        engine_vs_sim(f"cli {CLI_SWIN[1]}", d("swin_sim.npz"), d("swin_eng.npz"), sart)
+
+        # K7 and K3 against their plain versions on the trained Swin's own
+        # inputs (stage 1: block 0's norm1 input, block 1's shifted and
+        # masked windows), and the engine against its plain ops
+        sinfer = build_swin_infer(sart, dev)
+        st = sinfer.tensors
+        stage = st["stages"][0]
+        seen_inputs = {}
+
+        def visit(layer, x) -> None:
+            if layer is stage["blocks"][0]:
+                seen_inputs["norm"] = x.reshape(-1, x.shape[-1])
+            if layer is stage["blocks"][1]:
+                seen_inputs["qkv"] = window_attention_inputs(x, layer, kernels=())
+
+        with torch.inference_mode():
+            swin_trunk(patch_embed(images, st), st, (), on_layer=visit)
+            b0, b1 = stage["blocks"]
+            norm_args = (seen_inputs["norm"], b0["norm1"]["bias_int"], b0["norm1"]["ratio"])
+            e_k3 = max_abs_err(fused_layernorm_requant(*norm_args), fused_layernorm_requant_reference(*norm_args))
+            a = b1["attn"]
+            win_args = (*seen_inputs["qkv"], a["bias"], a["mask"], a["r1"], a["rb"], a["scale"], a["r_out"],
+                        b1["heads"])
+            e_k7 = max_abs_err(fused_int8_window_attention(*win_args), fused_int8_window_attention_reference(*win_args))
+            same = torch.equal(sinfer(images), build_swin_infer(sart, dev, kernels=())(images))
+        torch.cuda.synchronize()
+        print(f"cli {CLI_SWIN[1]} artifact: K3 on stage 1 block 0's norm1 input {tuple(norm_args[0].shape)} max_abs_err "
+              f"{e_k3}, K7 on stage 1 block 1's shifted windows {tuple(seen_inputs['qkv'][0].shape)} max_abs_err "
+              f"{e_k7} (tolerance 0); logits of {sorted(sinfer.kernels)} equal to the plain engine's {same}")
+        check(b1["shift"] > 0 and e_k3 == 0 and e_k7 == 0 and same, f"cli {CLI_SWIN[1]}: a kernel differs from its plain version")
+        del sinfer, images, seen_inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"cli phase: {time.perf_counter() - t_phase:.3f} s")
 
 
 def main() -> int:
@@ -1523,7 +1895,7 @@ def main() -> int:
     # 7. the trainer
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    trainer_phase(dev)
+    library_step_ms = trainer_phase(dev)
     print(f"trainer phase: {time.perf_counter() - t0:.3f} s; chip_smoke so far {time.perf_counter() - t_main:.3f} s")
 
     # 8. the Swin trainer
@@ -1532,6 +1904,11 @@ def main() -> int:
     swin_trainer_phase(dev)
     print(f"swin trainer phase: {time.perf_counter() - t0:.3f} s; chip_smoke so far "
           f"{time.perf_counter() - t_main:.3f} s")
+
+    # 9. the trainer's entry points
+    torch.cuda.empty_cache()
+    cli_phase(dev, library_step_ms)
+    print(f"chip_smoke so far {time.perf_counter() - t_main:.3f} s")
 
     big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",
            "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",

@@ -1,12 +1,23 @@
-"""Convert the reference's trained checkpoint into a deployable artifact.
+"""Convert a QAT checkpoint into a deployable integer artifact.
 
-The ``--torch-checkpoint`` path of the JAX package's ``convert_model.py``
-(``:169-230``), with the same flags and messages:
+Counterpart of the JAX package's ``convert_model.py``, with its flags and
+messages, on two inputs:
 
+    python -m ivit_tpu_torch.convert_model --checkpoint results/checkpoint.pkl \\
+        --output results/artifact.pkl
     python -m ivit_tpu_torch.convert_model --model deit_small \\
         --torch-checkpoint checkpoint.pth.tar --output results/artifact.pkl
 
-It reads the reference's ``weight_integer`` / ``bias_integer`` /
+``--checkpoint`` reads this project's QAT checkpoint (either package's
+``quant_train`` writes it, in one format: ``utils.checkpoint``). The
+model and its spec (``--model``, ``--softmax-bits``, ``--gelu-stable``,
+``--nb-classes``, ``--input-size``, ``--window-size``) default to what
+the checkpoint records; a flag that conflicts with the record exits with
+the JAX CLI's message. The model's live weights and ranges are frozen by
+``deploy.freeze_vit`` or ``deploy.freeze_swin`` on ``--device`` (default
+``cuda``; raises without a card).
+
+``--torch-checkpoint`` reads the reference's ``weight_integer`` / ``bias_integer`` /
 ``*_scaling_factor`` buffers (ViT/DeiT or Swin) through
 ``deploy.ingest_torch`` and writes the pickled artifact both packages'
 engines read. ``--model`` names the head counts, which the buffers do not
@@ -18,11 +29,8 @@ checkpoint that pickles objects other than tensors and containers (the
 reference's ``checkpoint.pth.tar`` may hold its ``argparse.Namespace``)
 does not load, on either side.
 
-``--checkpoint`` (this project's own QAT state, a flax checkpoint) comes
-with the port's checkpoint format, and ``--export-engine`` with the
-serialized-engine slice: each exits with a message, before any work. A
-model trained by ``ivit_tpu_torch.train`` freezes in process with
-``ivit_tpu_torch.deploy.freeze_vit``.
+``--export-engine`` comes with the serialized-engine slice: it exits
+with a message, before any work.
 """
 
 from __future__ import annotations
@@ -33,10 +41,10 @@ import argparse
 def main(argv=None):
     p = argparse.ArgumentParser("I-ViT artifact converter (PyTorch)")
     p.add_argument("--model", default=None,
-                   help="model name (deit_small, swin_tiny, ...): gives the head count(s), which the "
-                        "checkpoint's buffers do not hold")
-    p.add_argument("--checkpoint", default=None,
-                   help="our QAT checkpoint (quant_train.py output); comes with the QAT port")
+                   help="model name (deit_small, swin_tiny, ...); defaults to the one recorded in the checkpoint "
+                        "(deit_small for checkpoints predating the metadata). --torch-checkpoint needs it for "
+                        "the head count(s), which the buffers do not hold")
+    p.add_argument("--checkpoint", default=None, help="our QAT checkpoint (quant_train output)")
     p.add_argument("--torch-checkpoint", default=None,
                    help="the REFERENCE's trained checkpoint.pth.tar (ViT/DeiT or Swin family): its "
                         "weight_integer/bias_integer/*_scaling_factor buffers are ingested verbatim. "
@@ -44,19 +52,27 @@ def main(argv=None):
                         "trained at 224")
     p.add_argument("--output", default="results/artifact.pkl")
     p.add_argument("--nb-classes", default=None, type=int,
-                   help="--checkpoint only (the head's width is read from the buffers)")
+                   help="--checkpoint: defaults to the recorded value (1000 for checkpoints predating the "
+                        "metadata); --torch-checkpoint reads the head's width from the buffers")
     p.add_argument("--input-size", default=None, type=int,
-                   help="Swin's training resolution (default 224); ViT reads it from the pos-embed")
+                   help="--checkpoint: defaults to the recorded value (224 before the metadata); "
+                        "--torch-checkpoint: Swin's training resolution (default 224), ViT reads it from "
+                        "the pos-embed")
     p.add_argument("--window-size", default=None, type=int,
-                   help="--checkpoint only (Swin reads it from the rel-pos table)")
+                   help="--checkpoint: Swin window size, defaults to the recorded value (7 before the "
+                        "metadata); --torch-checkpoint reads it from the rel-pos table")
     p.add_argument("--export-engine", default="",
                    help="also export a serialized engine; comes with the export slice")
     p.add_argument("--export-batch", default=1, type=int,
                    help="batch size the exported engine is built for")
     p.add_argument("--softmax-bits", default=None, type=int, choices=(8, 16),
-                   help="ViT probability precision the checkpoint was trained with (default 16)")
+                   help="ViT probability precision the checkpoint was trained with; defaults to the recorded "
+                        "value (16 before the metadata)")
     p.add_argument("--gelu-stable", default=None, action="store_true",
-                   help="elementwise-stable ShiftGELU (must match training; recorded in the artifact)")
+                   help="elementwise-stable ShiftGELU (must match training; recorded in the artifact); "
+                        "defaults to the recorded value")
+    p.add_argument("--device", default="cuda",
+                   help="--checkpoint: where the model is frozen, cuda (raises without a card) or cpu")
     args = p.parse_args(argv)
 
     if (args.checkpoint is None) == (args.torch_checkpoint is None):
@@ -64,18 +80,67 @@ def main(argv=None):
             "pass exactly one of --checkpoint (our QAT state) or "
             "--torch-checkpoint (the reference's checkpoint.pth.tar)"
         )
-    if args.checkpoint is not None:
-        raise SystemExit(
-            "--checkpoint (our own flax QAT state) comes with the checkpoint format of "
-            "ivit_tpu_torch's trainer; convert it with the JAX package's convert_model.py, "
-            "or freeze a model trained by ivit_tpu_torch.train with ivit_tpu_torch.deploy.freeze_vit"
-        )
     if args.export_engine:
         raise SystemExit(
             "--export-engine comes with the serialized-engine slice of ivit_tpu_torch; "
             "capture the engine at run time with ivit_tpu_torch.deploy.graphs.capture_infer"
         )
-    _ingest_torch(args)
+    if args.torch_checkpoint:
+        return _ingest_torch(args)
+    return _convert_checkpoint(args)
+
+
+def _resolve(flag_name, cli_value, recorded, default):
+    """A spec-level model property the scales were trained under: the CLI
+    value wins only when it agrees with the checkpoint's record (or
+    nothing was recorded)."""
+    if recorded is not None and cli_value is not None and cli_value != recorded:
+        raise SystemExit(
+            f"--{flag_name}={cli_value} conflicts with the "
+            f"checkpoint, which was trained with "
+            f"{flag_name}={recorded} (recorded by quant_train). "
+            f"Drop the flag to use the recorded value."
+        )
+    if cli_value is not None:
+        return cli_value
+    return recorded if recorded is not None else default
+
+
+def _convert_checkpoint(args):
+    """--checkpoint: freeze our QAT state into an artifact."""
+    from .deploy import freeze_swin, freeze_vit
+    from .models import create_model
+    from .nn import load_flax_variables
+    from .utils import load_checkpoint_raw, save_artifact
+
+    raw, extra = load_checkpoint_raw(args.checkpoint)
+    if args.model is not None and extra.get("model") is not None and extra["model"] != args.model:
+        raise SystemExit(f"--model={args.model} but the checkpoint was trained as {extra['model']!r}")
+    model_name = args.model or extra.get("model") or "deit_small"
+    is_swin = model_name.startswith("swin")
+    recorded_sm = extra.get("softmax_bits")
+    if recorded_sm == 16 and is_swin:
+        # the legacy record of the ignored ViT flag (quant_train.check_resume_spec)
+        recorded_sm = 8
+    sm_bits = _resolve("softmax-bits", args.softmax_bits, recorded_sm, 16)
+    gelu_stable = _resolve("gelu-stable", args.gelu_stable, extra.get("gelu_stable"), False)
+    nb_classes = _resolve("nb-classes", args.nb_classes, extra.get("nb_classes"), 1000)
+    input_size = _resolve("input-size", args.input_size, extra.get("input_size"), 224)
+    window_size = _resolve("window-size", args.window_size, extra.get("window_size"), 7)
+
+    kwargs = dict(num_classes=nb_classes, img_size=input_size)
+    if is_swin:
+        kwargs["window_size"] = window_size
+    elif sm_bits != 16:
+        kwargs["softmax_bits"] = sm_bits
+    if gelu_stable:
+        kwargs["gelu_stable"] = True
+    model = create_model(model_name, args.device, **kwargs)
+    load_flax_variables(model, {"params": raw["params"], "quant_stats": raw["quant_stats"]})
+    artifact = (freeze_swin if is_swin else freeze_vit)(model, device=args.device)
+    save_artifact(args.output, artifact)
+    print(f"wrote {args.output} (epoch {extra.get('epoch', '?')}, best_acc1 {extra.get('best_acc1', '?')})")
+    return artifact
 
 
 def _ingest_torch(args):

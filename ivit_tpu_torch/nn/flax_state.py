@@ -13,21 +13,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_COLLECTIONS = ("params", "quant_stats")
 
-
-def _flatten(tree: dict, prefix: str = "") -> dict:
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts as one dict keyed by the ``.``-joined paths."""
     out = {}
     for key, value in tree.items():
         name = f"{prefix}{key}"
         if isinstance(value, dict):
-            out.update(_flatten(value, name + "."))
+            out.update(flatten(value, name + "."))
         else:
             out[name] = value
     return out
 
 
-def _nest(flat: dict) -> dict:
+def nest(flat: dict) -> dict:
+    """The inverse of ``flatten``."""
     out: dict = {}
     for name, value in flat.items():
         *path, leaf = name.split(".")
@@ -38,6 +38,27 @@ def _nest(flat: dict) -> dict:
     return out
 
 
+def named_tree(names: list, tensors: list) -> dict:
+    """Tensors keyed by torch name as nested dicts of numpy copies."""
+    return nest({n: t.detach().cpu().numpy().copy() for n, t in zip(names, tensors)})
+
+
+def load_named_tree(tensors: list, names: list, tree: dict, what: str) -> None:
+    """Copy ``tree`` (``named_tree``'s layout) into ``tensors`` in place;
+    raises ``KeyError`` unless both hold the same names and
+    ``ValueError`` on a shape or dtype that differs."""
+    flat = flatten(tree)
+    if set(flat) != set(names):
+        raise KeyError(f"{what}: only in flax's tree {sorted(set(flat) - set(names))}, "
+                       f"only in torch {sorted(set(names) - set(flat))}")
+    with torch.no_grad():
+        for name, t in zip(names, tensors):
+            a = np.asarray(flat[name])
+            if a.shape != tuple(t.shape) or a.dtype != np.dtype(str(t.dtype).split(".")[-1]):
+                raise ValueError(f"{what} {name}: flax {a.dtype}{a.shape}, torch {t.dtype}{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(a)))
+
+
 def load_flax_variables(model: torch.nn.Module, variables: dict) -> torch.nn.Module:
     """Copy JAX's ``variables`` (nested dicts of arrays) into ``model``'s
     parameters and buffers, in place; raises ``KeyError`` unless the two
@@ -45,18 +66,8 @@ def load_flax_variables(model: torch.nn.Module, variables: dict) -> torch.nn.Mod
     differs. Returns ``model``."""
     from ..models.model_utils import model_variables
 
-    ours = model_variables(model)
-    for coll in _COLLECTIONS:
-        theirs = _flatten(variables.get(coll, {}))
-        if set(theirs) != set(ours[coll]):
-            raise KeyError(f"{coll}: only in flax {sorted(set(theirs) - set(ours[coll]))}, "
-                           f"only in torch {sorted(set(ours[coll]) - set(theirs))}")
-        with torch.no_grad():
-            for name, t in ours[coll].items():
-                a = np.asarray(theirs[name])
-                if a.shape != tuple(t.shape) or a.dtype != np.dtype(str(t.dtype).split(".")[-1]):
-                    raise ValueError(f"{coll} {name}: flax {a.dtype}{a.shape}, torch {t.dtype}{tuple(t.shape)}")
-                t.copy_(torch.from_numpy(np.array(a)))
+    for coll, named in model_variables(model).items():
+        load_named_tree(list(named.values()), list(named), variables.get(coll, {}), coll)
     return model
 
 
@@ -65,5 +76,4 @@ def flax_variables(model: torch.nn.Module) -> dict:
     dicts of numpy arrays (the inverse of ``load_flax_variables``)."""
     from ..models.model_utils import model_variables
 
-    return {coll: _nest({n: t.detach().cpu().numpy().copy() for n, t in named.items()})
-            for coll, named in model_variables(model).items()}
+    return {coll: named_tree(list(named), list(named.values())) for coll, named in model_variables(model).items()}

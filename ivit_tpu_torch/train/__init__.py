@@ -7,12 +7,13 @@ Counterpart of ``ivit_tpu/train/``.
 from .augment import MixupConfig, mixup_cutmix
 from .losses import cross_entropy, distillation_loss, soft_target_cross_entropy, topk_accuracy
 from .schedule import cosine_schedule
-from .state import AdamW, TrainState, create_train_state
+from .state import SGD, AdamW, TrainState, create_train_state
 from .steps import make_eval_step, make_train_step
 
 __all__ = [
     "AdamW",
     "MixupConfig",
+    "SGD",
     "TrainState",
     "cosine_schedule",
     "create_train_state",

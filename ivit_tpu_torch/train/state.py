@@ -1,12 +1,22 @@
 """Training state: the model (parameters and ``QuantAct`` ranges), the
 optimizer and its state, the step count and the EMA of the parameters.
 
-Counterpart of ``ivit_tpu/train/state.py``. ``AdamW`` is
-``optax.adamw``'s update in optax's order of operations, on lists of
-tensors: Adam moments, bias correction at the incremented count,
-``m̂/(√v̂ + eps)``, plus ``weight_decay · p`` on every parameter
-(unmasked, as ``quant_train.py`` builds it), times ``−lr(count)`` with
-the count before its increment.
+Counterpart of ``ivit_tpu/train/state.py``, with the two optimizers
+``quant_train.py`` builds (``:342-352``), each in optax's order of
+operations on lists of tensors:
+
+* ``AdamW`` is ``optax.adamw``: Adam moments, bias correction at the
+  incremented count, ``m̂/(√v̂ + eps)``, plus ``weight_decay · p`` on
+  every parameter (unmasked), times ``−lr(count)`` with the count before
+  its increment;
+* ``SGD`` is ``optax.chain(optax.add_decayed_weights(weight_decay),
+  optax.sgd(lr, momentum))``: ``g + weight_decay · p``, the trace
+  ``g + momentum · trace``, times ``−lr(count)``.
+
+Each optimizer's ``state_dict`` gives its state as flax's
+``to_state_dict`` gives the optax state (the layout a JAX checkpoint
+holds, keyed by the chain's positions; a learning-rate schedule adds
+its step count), and ``load_state_dict`` reads it back.
 """
 
 from __future__ import annotations
@@ -18,6 +28,11 @@ import numpy as np
 import torch
 
 from ..core.device import target_device
+from ..nn.flax_state import load_named_tree, named_tree
+
+
+def _count(count: int) -> np.ndarray:
+    return np.asarray(count, np.int32)
 
 
 @dataclasses.dataclass
@@ -71,6 +86,67 @@ class AdamW:
         torch._foreach_add_(params, upd)
         state.count = count
 
+    def state_dict(self, state: AdamWState, names: list) -> dict:
+        """``state`` in optax's layout, the moments keyed by the
+        parameters' flax paths (``names``, the torch names in the order
+        of ``params``)."""
+        schedule = {"count": _count(state.count)} if callable(self.learning_rate) else {}
+        adam = {"count": _count(state.count), "mu": named_tree(names, state.mu), "nu": named_tree(names, state.nu)}
+        return {"0": adam, "1": {}, "2": schedule}
+
+    def load_state_dict(self, state: AdamWState, names: list, tree: dict) -> None:
+        """Read ``tree`` (``state_dict``'s layout) into ``state`` in place."""
+        load_named_tree(state.mu, names, tree["0"]["mu"], "AdamW mu")
+        load_named_tree(state.nu, names, tree["0"]["nu"], "AdamW nu")
+        state.count = int(tree["0"]["count"])
+
+
+@dataclasses.dataclass
+class SGDState:
+    count: int
+    trace: list
+
+
+class SGD:
+    """``optax.chain(optax.add_decayed_weights(weight_decay),
+    optax.sgd(learning_rate, momentum=momentum))``; ``learning_rate`` is a
+    number or a function of the step count."""
+
+    def __init__(self, learning_rate: float | Callable[[int], float], momentum: float = 0.9,
+                 weight_decay: float = 1e-4):
+        self.learning_rate = learning_rate
+        self.momentum, self.weight_decay = momentum, weight_decay
+
+    def init(self, params: list) -> SGDState:
+        return SGDState(0, [torch.zeros_like(p) for p in params])
+
+    def lr(self, count: int) -> float:
+        return self.learning_rate(count) if callable(self.learning_rate) else self.learning_rate
+
+    @torch.no_grad()
+    def update(self, params: list, grads: list, state: SGDState) -> None:
+        """Apply one update to ``params`` and ``state`` in place."""
+        lr = self.lr(state.count)
+        # add_decayed_weights: g + wd·p; trace: g + momentum·trace
+        decayed = torch._foreach_add(grads, torch._foreach_mul(params, self.weight_decay))
+        torch._foreach_mul_(state.trace, self.momentum)
+        torch._foreach_add_(state.trace, decayed)
+        torch._foreach_add_(params, torch._foreach_mul(state.trace, -lr))
+        state.count += 1
+
+    def state_dict(self, state: SGDState, names: list) -> dict:
+        """``state`` in optax's layout (see ``AdamW.state_dict``)."""
+        schedule = {"count": _count(state.count)} if callable(self.learning_rate) else {}
+        return {"0": {}, "1": {"0": {"trace": named_tree(names, state.trace)}, "1": schedule}}
+
+    def load_state_dict(self, state: SGDState, names: list, tree: dict) -> None:
+        """Read ``tree`` (``state_dict``'s layout) into ``state`` in place.
+        A constant learning rate keeps no count in optax's state, and
+        needs none."""
+        load_named_tree(state.trace, names, tree["1"]["0"]["trace"], "SGD trace")
+        if "count" in tree["1"]["1"]:
+            state.count = int(tree["1"]["1"]["count"])
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -79,13 +155,13 @@ class TrainState:
     → tensor) is None without an EMA."""
 
     model: torch.nn.Module
-    tx: AdamW
-    opt_state: AdamWState
+    tx: AdamW | SGD
+    opt_state: AdamWState | SGDState
     step: int = 0
     ema_params: dict | None = None
 
 
-def create_train_state(model: torch.nn.Module, tx: AdamW, ema_decay: float = 0.0, device="cuda") -> TrainState:
+def create_train_state(model: torch.nn.Module, tx: AdamW | SGD, ema_decay: float = 0.0, device="cuda") -> TrainState:
     """The train state of ``model`` moved to ``device`` (raises for a
     CUDA device on a machine without one). No range update runs here: a
     fresh ``QuantAct``'s ``min == max == 0`` sentinel makes the first

@@ -3,8 +3,9 @@
 
 * ``python -m ivit_tpu_torch.convert_model --torch-checkpoint``: a
   reference-style state dict saved with ``torch.save`` comes back as the
-  artifact JAX's ingester makes from it (tolerance 0); ``--checkpoint``
-  and ``--export-engine`` exit with their messages.
+  artifact JAX's ingester makes from it (tolerance 0); ``--export-engine``
+  exits with its message (``--checkpoint`` is
+  ``tests/test_torch_convert_checkpoint.py``'s).
 * ``evaluate_latency --device cpu`` prints the JAX CLI's line at a tiny
   size, for ViT and Swin.
 * ``bench._float_vit_infer`` agrees with the root ``bench.py``'s
@@ -61,12 +62,13 @@ def test_convert_torch_checkpoint_roundtrip(family, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv, message", [
-    (["--model", "deit_small", "--checkpoint", "ckpt.pkl"], "comes with the checkpoint format"),
     (["--model", "deit_small", "--torch-checkpoint", "x.pth", "--export-engine", "e.bin"],
      "comes with the serialized-engine slice"),
+    (["--checkpoint", "ckpt.pkl", "--export-engine", "e.bin"], "comes with the serialized-engine slice"),
     (["--torch-checkpoint", "x.pth"], "requires a --model name"),
     (["--model", "deit_small"], "pass exactly one of --checkpoint"),
-], ids=["checkpoint", "export-engine", "no-model", "no-input"])
+    (["--checkpoint", "ckpt.pkl", "--torch-checkpoint", "x.pth"], "pass exactly one of --checkpoint"),
+], ids=["export-engine", "checkpoint-export-engine", "no-model", "no-input", "both-inputs"])
 def test_convert_refusals_exit_with_their_message(argv, message, tmp_path):
     with pytest.raises(SystemExit) as info:
         convert_model.main(argv + ["--output", str(tmp_path / "a.pkl")])

@@ -867,16 +867,54 @@ def test_qat_swin_freeze_serves_on_card(dev):
 
 
 @pytest.mark.parametrize("M,K,N", [(1960, 64, 32), (799, 120, 256), (17, 8, 32), (24, 16, 8), (17, 128, 40),
-                                   (1000, 96, 288)])
+                                   (1000, 96, 288),
+                                   # the zoo's GEMMs at the CLIs' row counts: DeiT-S qkv at batch 64 x 197,
+                                   # fc2 at 96 x 197, the head at the last validation batch of 32 and at 5
+                                   # rows, Swin-T's patch embed at 32 x 3136 and at 5 rows, a Swin-B merge
+                                   # at 48 x 784, ViT-L's fc2 at 128 x 197
+                                   (12608, 384, 1152), (18912, 1536, 384), (32, 384, 1000), (5, 768, 1000),
+                                   (100352, 48, 96), (5, 48, 96), (37632, 512, 256), (25216, 4096, 1024)])
 def test_int8_matmul_pads_rows_int_mm_refuses(dev, M, K, N):
     """``ops.intmm.int8_matmul`` exact at row counts that ``torch._int_mm``
     refuses on the card (below K = 128 every M that is not a multiple of
-    32, at N of 32 or more; 16 rows or fewer at any K), and at shapes it
-    takes as they are."""
+    32, at N of 32 or more; 16 rows or fewer at any K), at shapes it takes
+    as they are, and at the zoo's GEMM widths at the CLIs' row counts
+    (``scripts/torch_int_mm_domain.py`` sweeps them all)."""
     from ivit_tpu_torch.ops.intmm import int8_matmul
 
     rng = np.random.default_rng(M + K + N)
-    x = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8))
-    w = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8))
-    exact = (x.to(torch.int64) @ w.to(torch.int64)).to(torch.int32)
-    torch.testing.assert_close(int8_matmul(x.to(dev), w.to(dev)).cpu(), exact, rtol=0, atol=0)
+    x = torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8)).to(dev)
+    w = torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8)).to(dev)
+    # float64 products and sums of int8 values are exact (below 2^53)
+    exact = (x.to(torch.float64) @ w.to(torch.float64)).to(torch.int32)
+    torch.testing.assert_close(int8_matmul(x, w), exact, rtol=0, atol=0)
+
+
+def test_trainer_entry_points_on_the_card(dev, tmp_path, capsys):
+    """``quant_train`` (one step), ``convert_model --checkpoint`` and
+    ``evaluate_accuracy`` (one batch, the captured K1 + K3 engine) with
+    their default device, at a tiny size: the engine's logits against the
+    SIM model's within 4 head output scales, argmax equal."""
+    import pickle
+
+    from ivit_tpu_torch import convert_model, evaluate_accuracy, quant_train
+
+    data = ["--model", "deit_tiny", "--data-set", "SYNTHETIC", "--input-size", "32", "--nb-classes", "10"]
+    train = data + ["--batch-size", "16", "--aa", "none", "--color-jitter", "0", "--num-workers", "2",
+                    "--output-dir", str(tmp_path)]
+    quant_train.main(train + ["--epochs", "1", "--max-steps-per-epoch", "1", "--best-acc1", "-1"])
+    ckpt, art = str(tmp_path / "checkpoint.pkl"), str(tmp_path / "artifact.pkl")
+    assert (tmp_path / "best.pkl").exists()
+    quant_train.main(train + ["--eval", "--resume", ckpt, "--dump-logits", str(tmp_path / "sim.npz")])
+    convert_model.main(["--checkpoint", ckpt, "--output", art])
+    capsys.readouterr()
+    _, _, seen = evaluate_accuracy.main(data + ["--artifact", art, "--batch-size", "32", "--max-batches", "1",
+                                                "--num-workers", "2", "--dump-logits", str(tmp_path / "eng.npz")])
+    out = capsys.readouterr().out
+    assert seen == 32 and "launches a forward {'K1': 12, 'K3': 25}" in out
+    sim, eng = np.load(tmp_path / "sim.npz"), np.load(tmp_path / "eng.npz")
+    np.testing.assert_array_equal(sim["labels"][:32], eng["labels"])
+    with open(art, "rb") as f:
+        head = float(np.max(pickle.load(f)["head"]["out_scale"]))
+    assert np.abs(sim["logits"][:32] - eng["logits"]).max() <= 4 * head
+    np.testing.assert_array_equal(sim["logits"][:32].argmax(-1), eng["logits"].argmax(-1))

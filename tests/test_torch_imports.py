@@ -1,5 +1,8 @@
 """The PyTorch port stands alone: no JAX, flax, optax or ivit_tpu import
-anywhere in ``ivit_tpu_torch/`` (the machine with the GPU has no JAX)."""
+anywhere in ``ivit_tpu_torch/`` (the machine with the GPU has no JAX),
+and no Pillow import when a module is imported (only ``data/pil_ops.py``,
+which the transforms import at their first RandAugment or colour-jitter
+call, needs it)."""
 
 import ast
 import os
@@ -38,7 +41,8 @@ def test_package_has_modules():
               "core/ste.py", "core/qtensor.py", "core/scalars.py", "core/device.py", "ops/intmm.py", "nn/quant.py",
               "nn/vit_blocks.py", "nn/flax_state.py", "models/vit.py", "models/model_utils.py",
               "deploy/convert.py", "train/losses.py", "train/schedule.py", "train/state.py", "train/steps.py",
-              "train/augment.py"):
+              "train/augment.py", "utils/checkpoint.py", "utils/metrics.py", "data/datasets.py",
+              "data/transforms.py", "data/loader.py", "data/pil_ops.py", "quant_train.py", "evaluate_accuracy.py"):
         assert f in files
 
 
@@ -64,9 +68,26 @@ def test_no_jax_imports(relpath):
 
 
 _REPO = os.path.dirname(_PKG)
+_PILLOW_MODULES = ("data/pil_ops.py",)
 
 
-@pytest.mark.parametrize("relpath", ["chip_smoke.py", "scripts/torch_engine_turns.py", "scripts/torch_int_mm_domain.py"])
+def test_modules_import_without_pillow():
+    """Every module but ``data/pil_ops.py`` imports with Pillow unimportable."""
+    import subprocess
+    import sys
+
+    modules = [f"ivit_tpu_torch.{f[:-3].replace('/', '.')}".removesuffix(".__init__") for f in _py_files()
+               if f not in _PILLOW_MODULES]
+    code = ("import importlib, sys\nsys.modules['PIL'] = None\n"
+            f"sys.path.insert(0, {_REPO!r})\n"
+            f"for m in {modules!r}:\n    importlib.import_module(m)\nprint(len({modules!r}))")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert int(run.stdout) == len(modules) > 60
+
+
+@pytest.mark.parametrize("relpath", ["chip_smoke.py", "scripts/torch_engine_turns.py",
+                                     "scripts/torch_int_mm_domain.py"])
 def test_card_scripts_import_no_jax(relpath):
     """The scripts that run on the card's machine import no JAX either."""
     roots = set(_imported_roots(os.path.join(_REPO, relpath)))

@@ -1,0 +1,246 @@
+"""The port's trainer entry points on the CPU, end to end at a tiny size:
+``quant_train``, ``convert_model --checkpoint`` and
+``evaluate_accuracy`` (``--device cpu``), full-width ``deit_tiny`` at 32²
+on the synthetic set with the Pillow-free flags.
+
+* Train two epochs; separately, start the same run and kill it before
+  the first step of epoch 1 (after epoch 0's rolling checkpoint), then
+  ``--resume`` it: the resumed run's epoch-1 losses and its checkpoint
+  (every parameter, range, moment, count and EMA leaf) equal the
+  uninterrupted run's, tolerance 0. (A first run with ``--epochs 1``
+  would not do: the cosine schedule spans ``--epochs``, so its epoch 0
+  takes other learning rates from its third step on.)
+* ``--eval --dump-logits``, convert, ``evaluate_accuracy
+  --dump-logits``: the checks of ``tests/test_dump_logits.py`` (same
+  labels in the same order, equal argmax) and the engine within 4 head
+  scales of the simulator.
+* SGD, calibration, the SIGTERM save, ``--profile-steps``, the refused
+  flags, the spec guard
+  (``check_resume_spec``, the cases of ``tests/test_cli.py``) and the
+  default device without a card.
+"""
+
+import pickle
+import re
+import signal
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from ivit_tpu_torch import convert_model, evaluate_accuracy, quant_train
+from ivit_tpu_torch.nn.flax_state import flatten
+from ivit_tpu_torch.utils import load_checkpoint_raw
+
+STEPS = 3
+BASE = ["--model", "deit_tiny", "--data-set", "SYNTHETIC", "--input-size", "32", "--nb-classes", "10",
+        "--batch-size", "8", "--max-steps-per-epoch", str(STEPS), "--aa", "none", "--color-jitter", "0",
+        "--num-workers", "2", "--device", "cpu", "--lr", "1e-4", "--best-acc1", "-1", "--model-ema",
+        "--model-ema-decay", "0.9"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the models here are small, and the default
+    pool's spinning threads would take the cores of the other test
+    workers."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _losses(out_dir, epoch):
+    text = (out_dir / "log.log").read_text()
+    return re.findall(rf"epoch {epoch} losses (\[.*\])", text)[-1]
+
+
+class _Killed(Exception):
+    pass
+
+
+def _killed_before_step(n):
+    """``train.make_train_step`` whose steps raise at the n-th call."""
+    from ivit_tpu_torch import train
+
+    real, calls = train.make_train_step, []
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def guarded(*step_args):
+            if len(calls) == n:
+                raise _Killed
+            calls.append(n)
+            return step(*step_args)
+
+        return guarded
+
+    return make
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """An uninterrupted two-epoch run, and the same run killed before
+    epoch 1 then resumed."""
+    from ivit_tpu_torch import train
+
+    whole, split = tmp_path_factory.mktemp("whole"), tmp_path_factory.mktemp("split")
+    quant_train.main(BASE + ["--epochs", "2", "--output-dir", str(whole)])
+    with pytest.MonkeyPatch.context() as mp, pytest.raises(_Killed):
+        mp.setattr(train, "make_train_step", _killed_before_step(STEPS))
+        quant_train.main(BASE + ["--epochs", "2", "--output-dir", str(split)])
+    first = load_checkpoint_raw(str(split / "checkpoint.pkl"))
+    quant_train.main(BASE + ["--epochs", "2", "--output-dir", str(split), "--resume",
+                             str(split / "checkpoint.pkl")])
+    return whole, split, first
+
+
+def test_train_writes_checkpoints_with_the_spec(runs):
+    whole, split, (state, extra) = runs
+    assert (whole / "checkpoint.pkl").exists() and (whole / "best.pkl").exists()
+    assert extra == {"epoch": 0, "best_acc1": extra["best_acc1"], "model": "deit_tiny", "input_size": 32,
+                     "nb_classes": 10, "softmax_bits": 16, "gelu_stable": False}
+    assert int(state["step"]) == STEPS and int(state["opt_state"]["0"]["count"]) == STEPS
+    assert state["ema_params"] is not None
+    assert "epoch 0 done in" in (whole / "log.log").read_text()
+
+
+def test_resume_equals_the_uninterrupted_run(runs):
+    whole, split, _ = runs
+    assert _losses(split, 1) == _losses(whole, 1)
+    (a, ea), (b, eb) = (load_checkpoint_raw(str(d / "checkpoint.pkl")) for d in (split, whole))
+    assert ea == eb and ea["epoch"] == 1
+    fa, fb = flatten(a), flatten(b)
+    assert fa.keys() == fb.keys()
+    for name, v in fb.items():
+        np.testing.assert_array_equal(fa[name], v, err_msg=name)
+
+
+def test_eval_convert_and_evaluate_accuracy_agree(runs, tmp_path, capsys):
+    whole, _, _ = runs
+    ckpt = str(whole / "checkpoint.pkl")
+    sim_npz, art, eng_npz = str(tmp_path / "sim.npz"), str(tmp_path / "artifact.pkl"), str(tmp_path / "eng.npz")
+    acc = quant_train.main(BASE + ["--eval", "--resume", ckpt, "--dump-logits", sim_npz,
+                                   "--output-dir", str(tmp_path)])
+    convert_model.main(["--checkpoint", ckpt, "--output", art, "--device", "cpu"])
+    capsys.readouterr()
+    top1, top5, seen = evaluate_accuracy.main(["--model", "deit_tiny", "--artifact", art, "--data-set", "SYNTHETIC",
+                                               "--input-size", "32", "--nb-classes", "10", "--batch-size", "32",
+                                               "--num-workers", "2", "--dump-logits", eng_npz, "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "engine: kernels ['attention', 'layernorm']" and out[1] == "[32] top1 " + out[1].split("top1 ")[1]
+    assert out[-2] == f"FINAL top1 {100 * top1 / seen:.3f} top5 {100 * top5 / seen:.3f} over 128"
+    sim, eng = np.load(sim_npz), np.load(eng_npz)
+    assert sim["logits"].shape == eng["logits"].shape == (128, 10)
+    np.testing.assert_array_equal(sim["labels"], eng["labels"])
+    with open(art, "rb") as f:
+        head = float(np.max(pickle.load(f)["head"]["out_scale"]))
+    assert np.abs(eng["logits"] - sim["logits"]).max() <= 4 * head
+    np.testing.assert_array_equal(sim["logits"].argmax(-1), eng["logits"].argmax(-1))
+    assert abs(acc - 100 * top1 / seen) < 1e-4
+
+
+def test_evaluate_accuracy_max_batches(runs, tmp_path, capsys):
+    whole, _, _ = runs
+    art = str(tmp_path / "artifact.pkl")
+    convert_model.main(["--checkpoint", str(whole / "best.pkl"), "--output", art, "--device", "cpu"])
+    _, _, seen = evaluate_accuracy.main(["--model", "deit_tiny", "--artifact", art, "--data-set", "SYNTHETIC",
+                                         "--input-size", "32", "--nb-classes", "10", "--batch-size", "24",
+                                         "--max-batches", "2", "--num-workers", "1", "--device", "cpu"])
+    assert seen == 48 and capsys.readouterr().out.splitlines()[-1].endswith("over 48")
+
+
+def test_sgd_calibration_and_sigterm_save(tmp_path, monkeypatch):
+    """``--opt sgd`` with ``--calib-batches``; a SIGTERM during the first
+    step saves the rolling checkpoint (epoch −1, the step) and returns."""
+    if threading.current_thread() is not threading.main_thread():
+        pytest.skip("signal handlers are installed from the main thread only")
+    from ivit_tpu_torch import train
+
+    real = train.make_train_step
+
+    def make_step(*a, **kw):
+        step = real(*a, **kw)
+
+        def preempted(*args):
+            out = step(*args)
+            signal.getsignal(signal.SIGTERM)(signal.SIGTERM, None)
+            return out
+
+        return preempted
+
+    monkeypatch.setattr(train, "make_train_step", make_step)
+    before = signal.getsignal(signal.SIGTERM)
+    argv = [a for a in BASE if a not in ("--model-ema",)]
+    argv = argv[: argv.index("--model-ema-decay")] + argv[argv.index("--model-ema-decay") + 2:]
+    quant_train.main(argv + ["--opt", "sgd", "--epochs", "1", "--calib-batches", "1", "--output-dir", str(tmp_path)])
+    assert signal.getsignal(signal.SIGTERM) == before  # the handler is restored
+    state, extra = load_checkpoint_raw(str(tmp_path / "checkpoint.pkl"))
+    assert extra["epoch"] == -1 and extra["preempted_step"] == 0 and int(state["step"]) == 1
+    assert set(state["opt_state"]) == {"0", "1"} and "trace" in state["opt_state"]["1"]["0"]
+    assert "preempted (signal 15) at epoch 0 step 0" in (tmp_path / "log.log").read_text()
+
+
+def test_profile_steps_write_a_trace(tmp_path):
+    """``--profile-steps 1``: step 10 of epoch 0 under torch.profiler, its
+    trace in ``<output-dir>/profile``."""
+    argv = BASE[: BASE.index("--batch-size")] + ["--batch-size", "4", "--max-steps-per-epoch", "11"]
+    argv += BASE[BASE.index("--aa"):]
+    quant_train.main(argv + ["--epochs", "1", "--profile-steps", "1", "--output-dir", str(tmp_path)])
+    trace = tmp_path / "profile" / "trace.json"
+    assert trace.exists() and '"traceEvents"' in trace.read_text()
+
+
+@pytest.mark.parametrize("flag", [["--pretrained", "x.pth"], ["--fast-matmul"], ["--mesh-model", "2"],
+                                  ["--seq-parallel"], ["--pipe", "2"], ["--zero1"], ["--distributed"]],
+                         ids=lambda f: f[0])
+def test_unported_trainer_flags_exit_with_their_roadmap_item(flag, tmp_path):
+    with pytest.raises(SystemExit, match=r"ROADMAP\.md §1 item \d") as info:
+        quant_train.main(BASE + flag + ["--output-dir", str(tmp_path)])
+    assert flag[0] in str(info.value.code)
+    assert not (tmp_path / "log.log").exists()
+
+
+@pytest.mark.parametrize("argv,match", [(["--mesh-data", "2"], "item 8"), (["--mesh-model", "2"], "item 8"),
+                                        (["--weight-args"], "TPU-only")])
+def test_unported_evaluate_flags_exit(argv, match):
+    with pytest.raises(SystemExit, match=match):
+        evaluate_accuracy.main(["--artifact", "a.pkl"] + argv)
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    argv = [a for a in BASE if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quant_train.main(argv + ["--output-dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_accuracy.main(["--artifact", "a.pkl"])
+
+
+META = {"model": "deit_small", "input_size": 224, "nb_classes": 1000, "softmax_bits": 16, "gelu_stable": False}
+
+
+@pytest.mark.parametrize("recorded,meta,model,match", [
+    (dict(META, softmax_bits=8, gelu_stable=True), META, "deit_small", "softmax_bits"),
+    (dict(META), META, "deit_small", None),
+    ({"epoch": 3}, META, "deit_small", None),
+    (dict(META, model="swin_tiny", softmax_bits=16, window_size=7), dict(META, model="swin_tiny", softmax_bits=8,
+                                                                         window_size=7), "swin_tiny", None),
+    (dict(META, input_size=384), META, "deit_small", "input_size"),
+], ids=["mismatch", "match", "pre-metadata", "legacy-swin-softmax16", "geometry"])
+def test_check_resume_spec(recorded, meta, model, match):
+    if match is None:
+        quant_train.check_resume_spec(recorded, meta, model)
+    else:
+        with pytest.raises(SystemExit, match=match):
+            quant_train.check_resume_spec(recorded, meta, model)
+
+
+def test_resume_with_another_spec_exits(runs, tmp_path):
+    whole, _, _ = runs
+    with pytest.raises(SystemExit, match="softmax_bits"):
+        quant_train.main(BASE + ["--softmax-bits", "8", "--eval", "--resume", str(whole / "checkpoint.pkl"),
+                                 "--output-dir", str(tmp_path)])
