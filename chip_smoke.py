@@ -7,9 +7,12 @@ full width and depth of DeiT-S and through
 Swin-T, on seeded synthetic artifacts, and checks every hand-written
 kernel on them; then trains DeiT-S through the QAT trainer for a few
 steps and serves the frozen result by route A (phase 7), trains Swin-T
-with mixup/cutmix and serves it by K7 + K3 (phase 8), and runs the
+with mixup/cutmix and serves it by K7 + K3 (phase 8), runs the
 trainer's entry points (``quant_train``, ``convert_model --checkpoint``,
-``evaluate_accuracy``) end to end on both models (phase 9):
+``evaluate_accuracy``) end to end on both models (phase 9), and takes
+seeded float checkpoints in the published layouts through import,
+calibration, QAT, freezing and serving, beside the float models on the
+imported weights (phase 10):
 
 * the main path: softmax_bits=8, stable ShiftGELU, K1 attention + K3
   LayerNorm (the default kernels);
@@ -165,7 +168,33 @@ Phases:
    ``python -m ivit_tpu_torch.quant_train``), its SIM dump, conversion and
    ``python -m ivit_tpu_torch.evaluate_accuracy --max-batches 1`` on K7 +
    K3 (12 K7 + 28 K3 a forward), with the same checks and K7 and K3 on
-   the trained artifact's stage-1 inputs.
+   the trained artifact's stage-1 inputs;
+10. pretrained import, at the full width and depth of DeiT-S and Swin-T
+   with TF32 off: a seeded state dict in DeiT-S's published ``.pth``
+   layout (``{"model": sd}``, its position embedding on a 24 x 24 grid,
+   577 tokens) and one in Swin-T's (with the release's
+   ``relative_position_index`` and ``attn_mask`` buffers), each
+   imported by ``models.import_torch.load_pretrained`` into the QAT
+   model on the card (every parameter leaf equal to the importer's tree
+   on the CPU, the 577 -> 197 resize among them, and within float32
+   rounding of ``F.interpolate``'s bicubic on the card; the import's
+   host ms); the float model (``deit_small_fp32``, ``swin_tiny_fp32``)
+   on the same weights by the library path (``quant_params_to_float``
+   -> ``merge_params`` -> ``load_flax_variables``) at batch 128: ms a
+   forward, logits within FLOAT_TOL of the CPU's; the SIM model
+   calibrated on the import against it (correlation above
+   SIM_FLOAT_CORR); for DeiT-S one ``--fast-matmul`` train-mode step
+   against the float32 step on the same batch (logits and loss
+   bit-equal, gradients within FAST_GRAD_RTOL) and both train steps
+   timed in turns; then ``quant_train --pretrained --calib-batches 2``
+   (two steps; Swin-T at batch 32), ``convert_model --checkpoint`` and
+   ``evaluate_accuracy`` on the captured engine (12 K1 + 25 K3 and 12 K7
+   + 28 K3 a forward, the launch counts set to 0 just before and read
+   just after), the engine against the SIM dump as in phase 9, and K1,
+   K3 and K7 against their plain versions on the fine-tuned artifacts'
+   own inputs; ``quant_train --model deit_small_fp32`` two steps; and a
+   seeded augreg ViT-B ``.npz`` imported into ``vit_base`` (every leaf
+   equal, the import's host ms).
 
 Any failed check raises and exits nonzero before the result lines. The
 second-to-last line is the kernels' JSON record, the last line
@@ -223,6 +252,27 @@ CLI_TRAIN_BATCH = 64
 CLI_DEIT_STEPS = 4
 CLI_DEIT = ["--model", "deit_small", "--batch-size", str(CLI_TRAIN_BATCH), "--max-steps-per-epoch", str(CLI_DEIT_STEPS)]
 CLI_SWIN = ["--model", "swin_tiny", "--batch-size", "32", "--max-steps-per-epoch", "2"]
+# phase 10, pretrained import: seeded float checkpoints in the published
+# layouts, DeiT-S's with its position embedding on a PRE_GRID x PRE_GRID
+# grid (577 tokens: the bicubic resize to 197 runs), Swin-T's at window
+# PRE_WINDOW and an augreg .npz of PRE_NPZ; each QAT model fine-tuned
+# from its import through quant_train (PRE_CALIB calibration batches,
+# PRE_STEPS steps) and served
+PRE_DEIT, PRE_SWIN, PRE_NPZ = "deit_small", "swin_tiny", "vit_base"
+PRE_GRID = 24
+PRE_WINDOW = 7
+PRE_CALIB = 2
+PRE_STEPS = 2
+PRE_SWIN_BATCH = 32
+FLOAT_ITERS = 5
+# the float models' logits, card against CPU, rtol = atol: float32 sums in
+# other orders and the card's own erf, exp and rsqrt
+# (tests/test_torch_float_models.py holds the port to JAX at the same 1e-5)
+FLOAT_TOL = 1e-5
+SIM_FLOAT_CORR = 0.95  # INT8 SIM against float logits (tests/test_float_ref.py)
+# --fast-matmul gradients against float32 ones, of each leaf's largest
+# entry: 16 units of bf16's 2^-9 (tests/test_torch_fast_matmul.py)
+FAST_GRAD_RTOL = 2.0**-5
 CLI_HEAD_SCALES = 4   # the engine against SIM, in head output scales (phases 7-8)
 CLI_CLEAR_SCALES = 8  # rows whose top two SIM logits lie further apart must agree in argmax
 
@@ -805,6 +855,143 @@ def engine_vs_sim(label: str, sim_path: str, eng_path: str, art: dict) -> None:
     check(bool(agree[clear].all()), f"{label}: argmax differs on a row with a clear SIM top logit")
 
 
+def cli_images(dev):
+    """The synthetic validation set's first BATCH images at CLI_SIZE, as
+    ``evaluate_accuracy`` transforms them, on ``dev``."""
+    import numpy as np
+    import torch
+
+    from ivit_tpu_torch.data import SyntheticDataset
+    from ivit_tpu_torch.data.transforms import EvalTransform
+
+    return torch.from_numpy(np.stack([EvalTransform(CLI_SIZE)(SyntheticDataset(BATCH, CLI_SIZE).load(i)[0])
+                                      for i in range(BATCH)])).to(dev)
+
+
+def vit_kernels_on_artifact(label: str, art: dict, images, dev) -> None:
+    """K1 and K3 against their plain versions (tolerance 0) on the ViT
+    artifact's own inputs (block 0's norm1 input and q, k, v), and its
+    kernel engine's logits against the plain engine's."""
+    import torch
+
+    from ivit_tpu_torch.deploy.engine import attention_inputs, build_vit_infer, embed
+    from ivit_tpu_torch.kernels import (
+        fused_int8_attention,
+        fused_int8_attention_reference,
+        fused_layernorm_requant,
+        fused_layernorm_requant_reference,
+    )
+
+    infer = build_vit_infer(art, dev)
+    t, cfg = infer.tensors, art["config"]
+    blk = t["blocks"][0]
+    with torch.inference_mode():
+        x = embed(images, t)
+        norm_args = (x.reshape(-1, cfg["embed_dim"]), blk["norm1"]["bias_int"], blk["norm1"]["ratio"])
+        e_k3 = max_abs_err(fused_layernorm_requant(*norm_args), fused_layernorm_requant_reference(*norm_args))
+        q, k, v = attention_inputs(x, blk, cfg["num_heads"])
+        a = blk["attn"]
+        attn_args = (q, k, v, a["r1"], a["scale"], a["r_out"], int(cfg["softmax_bits"]))
+        e_k1 = max_abs_err(fused_int8_attention(*attn_args), fused_int8_attention_reference(*attn_args))
+        same = torch.equal(infer(images), build_vit_infer(art, dev, kernels=())(images))
+    torch.cuda.synchronize()
+    print(f"{label} artifact: K3 on block 0's norm1 input {tuple(norm_args[0].shape)} max_abs_err {e_k3}, "
+          f"K1 on block 0's q, k, v {tuple(q.shape)} at softmax_bits {cfg['softmax_bits']} max_abs_err {e_k1} "
+          f"(tolerance 0); logits of {sorted(infer.kernels)} equal to the plain engine's {same}")
+    check(e_k3 == 0 and e_k1 == 0 and same, f"{label}: a kernel differs from its plain version")
+
+
+def swin_kernels_on_artifact(label: str, art: dict, images, dev) -> None:
+    """K7 and K3 against their plain versions (tolerance 0) on the Swin
+    artifact's own inputs (stage 1: block 0's norm1 input, block 1's
+    shifted and masked windows), and its kernel engine's logits against
+    the plain engine's."""
+    import torch
+
+    from ivit_tpu_torch.deploy.swin_engine import build_swin_infer, patch_embed, swin_trunk, window_attention_inputs
+    from ivit_tpu_torch.kernels import (
+        fused_int8_window_attention,
+        fused_int8_window_attention_reference,
+        fused_layernorm_requant,
+        fused_layernorm_requant_reference,
+    )
+
+    infer = build_swin_infer(art, dev)
+    st = infer.tensors
+    stage = st["stages"][0]
+    seen_inputs = {}
+
+    def visit(layer, x) -> None:
+        if layer is stage["blocks"][0]:
+            seen_inputs["norm"] = x.reshape(-1, x.shape[-1])
+        if layer is stage["blocks"][1]:
+            seen_inputs["qkv"] = window_attention_inputs(x, layer, kernels=())
+
+    with torch.inference_mode():
+        swin_trunk(patch_embed(images, st), st, (), on_layer=visit)
+        b0, b1 = stage["blocks"]
+        norm_args = (seen_inputs["norm"], b0["norm1"]["bias_int"], b0["norm1"]["ratio"])
+        e_k3 = max_abs_err(fused_layernorm_requant(*norm_args), fused_layernorm_requant_reference(*norm_args))
+        a = b1["attn"]
+        win_args = (*seen_inputs["qkv"], a["bias"], a["mask"], a["r1"], a["rb"], a["scale"], a["r_out"], b1["heads"])
+        e_k7 = max_abs_err(fused_int8_window_attention(*win_args), fused_int8_window_attention_reference(*win_args))
+        same = torch.equal(infer(images), build_swin_infer(art, dev, kernels=())(images))
+    torch.cuda.synchronize()
+    print(f"{label} artifact: K3 on stage 1 block 0's norm1 input {tuple(norm_args[0].shape)} max_abs_err "
+          f"{e_k3}, K7 on stage 1 block 1's shifted windows {tuple(seen_inputs['qkv'][0].shape)} max_abs_err "
+          f"{e_k7} (tolerance 0); logits of {sorted(infer.kernels)} equal to the plain engine's {same}")
+    check(b1["shift"] > 0 and e_k3 == 0 and e_k7 == 0 and same, f"{label}: a kernel differs from its plain version")
+
+
+def serve_checkpoint(label: str, ckpt: str, train_args: list, out_dir: str, dev) -> dict:
+    """A trainer checkpoint to the served engine, in process: ``quant_train
+    --eval --resume --dump-logits`` (the SIM logits), ``convert_model
+    --checkpoint`` (every flag from the record), ``evaluate_accuracy
+    --dump-logits`` at batch BATCH on the captured engine, with every
+    launch count set to 0 just before it and read just after (K1 + K3 a
+    forward for a ViT, K7 + K3 for a Swin); the engine's logits against
+    the SIM dump (``engine_vs_sim``). Returns the artifact."""
+    import gc
+
+    import torch
+
+    from ivit_tpu_torch import convert_model, evaluate_accuracy, quant_train
+    from ivit_tpu_torch.deploy.graphs import WARMUP
+    from ivit_tpu_torch.kernels import WRAPPERS
+    from ivit_tpu_torch.utils import load_artifact
+
+    t1 = time.perf_counter()
+    os.makedirs(out_dir, exist_ok=True)
+    sim, art_path, eng = (os.path.join(out_dir, f) for f in ("sim.npz", "artifact.pkl", "eng.npz"))
+    device_args = ["--device", str(dev)]
+    quant_train.main([*train_args, *device_args, "--eval", "--resume", ckpt, "--dump-logits", sim,
+                      "--output-dir", out_dir])
+    convert_model.main(["--checkpoint", ckpt, "--output", art_path, *device_args])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label}: quant_train --eval --dump-logits and convert_model --checkpoint {time.perf_counter() - t1:.3f} s")
+    t1 = time.perf_counter()
+    art = load_artifact(art_path)
+    cfg = art["config"]
+    model = train_args[train_args.index("--model") + 1]
+    for w in WRAPPERS.values():
+        w.launches = 0
+    top1, top5, seen = evaluate_accuracy.main(["--model", model, "--artifact", art_path, *CLI_EVAL,
+                                               "--batch-size", str(BATCH), "--dump-logits", eng, *device_args])
+    counts = {k: w.launches for k, w in WRAPPERS.items() if w.launches}
+    if "depths" in cfg:
+        blocks = sum(cfg["depths"])
+        per_forward = {"K7": blocks, "K3": 2 * blocks + len(cfg["depths"])}
+    else:
+        per_forward = {"K1": cfg["depth"], "K3": 2 * cfg["depth"] + 1}
+    print(f"{label} evaluate_accuracy: top1 {100 * top1 / seen} top5 {100 * top5 / seen} over {seen}; "
+          f"launches {counts} through {WARMUP} warm-up forwards and the capture, {per_forward} a forward "
+          f"expected; {time.perf_counter() - t1:.3f} s")
+    check(counts == {k: (WARMUP + 1) * n for k, n in per_forward.items()}, f"{label} evaluate_accuracy: launches {counts}")
+    engine_vs_sim(label, sim, eng, art)
+    return art
+
+
 def zoo_int8_matmul(dev) -> None:
     """``ops.intmm.int8_matmul`` at every GEMM of the registry's models, at
     the row counts the CLIs give it, against the exact product (the full
@@ -847,21 +1034,9 @@ def cli_phase(dev, library_step_ms: float) -> None:
     import numpy as np
     import torch
 
-    from ivit_tpu_torch import convert_model, evaluate_accuracy, quant_train
+    from ivit_tpu_torch import convert_model, quant_train
     from ivit_tpu_torch.data import DataLoader, SyntheticDataset
-    from ivit_tpu_torch.data.transforms import EvalTransform, TrainTransform
-    from ivit_tpu_torch.deploy.engine import attention_inputs, build_vit_infer, embed
-    from ivit_tpu_torch.deploy.graphs import WARMUP
-    from ivit_tpu_torch.deploy.swin_engine import build_swin_infer, patch_embed, swin_trunk, window_attention_inputs
-    from ivit_tpu_torch.kernels import (
-        WRAPPERS,
-        fused_int8_attention,
-        fused_int8_attention_reference,
-        fused_int8_window_attention,
-        fused_int8_window_attention_reference,
-        fused_layernorm_requant,
-        fused_layernorm_requant_reference,
-    )
+    from ivit_tpu_torch.data.transforms import TrainTransform
     from ivit_tpu_torch.nn.flax_state import flatten
     from ivit_tpu_torch.utils import load_artifact, load_checkpoint_raw
 
@@ -943,52 +1118,11 @@ def cli_phase(dev, library_step_ms: float) -> None:
         del params
 
         # 9.2 - 9.5 the SIM logits, the conversion, the engine's accuracy
-        t1 = time.perf_counter()
-        ckpt = d("whole1", "checkpoint.pkl")
-        quant_train.main([*CLI_TRAIN, *CLI_DEIT, *device_args, "--eval", "--resume", ckpt, "--dump-logits",
-                          d("sim.npz"), "--output-dir", d("eval")])
-        convert_model.main(["--checkpoint", ckpt, "--output", d("deit.pkl"), *device_args])
-        gc.collect()
-        torch.cuda.empty_cache()
-        print(f"cli quant_train --eval --dump-logits and convert_model --checkpoint: {time.perf_counter() - t1:.3f} s")
-        t1 = time.perf_counter()
-        for w in WRAPPERS.values():
-            w.launches = 0
-        top1, top5, seen = evaluate_accuracy.main(["--model", CLI_DEIT[1], "--artifact", d("deit.pkl"), *CLI_EVAL,
-                                                   "--batch-size", str(BATCH), "--dump-logits", d("eng.npz"),
-                                                   *device_args])
-        counts = {k: w.launches for k, w in WRAPPERS.items() if w.launches}
-        art = load_artifact(d("deit.pkl"))
-        depth = art["config"]["depth"]
-        per_forward = {"K1": depth, "K3": 2 * depth + 1}
-        print(f"cli evaluate_accuracy {CLI_DEIT[1]}: top1 {100 * top1 / seen} top5 {100 * top5 / seen} over {seen}; "
-              f"launches {counts} through {WARMUP} warm-up forwards and the capture, {per_forward} a forward "
-              f"expected; {time.perf_counter() - t1:.3f} s")
-        check(counts == {k: (WARMUP + 1) * n for k, n in per_forward.items()}, f"cli evaluate_accuracy: launches {counts}")
-        engine_vs_sim(f"cli {CLI_DEIT[1]}", d("sim.npz"), d("eng.npz"), art)
+        art = serve_checkpoint(f"cli {CLI_DEIT[1]}", d("whole1", "checkpoint.pkl"), [*CLI_TRAIN, *CLI_DEIT],
+                               d("serve"), dev)
 
-        # K1 and K3 against their plain versions on the trained artifact's
-        # own inputs (block 0), and the engine against its plain ops
-        images = torch.from_numpy(np.stack([EvalTransform(CLI_SIZE)(SyntheticDataset(BATCH, CLI_SIZE).load(i)[0])
-                                            for i in range(BATCH)])).to(dev)
-        infer = build_vit_infer(art, dev)
-        t, cfg = infer.tensors, art["config"]
-        blk = t["blocks"][0]
-        with torch.inference_mode():
-            x = embed(images, t)
-            norm_args = (x.reshape(-1, cfg["embed_dim"]), blk["norm1"]["bias_int"], blk["norm1"]["ratio"])
-            e_k3 = max_abs_err(fused_layernorm_requant(*norm_args), fused_layernorm_requant_reference(*norm_args))
-            q, k, v = attention_inputs(x, blk, cfg["num_heads"])
-            a = blk["attn"]
-            attn_args = (q, k, v, a["r1"], a["scale"], a["r_out"], int(cfg["softmax_bits"]))
-            e_k1 = max_abs_err(fused_int8_attention(*attn_args), fused_int8_attention_reference(*attn_args))
-            same = torch.equal(infer(images), build_vit_infer(art, dev, kernels=())(images))
-        torch.cuda.synchronize()
-        print(f"cli {CLI_DEIT[1]} artifact: K3 on block 0's norm1 input {tuple(norm_args[0].shape)} max_abs_err {e_k3}, "
-              f"K1 on block 0's q, k, v {tuple(q.shape)} at softmax_bits {cfg['softmax_bits']} max_abs_err {e_k1} "
-              f"(tolerance 0); logits of {sorted(infer.kernels)} equal to the plain engine's {same}")
-        check(e_k3 == 0 and e_k1 == 0 and same, f"cli {CLI_DEIT[1]}: a kernel differs from its plain version")
-        del infer, x, q, k, v
+        images = cli_images(dev)
+        vit_kernels_on_artifact(f"cli {CLI_DEIT[1]}", art, images, dev)
 
         # 9.6 Swin-T: train through python -m, the SIM logits, convert,
         # evaluate one batch on K7 + K3
@@ -1014,39 +1148,342 @@ def cli_phase(dev, library_step_ms: float) -> None:
               f"{time.perf_counter() - t1:.3f} s")
         engine_vs_sim(f"cli {CLI_SWIN[1]}", d("swin_sim.npz"), d("swin_eng.npz"), sart)
 
-        # K7 and K3 against their plain versions on the trained Swin's own
-        # inputs (stage 1: block 0's norm1 input, block 1's shifted and
-        # masked windows), and the engine against its plain ops
-        sinfer = build_swin_infer(sart, dev)
-        st = sinfer.tensors
-        stage = st["stages"][0]
-        seen_inputs = {}
-
-        def visit(layer, x) -> None:
-            if layer is stage["blocks"][0]:
-                seen_inputs["norm"] = x.reshape(-1, x.shape[-1])
-            if layer is stage["blocks"][1]:
-                seen_inputs["qkv"] = window_attention_inputs(x, layer, kernels=())
-
-        with torch.inference_mode():
-            swin_trunk(patch_embed(images, st), st, (), on_layer=visit)
-            b0, b1 = stage["blocks"]
-            norm_args = (seen_inputs["norm"], b0["norm1"]["bias_int"], b0["norm1"]["ratio"])
-            e_k3 = max_abs_err(fused_layernorm_requant(*norm_args), fused_layernorm_requant_reference(*norm_args))
-            a = b1["attn"]
-            win_args = (*seen_inputs["qkv"], a["bias"], a["mask"], a["r1"], a["rb"], a["scale"], a["r_out"],
-                        b1["heads"])
-            e_k7 = max_abs_err(fused_int8_window_attention(*win_args), fused_int8_window_attention_reference(*win_args))
-            same = torch.equal(sinfer(images), build_swin_infer(sart, dev, kernels=())(images))
-        torch.cuda.synchronize()
-        print(f"cli {CLI_SWIN[1]} artifact: K3 on stage 1 block 0's norm1 input {tuple(norm_args[0].shape)} max_abs_err "
-              f"{e_k3}, K7 on stage 1 block 1's shifted windows {tuple(seen_inputs['qkv'][0].shape)} max_abs_err "
-              f"{e_k7} (tolerance 0); logits of {sorted(sinfer.kernels)} equal to the plain engine's {same}")
-        check(b1["shift"] > 0 and e_k3 == 0 and e_k7 == 0 and same, f"cli {CLI_SWIN[1]}: a kernel differs from its plain version")
-        del sinfer, images, seen_inputs
+        swin_kernels_on_artifact(f"cli {CLI_SWIN[1]}", sart, images, dev)
+        del images
     gc.collect()
     torch.cuda.empty_cache()
     print(f"cli phase: {time.perf_counter() - t_phase:.3f} s")
+
+
+def seeded_state_dict(name: str, gen, grid: int = 0) -> dict:
+    """A float checkpoint's state dict in the published layout of registered
+    model ``name`` at CLI_SIZE (DeiT/ViT: timm's; Swin: the official
+    release's, with its ``relative_position_index`` and ``attn_mask``
+    buffers), drawn from the torch generator ``gen``: LayerNorm weights
+    1 + N(0, 0.1²), every other parameter N(0, 0.02²); a ViT's position
+    embedding on a ``grid`` x ``grid`` patch grid."""
+    import numpy as np
+    import torch
+
+    from ivit_tpu_torch.models import create_config
+    from ivit_tpu_torch.models.swin import relative_position_index, stage_geometry, sw_attn_mask
+
+    swin = name.startswith("swin")
+    cfg = create_config(name, img_size=CLI_SIZE, **({"window_size": PRE_WINDOW} if swin else {}))
+    D, p = cfg["embed_dim"], cfg["patch_size"]
+    shapes = {"patch_embed.proj.weight": (D, 3, p, p), "patch_embed.proj.bias": (D,)}
+    buffers = {}
+
+    def norm(prefix, n):
+        shapes[f"{prefix}.weight"], shapes[f"{prefix}.bias"] = (n,), (n,)
+
+    def linear(prefix, n_in, n_out, bias=True):
+        shapes[f"{prefix}.weight"] = (n_out, n_in)
+        if bias:
+            shapes[f"{prefix}.bias"] = (n_out,)
+
+    def block(prefix, dim):
+        hidden = int(dim * cfg["mlp_ratio"])
+        norm(f"{prefix}.norm1", dim)
+        linear(f"{prefix}.attn.qkv", dim, 3 * dim)
+        linear(f"{prefix}.attn.proj", dim, dim)
+        norm(f"{prefix}.norm2", dim)
+        linear(f"{prefix}.mlp.fc1", dim, hidden)
+        linear(f"{prefix}.mlp.fc2", hidden, dim)
+
+    if swin:
+        norm("patch_embed.norm", D)
+        for i, depth in enumerate(cfg["depths"]):
+            dim = D * 2**i
+            for j in range(depth):
+                pre = f"layers.{i}.blocks.{j}"
+                res, ws, shift = stage_geometry(cfg, i, j)
+                block(pre, dim)
+                shapes[f"{pre}.attn.relative_position_bias_table"] = ((2 * ws - 1) ** 2, cfg["num_heads"][i])
+                buffers[f"{pre}.attn.relative_position_index"] = torch.from_numpy(
+                    relative_position_index(ws).astype(np.int64))
+                if shift:
+                    buffers[f"{pre}.attn_mask"] = torch.from_numpy(sw_attn_mask(res, res, ws, shift))
+            if i < len(cfg["depths"]) - 1:
+                norm(f"layers.{i}.downsample.norm", 4 * dim)
+                linear(f"layers.{i}.downsample.reduction", 4 * dim, 2 * dim, bias=False)
+        nf = D * 2 ** (len(cfg["depths"]) - 1)
+    else:
+        shapes["cls_token"], shapes["pos_embed"] = (1, 1, D), (1, grid * grid + 1, D)
+        for i in range(cfg["depth"]):
+            block(f"blocks.{i}", D)
+        nf = D
+    norm("norm", nf)
+    linear("head", nf, cfg["num_classes"])
+    sd = {}
+    for key, shape in shapes.items():
+        t = torch.randn(shape, generator=gen)
+        sd[key] = 1 + 0.1 * t if len(shape) == 1 and key.endswith(".weight") else 0.02 * t
+    return {**sd, **buffers}
+
+
+def seeded_augreg_npz(name: str, rng) -> dict:
+    """An augreg ``.npz`` checkpoint's arrays for registered ViT ``name``
+    at CLI_SIZE, drawn from the numpy generator ``rng`` as
+    ``seeded_state_dict`` draws."""
+    import numpy as np
+
+    from ivit_tpu_torch.models import create_config
+
+    cfg = create_config(name, img_size=CLI_SIZE)
+    D, H, p = cfg["embed_dim"], cfg["num_heads"], cfg["patch_size"]
+    hd, hidden = D // H, int(D * cfg["mlp_ratio"])
+    shapes = {"cls": (1, 1, D), "Transformer/posembed_input/pos_embedding": (1, (CLI_SIZE // p) ** 2 + 1, D),
+              "embedding/kernel": (p, p, 3, D), "embedding/bias": (D,), "Transformer/encoder_norm/scale": (D,),
+              "Transformer/encoder_norm/bias": (D,), "head/kernel": (D, cfg["num_classes"]),
+              "head/bias": (cfg["num_classes"],)}
+    for i in range(cfg["depth"]):
+        src = f"Transformer/encoderblock_{i}"
+        att = f"{src}/MultiHeadDotProductAttention_1"
+        for ln in ("LayerNorm_0", "LayerNorm_2"):
+            shapes[f"{src}/{ln}/scale"], shapes[f"{src}/{ln}/bias"] = (D,), (D,)
+        for n in ("query", "key", "value"):
+            shapes[f"{att}/{n}/kernel"], shapes[f"{att}/{n}/bias"] = (D, H, hd), (H, hd)
+        shapes[f"{att}/out/kernel"], shapes[f"{att}/out/bias"] = (H, hd, D), (D,)
+        shapes[f"{src}/MlpBlock_3/Dense_0/kernel"], shapes[f"{src}/MlpBlock_3/Dense_0/bias"] = (D, hidden), (hidden,)
+        shapes[f"{src}/MlpBlock_3/Dense_1/kernel"], shapes[f"{src}/MlpBlock_3/Dense_1/bias"] = (hidden, D), (D,)
+    out = {}
+    for key, shape in shapes.items():
+        t = rng.standard_normal(shape, dtype=np.float32)
+        out[key] = (1 + np.float32(0.1) * t) if key.endswith("/scale") else np.float32(0.02) * t
+    return out
+
+
+def leaves_equal(label: str, got: dict, want: dict) -> int:
+    """Every leaf of the nested ``want`` in ``got`` under the same path,
+    bit for bit, and no other; returns the count."""
+    import numpy as np
+
+    from ivit_tpu_torch.nn.flax_state import flatten
+
+    got, want = flatten(got), flatten(want)
+    check(got.keys() == want.keys(), f"{label}: leaves {sorted(set(got) ^ set(want))[:6]} on one side only")
+    bad = [k for k in want if not np.array_equal(got[k], want[k])]
+    check(not bad, f"{label}: leaves differ from the checkpoint's: {bad[:6]}")
+    return len(want)
+
+
+def fast_matmul_phase(model, images, dev) -> None:
+    """One train-mode step of the calibrated ``model`` (a DeiT-S QAT model
+    on imported weights) with ``--fast-matmul``'s switch off and on, on
+    the same batch: logits and loss bit-equal, every gradient within
+    FAST_GRAD_RTOL of its float32 value; then the trainer's step
+    (``make_train_step``, AdamW, the EMA) timed each way in turns."""
+    import copy
+
+    import torch
+
+    from ivit_tpu_torch.nn import quant
+    from ivit_tpu_torch.train import AdamW, create_train_state, make_train_step, soft_target_cross_entropy
+
+    x = images[:TRAIN_BATCH]
+    classes = model.config["num_classes"]
+    targets = torch.full((TRAIN_BATCH, classes), TRAIN_SMOOTHING / classes, device=dev)
+    targets[torch.arange(TRAIN_BATCH), torch.arange(TRAIN_BATCH) % classes] += 1 - TRAIN_SMOOTHING
+    runs = {}
+    try:
+        for fast in (False, True):
+            quant.SIM_FAST_MATMUL = fast
+            m = copy.deepcopy(model)
+            logits = m(x, train=True)
+            loss = soft_target_cross_entropy(logits, targets)
+            grads = torch.autograd.grad(loss, list(m.parameters()), materialize_grads=True)
+            runs[fast] = logits.detach(), loss.detach(), [g.detach() for g in grads]
+            del m, logits, loss, grads
+        names = [n for n, _ in model.named_parameters()]
+        worst, worst_name = max((float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30), n)
+                                for n, a, b in zip(names, runs[True][2], runs[False][2]))
+        same = torch.equal(runs[True][0], runs[False][0]) and torch.equal(runs[True][1], runs[False][1])
+        print(f"fast-matmul: {PRE_DEIT} step at batch {TRAIN_BATCH}: logits and loss bit-equal to the float32 step's "
+              f"{same} (loss {float(runs[False][1])}); gradients off the float32 ones by at most {worst} of a leaf's "
+              f"largest entry ({worst_name}; bound {FAST_GRAD_RTOL})")
+        check(same, "fast-matmul: the forward differs from the float32 step's")
+        check(worst <= FAST_GRAD_RTOL, f"fast-matmul: gradients beyond {FAST_GRAD_RTOL} ({worst_name})")
+        del runs
+
+        steps = {}
+        for fast in (False, True):
+            m = copy.deepcopy(model)
+            state = create_train_state(m, AdamW(TRAIN_LR, weight_decay=TRAIN_WD), ema_decay=TRAIN_EMA, device=dev)
+            steps[fast] = (state, make_train_step(m, ema_decay=TRAIN_EMA))
+        times = {False: [], True: []}
+        for fast in (False, True, True, False):
+            quant.SIM_FAST_MATMUL = fast
+            state, step = steps[fast]
+            times[fast].append(cuda_ms(lambda: step(state, x, targets), TRAIN_STEPS, warmup=1))
+        print(f"fast-matmul: {PRE_DEIT} train step at batch {TRAIN_BATCH}, turns float32, fast, fast, float32 (CUDA "
+              f"events over {TRAIN_STEPS} steps after a warm-up): float32 {times[False]} ms, --fast-matmul "
+              f"{times[True]} ms; ratio {sum(times[False]) / sum(times[True])}")
+    finally:
+        quant.SIM_FAST_MATMUL = False
+
+
+def pretrained_phase(dev) -> None:
+    """Phase 10: float checkpoints imported, calibrated, fine-tuned,
+    frozen and served; the float models (module docstring)."""
+    import copy
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ivit_tpu_torch import quant_train
+    from ivit_tpu_torch.models import create_model
+    from ivit_tpu_torch.models.import_swin import torch_swin_to_params
+    from ivit_tpu_torch.models.import_torch import (
+        load_pretrained,
+        merge_params,
+        npz_vit_to_params,
+        resize_pos_embed,
+        torch_vit_to_params,
+    )
+    from ivit_tpu_torch.models.swin_float import swin_quant_params_to_float
+    from ivit_tpu_torch.models.vit_float import quant_params_to_float
+    from ivit_tpu_torch.nn import flax_variables, load_flax_variables
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(torch.get_float32_matmul_precision() == "highest", "phase 10: float32 matmuls would use TF32")
+    gen = torch.Generator().manual_seed(SEED)
+    images = torch.from_numpy(np.random.default_rng(SEED).standard_normal((BATCH, CLI_SIZE, CLI_SIZE, 3),
+                                                                           dtype=np.float32)).to(dev)
+    served_images = cli_images(dev)
+    device_args = ["--device", str(dev)]
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in (PRE_DEIT, PRE_SWIN):
+            swin = name.startswith("swin")
+            geometry = {"window_size": PRE_WINDOW} if swin else {}
+            t1 = time.perf_counter()
+            sd = seeded_state_dict(name, gen, grid=0 if swin else PRE_GRID)
+            path = os.path.join(tmp, f"{name}.pth")
+            torch.save({"model": sd}, path)
+
+            # 10.1 the import, by load_pretrained, into the QAT model on the card
+            qat = create_model(name, dev, seed=SEED, drop_path_rate=0.0, img_size=CLI_SIZE, **geometry)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            load_pretrained(path, name, qat)
+            torch.cuda.synchronize()
+            import_ms = (time.perf_counter() - t0) * 1e3
+            want = (torch_swin_to_params if swin else torch_vit_to_params)(sd)
+            ntok = 0
+            if not swin:
+                ntok = qat.pos_embed.shape[1]
+                want["pos_embed"] = resize_pos_embed(want["pos_embed"], ntok)
+            imported = flax_variables(qat)["params"]
+            n_leaves = leaves_equal(f"{name} import", imported, want)
+            print(f"pretrained {name}: a {os.path.getsize(path)}-byte .pth ({{'model': state dict}}, "
+                  f"{len(sd)} entries) imported by load_pretrained in {import_ms} ms (host clock, to the card); "
+                  f"all {n_leaves} parameter leaves equal to the importer's tree on the CPU")
+            if not swin:
+                grid_old, grid_new = PRE_GRID, round((ntok - 1) ** 0.5)
+                g = sd["pos_embed"][:, 1:].reshape(1, grid_old, grid_old, -1).permute(0, 3, 1, 2).to(dev)
+                ref = torch.nn.functional.interpolate(g, size=(grid_new, grid_new), mode="bicubic",
+                                                      align_corners=False)
+                ref = ref.permute(0, 2, 3, 1).reshape(1, -1, g.shape[1]).cpu()
+                e_interp = float((qat.pos_embed[:, 1:].detach().cpu() - ref).abs().max())
+                print(f"pretrained {name}: pos_embed {tuple(sd['pos_embed'].shape)} -> {tuple(qat.pos_embed.shape)} "
+                      f"(bicubic, A = -0.75) bit-equal to the CPU's resize; F.interpolate on the card differs by "
+                      f"{e_interp} (float32 rounding: its own order of multiply-adds)")
+                check(e_interp <= 4e-6 + 1e-5 * float(ref.abs().max()), f"{name}: the resize is off torch's bicubic")
+
+            # 10.2 the float model on the same weights, by the library path
+            fm = create_model(f"{name}_fp32", dev, seed=SEED, img_size=CLI_SIZE, **geometry)
+            rekeyed = (swin_quant_params_to_float if swin else quant_params_to_float)(imported)
+            load_flax_variables(fm, {"params": merge_params(flax_variables(fm)["params"], rekeyed)})
+            leaves_equal(f"{name}_fp32 load", flax_variables(fm)["params"], rekeyed)
+            with torch.no_grad():
+                f_logits = fm(images)
+                float_ms = cuda_ms(lambda: fm(images), FLOAT_ITERS)
+                f_cpu = copy.deepcopy(fm).cpu()(images[:2].cpu())
+            e_float = float((f_logits[:2].cpu() - f_cpu).abs().max())
+            bound = FLOAT_TOL + FLOAT_TOL * f_cpu.abs()
+            print(f"pretrained {name}_fp32: {float_ms} ms a batch-{BATCH} forward (CUDA events over {FLOAT_ITERS}, "
+                  f"TF32 off; the bench's true-FP32 DeiT-S leg read 40.93 ms in PERF.md §2); logits of images 0-1 "
+                  f"against the CPU max_abs_err {e_float} (|logit| up to {float(f_cpu.abs().max())}; rtol = atol = "
+                  f"{FLOAT_TOL})")
+            check(bool(torch.isfinite(f_logits).all()) and bool(((f_logits[:2].cpu() - f_cpu).abs() <= bound).all()),
+                  f"{name}_fp32: the card's logits are off the CPU's")
+            del f_cpu
+
+            # 10.3 the SIM model calibrated on the import, against the float model
+            with torch.no_grad():
+                for i in range(PRE_CALIB):
+                    qat(images[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH], train=True)
+                s_logits = qat(images)
+            corr = float(np.corrcoef(f_logits.cpu().numpy().ravel(), s_logits.cpu().numpy().ravel())[0, 1])
+            agree = float((f_logits.argmax(-1) == s_logits.argmax(-1)).float().mean())
+            print(f"pretrained {name}: INT8 SIM (ranges from {PRE_CALIB} batches of {TRAIN_BATCH}) against the float "
+                  f"model on {BATCH} images: logit correlation {corr} (bound > {SIM_FLOAT_CORR}), top-1 agreement "
+                  f"{agree}")
+            check(corr > SIM_FLOAT_CORR, f"{name}: the SIM logits do not follow the float model's")
+            del fm, f_logits, s_logits
+
+            if not swin:
+                fast_matmul_phase(qat, images, dev)
+            del qat
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # 10.4 the CLI: --pretrained with calibration, a few steps, then served
+            batch = PRE_SWIN_BATCH if swin else CLI_TRAIN_BATCH
+            train_args = [*CLI_TRAIN, "--model", name, "--batch-size", str(batch),
+                          "--max-steps-per-epoch", str(PRE_STEPS), "--epochs", "1",
+                          *(["--window-size", str(PRE_WINDOW)] if swin else [])]
+            out_dir = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            quant_train.main([*train_args, *device_args, "--pretrained", path, "--calib-batches", str(PRE_CALIB),
+                              "--output-dir", out_dir])
+            losses = epoch_losses(os.path.join(out_dir, "log.log"), 0)
+            print(f"pretrained {name}: quant_train --pretrained --calib-batches {PRE_CALIB}, {PRE_STEPS} steps at "
+                  f"batch {batch} and the validation: losses {losses}, {time.perf_counter() - t0:.3f} s")
+            check(len(losses) == PRE_STEPS and all(math.isfinite(v) for v in losses), f"{name}: losses {losses}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            art = serve_checkpoint(f"pretrained {name}", os.path.join(out_dir, "checkpoint.pkl"), train_args,
+                                   os.path.join(out_dir, "serve"), dev)
+            (swin_kernels_on_artifact if swin else vit_kernels_on_artifact)(f"pretrained {name}", art,
+                                                                              served_images, dev)
+            del sd, art
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"pretrained {name}: {time.perf_counter() - t1:.3f} s")
+
+        # 10.5 a float model through the CLI
+        t0 = time.perf_counter()
+        out_dir = os.path.join(tmp, "fp32")
+        quant_train.main([*CLI_TRAIN, "--model", f"{PRE_DEIT}_fp32", "--batch-size", str(CLI_TRAIN_BATCH),
+                          "--max-steps-per-epoch", str(PRE_STEPS), "--epochs", "1", *device_args,
+                          "--output-dir", out_dir])
+        losses = epoch_losses(os.path.join(out_dir, "log.log"), 0)
+        print(f"pretrained {PRE_DEIT}_fp32: quant_train {PRE_STEPS} steps at batch {CLI_TRAIN_BATCH} and the "
+              f"validation: losses {losses}, {time.perf_counter() - t0:.3f} s")
+        check(len(losses) == PRE_STEPS and all(math.isfinite(v) for v in losses), f"{PRE_DEIT}_fp32: losses {losses}")
+
+        # 10.6 an augreg .npz into a ViT
+        arrays = seeded_augreg_npz(PRE_NPZ, np.random.default_rng(SEED))
+        path = os.path.join(tmp, f"{PRE_NPZ}.npz")
+        np.savez(path, **arrays)
+        model = create_model(PRE_NPZ, dev, seed=SEED, img_size=CLI_SIZE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_pretrained(path, PRE_NPZ, model)
+        torch.cuda.synchronize()
+        import_ms = (time.perf_counter() - t0) * 1e3
+        n_leaves = leaves_equal(f"{PRE_NPZ} npz import", flax_variables(model)["params"],
+                                npz_vit_to_params(arrays, model.config["depth"]))
+        print(f"pretrained {PRE_NPZ}: a {os.path.getsize(path)}-byte augreg .npz imported by load_pretrained in "
+              f"{import_ms} ms (host clock, to the card); all {n_leaves} parameter leaves equal to the importer's")
+        del model, arrays
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"pretrained phase: {time.perf_counter() - t_phase:.3f} s")
 
 
 def main() -> int:
@@ -1908,6 +2345,11 @@ def main() -> int:
     # 9. the trainer's entry points
     torch.cuda.empty_cache()
     cli_phase(dev, library_step_ms)
+    print(f"chip_smoke so far {time.perf_counter() - t_main:.3f} s")
+
+    # 10. pretrained import and the float models
+    torch.cuda.empty_cache()
+    pretrained_phase(dev)
     print(f"chip_smoke so far {time.perf_counter() - t_main:.3f} s")
 
     big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",

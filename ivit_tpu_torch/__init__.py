@@ -24,7 +24,9 @@ its module paths and function names so each counterpart is easy to find:
   capture as CUDA graphs, and the ingester of the reference's trained
   checkpoints.
 * ``models/``  — the ViT/DeiT and Swin configuration tables, Swin's
-  window geometry, and the QAT ``VisionTransformer`` (``create_model``).
+  window geometry, the QAT ``VisionTransformer`` and ``SwinTransformer``
+  and their float baselines (``create_model``, the ``*_fp32`` names),
+  and the importers of pretrained torch and augreg checkpoints.
 * ``utils/``   — artifact pickling.
 * ``bench``, ``evaluate_latency``, ``convert_model`` — the serving CLIs,
   run as ``python -m ivit_tpu_torch.<name>``.

@@ -4,6 +4,7 @@ from .quant import (
     IntLayerNorm,
     IntSoftmax,
     QuantAct,
+    QuantConv2d,
     QuantLinear,
     QuantPatchEmbed,
     exact_int8_dot,
@@ -21,6 +22,7 @@ __all__ = [
     "IntSoftmax",
     "Mlp",
     "QuantAct",
+    "QuantConv2d",
     "QuantLinear",
     "QuantPatchEmbed",
     "drop_path",

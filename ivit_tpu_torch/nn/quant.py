@@ -14,14 +14,18 @@ Counterpart of ``ivit_tpu/nn/quant.py``:
   16 × 8 bits).
 * ``QuantPatchEmbed`` — the stride = kernel patch convolution as
   space-to-depth and one ``QuantLinear``.
+* ``QuantConv2d`` — a general NHWC convolution with per-out-channel
+  int8 weights (no model uses it; the models' only convolution is the
+  patch embedding): im2col and the exact int8 dot.
 * ``IntLayerNorm``, ``IntGELU``, ``IntSoftmax`` — the integer ops as
   modules.
 
 The exact dots run their forward on integers (``torch._int_mm``, or
 float64 products of integers, which are exact below 2^53) and their
 backward as float32 matmuls with TF32 off, as JAX's
-``Precision.HIGHEST`` backward does. ``QuantConv2d`` waits: no model
-uses it.
+``Precision.HIGHEST`` backward does. ``SIM_FAST_MATMUL`` (``quant_train
+--fast-matmul``) turns that backward into JAX's ``Precision.DEFAULT`` on
+the TPU: bf16-rounded operands summed in float32.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.qtensor import QTensor
@@ -91,6 +96,13 @@ class QuantAct(nn.Module):
         return QTensor(q, scale, self.bits)
 
 
+# Set by ``quant_train --fast-matmul`` (JAX's ``SIM_FAST_MATMUL``): the
+# exact dots' backward GEMMs take bf16-rounded operands and sum in
+# float32, JAX's ``Precision.DEFAULT`` on the TPU; the forward stays
+# integer-exact. It is read when a backward runs.
+SIM_FAST_MATMUL = False
+
+
 @contextlib.contextmanager
 def _fp32_highest():
     """Float32 matmuls in true float32 (no TF32) for the block, as JAX's
@@ -101,6 +113,40 @@ def _fp32_highest():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+@contextlib.contextmanager
+def _bf16_full_reduction():
+    """cuBLAS sums bf16 GEMMs in float32 for the block (no reduced-
+    precision split-K reduction); the process's setting is restored after."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = prev
+
+
+def backward_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (a: (..., M, K); b: (K, N), or (..., K, N) with a's batch
+    axes) for an exact dot's backward: float32 with TF32 off, or under
+    ``SIM_FAST_MATMUL`` the operands rounded to bf16 and summed in float32
+    (on the card a bf16 GEMM with a float32 result; on the CPU the
+    rounded operands back in float32, whose products are exact)."""
+    if not SIM_FAST_MATMUL:
+        with _fp32_highest():
+            return torch.matmul(a, b)
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if not a.is_cuda:
+        with _fp32_highest():
+            return torch.matmul(a16.to(torch.float32), b16.to(torch.float32))
+    with _bf16_full_reduction():
+        if b.dim() == 2:
+            out = torch.mm(a16.reshape(-1, a.shape[-1]), b16, out_dtype=torch.float32)
+        else:
+            out = torch.bmm(a16.reshape(-1, *a.shape[-2:]), b16.reshape(-1, *b.shape[-2:]), out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
 
 
 class _ExactInt8Dot(torch.autograd.Function):
@@ -125,9 +171,8 @@ class _ExactInt8Dot(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         g2 = g.reshape(-1, g.shape[-1])
-        with _fp32_highest():
-            dx = torch.matmul(g, w.T)
-            dw = torch.matmul(x.reshape(-1, x.shape[-1]).T, g2)
+        dx = backward_matmul(g, w.T)
+        dw = backward_matmul(x.reshape(-1, x.shape[-1]).T, g2)
         return dx, dw, (g2.sum(0) if ctx.has_bias else None)
 
 
@@ -159,8 +204,7 @@ class _ExactIntMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        with _fp32_highest():
-            return torch.matmul(g, b.transpose(-1, -2)), torch.matmul(a.transpose(-1, -2), g)
+        return backward_matmul(g, b.transpose(-1, -2)), backward_matmul(a.transpose(-1, -2), g)
 
 
 def exact_int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -223,6 +267,54 @@ class QuantPatchEmbed(nn.Module):
         gh, gw = H // p, W // p
         q = x.q.reshape(B, gh, p, gw, p, C).permute(0, 1, 3, 2, 4, 5).reshape(B, gh * gw, p * p * C)
         return self.proj(QTensor(q, x.scale, x.bits))
+
+
+class QuantConv2d(nn.Module):
+    """General quantized NHWC convolution, per-out-channel int8 weights:
+    the kernel ``(kh, kw, in, out)`` as flax stores it, the bias quantized
+    at ``w_scale · s_in``, the output the int32-valued accumulator at
+    that per-channel scale. ``padding`` is ``"VALID"`` or ``"SAME"``
+    (XLA's: the extra row or column, if any, at the end).
+
+    JAX convolves in float32 at ``HIGHEST`` on the integer values, which
+    is exact while its sums stay below 2^24. Here im2col (``F.unfold``)
+    and the exact int8 dot give the int32 sums at any size, so the two
+    agree wherever JAX's are exact; the backward is the exact dot's
+    (float32 with TF32 off) through ``F.unfold``'s."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: tuple, strides: tuple = (1, 1),
+                 padding: str = "VALID", use_bias: bool = True, weight_bits: int = 8, bias_bits: int = 32):
+        super().__init__()
+        if padding not in ("VALID", "SAME"):
+            raise ValueError(f"padding {padding!r}: VALID or SAME")
+        self.kernel_size, self.strides, self.padding = tuple(kernel_size), tuple(strides), padding
+        self.weight_bits, self.bias_bits = weight_bits, bias_bits
+        kh, kw = self.kernel_size
+        self.kernel = nn.Parameter(trunc_normal_(torch.empty(kh, kw, in_features, features), 0.02))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: QTensor) -> QTensor:
+        (kh, kw), (sh, sw) = self.kernel_size, self.strides
+        w_scale = weight_scale(self.kernel.permute(3, 0, 1, 2), self.weight_bits)  # (out,)
+        w_int = quantize(self.kernel, w_scale, self.weight_bits)
+        out_scale = w_scale * x.scale.detach()
+
+        q = x.q.permute(0, 3, 1, 2)  # NCHW for F.unfold
+        B, C, H, W = q.shape
+        if self.padding == "SAME":
+            pads = []
+            for n, k, s in ((W, kw, sw), (H, kh, sh)):
+                total = max((-(-n // s) - 1) * s + k - n, 0)
+                pads += [total // 2, total - total // 2]
+            q = F.pad(q, pads)
+        Ho, Wo = (q.shape[2] - kh) // sh + 1, (q.shape[3] - kw) // sw + 1
+        cols = F.unfold(q, (kh, kw), stride=(sh, sw)).transpose(1, 2)  # (B, L, C·kh·kw), rows (c, i, j)
+        w_mat = w_int.permute(2, 0, 1, 3).reshape(C * kh * kw, -1)
+        if self.bias is not None:
+            y = exact_int8_dot_bias(cols, w_mat, quantize(self.bias, out_scale, self.bias_bits))
+        else:
+            y = exact_int8_dot(cols, w_mat)
+        return QTensor(y.reshape(B, Ho, Wo, -1), out_scale, 32)
 
 
 class IntLayerNorm(nn.Module):

@@ -21,10 +21,18 @@ loader seeds each sample by ``(seed, epoch, position, index)``; so a run
 resumed at epoch e repeats the uninterrupted run's epoch e.
 ``--aa none --color-jitter 0`` runs the input pipeline without Pillow.
 
-The multi-device flags (``--mesh-model`` > 1, ``--seq-parallel``,
-``--pipe`` > 1, ``--zero1``, ``--distributed``), ``--pretrained`` and
-``--fast-matmul`` exit with a message naming the ``ROADMAP.md`` item
-that ports them.
+``--pretrained <path>`` imports a float checkpoint (torch ``.pth`` or
+``.pth.tar``, augreg ``.npz``) into the QAT model after the state is
+built, as JAX does; its activation ranges then start at zero, so pass
+``--calib-batches``. ``--fast-matmul`` runs the exact dots' backward on
+bf16-rounded operands (``nn.quant.SIM_FAST_MATMUL``) for the run. The
+``*_fp32`` names train and evaluate the float models through the same
+loop.
+
+``--pretrained auto`` (a download) and ``--pretrained`` with a
+``*_fp32`` name exit, each saying why; so do the multi-device flags
+(``--mesh-model`` > 1, ``--seq-parallel``, ``--pipe`` > 1, ``--zero1``,
+``--distributed``), naming the ``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
@@ -35,16 +43,15 @@ import os
 import signal
 import time
 
-# ROADMAP.md §1 items that port what this CLI refuses
-_PRETRAINED_ITEM = "ROADMAP.md §1 item 3 (float models and pretrained import)"
-_FAST_MATMUL_ITEM = "ROADMAP.md §1 item 4 (--fast-matmul)"
+# the ROADMAP.md §1 item that ports what this CLI refuses
 _MULTI_GPU_ITEM = "ROADMAP.md §1 item 8 (multi-GPU)"
 
 
 def build_parser():
     p = argparse.ArgumentParser("I-ViT QAT (PyTorch)")
     p.add_argument("--model", default="deit_tiny",
-                   help="deit_tiny|deit_small|deit_base|vit_base|vit_large|swin_tiny|swin_small|swin_base")
+                   help="deit_tiny|deit_small|deit_base|vit_base|vit_large|swin_tiny|swin_small|swin_base, or a "
+                        "float baseline: the same names with _fp32")
     p.add_argument("--data", metavar="DIR", default="/dataset/imagenet/")
     p.add_argument("--data-set", default="IMNET", choices=["CIFAR100", "IMNET", "SYNTHETIC"])
     p.add_argument("--nb-classes", default=1000, type=int)
@@ -104,18 +111,21 @@ def build_parser():
     p.add_argument("--pipe-microbatches", type=int, default=0, help="GPipe microbatches per step (with --pipe)")
     p.add_argument("--zero1", action="store_true", help=f"sharded optimizer state; comes with {_MULTI_GPU_ITEM}")
     p.add_argument("--pretrained", type=str, default="",
-                   help=f"a float checkpoint to import; comes with {_PRETRAINED_ITEM}")
+                   help="path to a torch (.pth, .pth.tar) or augreg (.npz) float checkpoint to import into the QAT "
+                        "model (pass --calib-batches too: imported ranges start at zero)")
     p.add_argument("--profile-steps", type=int, default=0,
                    help="capture a torch.profiler trace of steps [10, 10+N) of epoch 0 into <output-dir>/profile")
     p.add_argument("--max-steps-per-epoch", type=int, default=0, help="truncate each epoch after N steps (smoke tests)")
-    p.add_argument("--eval", action="store_true", help="evaluate only (with --resume); no training")
+    p.add_argument("--eval", action="store_true", help="evaluate only (with --resume or --pretrained); no training")
     p.add_argument("--dump-logits", default="",
                    help="with --eval: save per-image simulator logits + labels to this .npz (val order is "
                         "sequential, so the file aligns image for image with evaluate_accuracy --dump-logits)")
     p.add_argument("--calib-batches", type=int, default=0,
                    help="before eval/training, run N train batches with EMA range updates to calibrate "
                         "activation scales")
-    p.add_argument("--fast-matmul", action="store_true", help=f"bf16 backward matmuls; comes with {_FAST_MATMUL_ITEM}")
+    p.add_argument("--fast-matmul", action="store_true",
+                   help="the exact dots' backward GEMMs on bf16-rounded operands summed in float32; the forward "
+                        "stays integer-exact")
     p.add_argument("--window-size", type=int, default=7,
                    help="Swin window size (every stage resolution must divide by it)")
     p.add_argument("--softmax-bits", type=int, default=16, choices=(8, 16),
@@ -153,10 +163,19 @@ def check_resume_spec(extra: dict, ckpt_meta: dict, model_name: str):
 
 
 def refuse_unported(args) -> None:
-    """Exit with a message for a flag whose port has not landed."""
-    refused = [(args.pretrained, "--pretrained", _PRETRAINED_ITEM),
-               (args.fast_matmul, "--fast-matmul", _FAST_MATMUL_ITEM),
-               (args.mesh_model > 1, "--mesh-model > 1", _MULTI_GPU_ITEM),
+    """Exit with a message for a flag whose port has not landed, or a
+    ``--pretrained`` this CLI does not take."""
+    if args.pretrained == "auto":
+        from .models.import_torch import NO_DOWNLOAD
+
+        raise SystemExit(NO_DOWNLOAD)
+    if args.pretrained and args.model.endswith("_fp32"):
+        raise SystemExit(f"--pretrained with {args.model}: the importers give the QAT model's nested tree, which a "
+                         "float model's flat names do not match, so JAX's CLI keeps all but cls_token and "
+                         "pos_embed at their random init (ROADMAP.md §3 item 9). Load a float model by the library "
+                         "path: torch_vit_to_params (or torch_swin_to_params) -> quant_params_to_float (or "
+                         "swin_quant_params_to_float) -> merge_params -> nn.load_flax_variables")
+    refused = [(args.mesh_model > 1, "--mesh-model > 1", _MULTI_GPU_ITEM),
                (args.seq_parallel, "--seq-parallel", _MULTI_GPU_ITEM),
                (args.pipe > 1, "--pipe > 1", _MULTI_GPU_ITEM),
                (args.zero1, "--zero1", _MULTI_GPU_ITEM),
@@ -185,6 +204,19 @@ def main(argv=None):
     args.min_lr = args.lr / 15.0
     refuse_unported(args)
 
+    from .nn import quant
+
+    # --fast-matmul holds for this run only: an in-process caller's later
+    # runs and backward passes see the switch as it was
+    prev_fast = quant.SIM_FAST_MATMUL
+    quant.SIM_FAST_MATMUL = args.fast_matmul
+    try:
+        return _run(args)
+    finally:
+        quant.SIM_FAST_MATMUL = prev_fast
+
+
+def _run(args):
     import numpy as np
     import torch
 
@@ -223,14 +255,12 @@ def main(argv=None):
     model = create_model(args.model, device, seed=args.seed, **model_kwargs)
     # Recorded in every checkpoint so convert_model rebuilds the exact
     # model the scales were trained for; a Swin's probabilities are 8-bit
-    # by spec, so its record says 8 whatever the (ViT) flag says.
-    ckpt_meta = {
-        "model": args.model,
-        "input_size": args.input_size,
-        "nb_classes": args.nb_classes,
-        "softmax_bits": 8 if args.model.startswith("swin") else args.softmax_bits,
-        "gelu_stable": bool(args.gelu_stable),
-    }
+    # by spec, so its record says 8 whatever the (ViT) flag says. A float
+    # model has neither property.
+    ckpt_meta = {"model": args.model, "input_size": args.input_size, "nb_classes": args.nb_classes}
+    if not args.model.endswith("_fp32"):
+        ckpt_meta["softmax_bits"] = 8 if args.model.startswith("swin") else args.softmax_bits
+        ckpt_meta["gelu_stable"] = bool(args.gelu_stable)
     if args.model.startswith("swin"):
         ckpt_meta["window_size"] = args.window_size
 
@@ -246,6 +276,14 @@ def main(argv=None):
         raise ValueError(f"unknown optimizer {args.opt!r}")
     ema_decay = args.model_ema_decay if args.model_ema else 0.0
     state = create_train_state(model, tx, ema_decay=ema_decay, device=device)
+
+    if args.pretrained:
+        # into the live parameters, after the state is built, as JAX's CLI
+        # does: an EMA copy keeps the initial weights
+        from .models.import_torch import load_pretrained
+
+        load_pretrained(args.pretrained, args.model, state.model)
+        logging.info("imported pretrained weights from %s", args.pretrained)
 
     start_epoch, best_acc1 = args.start_epoch, args.best_acc1
     if args.resume:

@@ -918,3 +918,56 @@ def test_trainer_entry_points_on_the_card(dev, tmp_path, capsys):
         head = float(np.max(pickle.load(f)["head"]["out_scale"]))
     assert np.abs(sim["logits"][:32] - eng["logits"]).max() <= 4 * head
     np.testing.assert_array_equal(sim["logits"][:32].argmax(-1), eng["logits"].argmax(-1))
+
+
+FLOAT_TINY = {"deit_tiny_fp32": dict(img_size=32, patch_size=8, num_classes=10, embed_dim=64, depth=2, num_heads=4),
+              "swin_tiny_fp32": dict(img_size=32, patch_size=2, num_classes=10, embed_dim=16, depths=(2, 2),
+                                     num_heads=(2, 4), window_size=4)}
+
+
+@pytest.mark.parametrize("name", sorted(FLOAT_TINY))
+def test_float_model_on_card_matches_cpu(dev, name):
+    """A float model on the card, TF32 off, against the CPU from the same
+    seed: within 1e-5 (rtol = atol) of the CPU's logits (float32 sums in
+    other orders, and the card's own ``erf``, ``exp`` and ``rsqrt``)."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((4, 32, 32, 3)).astype(np.float32))
+    assert not torch.backends.cuda.matmul.allow_tf32
+    with torch.no_grad():
+        card = create_model(name, dev, seed=3, **FLOAT_TINY[name])(x.to(dev)).cpu()
+        host = create_model(name, "cpu", seed=3, **FLOAT_TINY[name])(x)
+    torch.testing.assert_close(card, host, rtol=1e-5, atol=1e-5)
+
+
+def test_fast_matmul_backward_on_card(dev, monkeypatch):
+    """``SIM_FAST_MATMUL`` on the card: the backward of the exact dots is a
+    bf16 GEMM with a float32 result, within float32 summation order
+    (2·(K−1)·2^-24·Σ|aᵢ·bᵢ|) of the CPU's bf16-rounded float32 product,
+    the forward unchanged, and cuBLAS's reduced-precision bf16 reduction
+    setting as it was."""
+    from ivit_tpu_torch.nn import exact_int8_dot_bias, exact_int_matmul, quant
+
+    monkeypatch.setattr(quant, "SIM_FAST_MATMUL", True)
+    rng = np.random.default_rng(7)
+    cases = [(lambda a, b: exact_int8_dot_bias(a, b, torch.zeros(b.shape[1], device=a.device)),
+              rng.integers(-128, 128, (3, 50, 384)), rng.integers(-128, 128, (384, 1536)), (3, 50, 1536)),
+             (exact_int_matmul, rng.integers(-2**15, 2**15, (2, 6, 197, 197)), rng.integers(-128, 128, (2, 6, 197, 64)),
+              (2, 6, 197, 64))]
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    for fn, a, b, out_shape in cases:
+        a, b = torch.from_numpy(a.astype(np.float32)), torch.from_numpy(b.astype(np.float32))
+        g = torch.from_numpy(rng.standard_normal(out_shape).astype(np.float32))
+        grads = {}
+        for where in ("cpu", dev):
+            at, bt = a.to(where).requires_grad_(), b.to(where).requires_grad_()
+            y = fn(at, bt)
+            grads[str(where)] = (y.detach().cpu(), *(t.cpu() for t in torch.autograd.grad(y, (at, bt), g.to(where))))
+        card, host = grads[str(dev)], grads["cpu"]
+        assert torch.equal(card[0], host[0])
+        for i, (lhs, rhs) in ((1, (g, b.transpose(-1, -2))), (2, (a.transpose(-1, -2), g))):
+            if i == 2 and b.dim() == 2:
+                lhs, rhs = a.reshape(-1, a.shape[-1]).T, g.reshape(-1, g.shape[-1])
+            lhs16, rhs16 = (t.to(torch.bfloat16).to(torch.float64) for t in (lhs, rhs))
+            k = lhs.shape[-1]
+            bound = 2 * (k - 1) * 2.0**-24 * torch.matmul(lhs16.abs(), rhs16.abs())
+            assert bool(((card[i].to(torch.float64) - host[i].to(torch.float64)).abs() <= bound.reshape(card[i].shape)).all())
+    assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction == reduced

@@ -42,7 +42,8 @@ def test_package_has_modules():
               "nn/vit_blocks.py", "nn/flax_state.py", "models/vit.py", "models/model_utils.py",
               "deploy/convert.py", "train/losses.py", "train/schedule.py", "train/state.py", "train/steps.py",
               "train/augment.py", "utils/checkpoint.py", "utils/metrics.py", "data/datasets.py",
-              "data/transforms.py", "data/loader.py", "data/pil_ops.py", "quant_train.py", "evaluate_accuracy.py"):
+              "data/transforms.py", "data/loader.py", "data/pil_ops.py", "quant_train.py", "evaluate_accuracy.py",
+              "models/vit_float.py", "models/swin_float.py", "models/import_torch.py", "models/import_swin.py"):
         assert f in files
 
 
@@ -87,7 +88,7 @@ def test_modules_import_without_pillow():
 
 
 @pytest.mark.parametrize("relpath", ["chip_smoke.py", "scripts/torch_engine_turns.py",
-                                     "scripts/torch_int_mm_domain.py"])
+                                     "scripts/torch_int_mm_domain.py", "scripts/torch_train_memory.py"])
 def test_card_scripts_import_no_jax(relpath):
     """The scripts that run on the card's machine import no JAX either."""
     roots = set(_imported_roots(os.path.join(_REPO, relpath)))

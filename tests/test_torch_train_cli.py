@@ -18,8 +18,15 @@ on the synthetic set with the Pillow-free flags.
   flags, the spec guard
   (``check_resume_spec``, the cases of ``tests/test_cli.py``) and the
   default device without a card.
+* ``--pretrained`` from a seeded DeiT-Ti state dict on a 4×4 grid (the
+  position embedding resized to the model's 2×2): every imported leaf
+  in the checkpoint, the ranges calibrated, and ``--eval`` on it;
+  ``--pretrained`` with a ``*_fp32`` name exits naming the guard; a
+  ``*_fp32`` name trains; ``--fast-matmul`` trains, its first loss
+  equal to the float32 run's, the switch off again after the run.
 """
 
+import ast
 import pickle
 import re
 import signal
@@ -30,8 +37,11 @@ import pytest
 import torch
 
 from ivit_tpu_torch import convert_model, evaluate_accuracy, quant_train
+from ivit_tpu_torch.models.import_torch import resize_pos_embed, torch_vit_to_params
+from ivit_tpu_torch.nn import quant
 from ivit_tpu_torch.nn.flax_state import flatten
 from ivit_tpu_torch.utils import load_checkpoint_raw
+from test_import import fake_torch_sd
 
 STEPS = 3
 BASE = ["--model", "deit_tiny", "--data-set", "SYNTHETIC", "--input-size", "32", "--nb-classes", "10",
@@ -193,8 +203,8 @@ def test_profile_steps_write_a_trace(tmp_path):
     assert trace.exists() and '"traceEvents"' in trace.read_text()
 
 
-@pytest.mark.parametrize("flag", [["--pretrained", "x.pth"], ["--fast-matmul"], ["--mesh-model", "2"],
-                                  ["--seq-parallel"], ["--pipe", "2"], ["--zero1"], ["--distributed"]],
+@pytest.mark.parametrize("flag", [["--pretrained", "auto"], ["--mesh-model", "2"], ["--seq-parallel"], ["--pipe", "2"],
+                                  ["--zero1"], ["--distributed"]],
                          ids=lambda f: f[0])
 def test_unported_trainer_flags_exit_with_their_roadmap_item(flag, tmp_path):
     with pytest.raises(SystemExit, match=r"ROADMAP\.md §1 item \d") as info:
@@ -244,3 +254,65 @@ def test_resume_with_another_spec_exits(runs, tmp_path):
     with pytest.raises(SystemExit, match="softmax_bits"):
         quant_train.main(BASE + ["--softmax-bits", "8", "--eval", "--resume", str(whole / "checkpoint.pkl"),
                                  "--output-dir", str(tmp_path)])
+
+
+def _epoch0_losses(out_dir):
+    return ast.literal_eval(_losses(out_dir, 0))
+
+
+def _one_epoch(steps):
+    argv = [a for a in BASE if a not in ("--model-ema",)]
+    argv = argv[: argv.index("--model-ema-decay")] + argv[argv.index("--model-ema-decay") + 2:]
+    i = argv.index("--max-steps-per-epoch")
+    return argv[:i] + ["--max-steps-per-epoch", str(steps)] + argv[i + 2:] + ["--epochs", "1"]
+
+
+def test_pretrained_imports_every_leaf(tmp_path):
+    """A DeiT-Ti state dict (192 wide, 12 blocks, 10 classes) on a 4×4
+    grid, ``{"model": ...}`` in a ``.pth``: with ``--lr 0`` the saved
+    parameters are the import itself, every leaf equal to the importer's
+    tree (the position embedding resized to 2×2), every range calibrated;
+    ``--eval --pretrained`` evaluates it."""
+    sd = fake_torch_sd(D=192, depth=12, heads=3, p=16, img=64, classes=10)
+    path = str(tmp_path / "deit_tiny.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
+    argv = _one_epoch(2) + ["--pretrained", path, "--calib-batches", "1"]
+    quant_train.main(argv + ["--lr", "0", "--output-dir", str(tmp_path / "train")])
+    state, _ = load_checkpoint_raw(str(tmp_path / "train" / "checkpoint.pkl"))
+    want = torch_vit_to_params(sd)
+    want["pos_embed"] = resize_pos_embed(want["pos_embed"], 5)
+    got, want = flatten(state["params"]), flatten(want)
+    assert got.keys() == want.keys()
+    for name, value in want.items():
+        np.testing.assert_array_equal(got[name], value, err_msg=name)
+    stats = flatten(state["quant_stats"])
+    assert all(stats[k] < stats[k.replace("min_val", "max_val")] for k in stats if k.endswith("min_val"))
+    assert "imported pretrained weights from" in (tmp_path / "train" / "log.log").read_text()
+    acc = quant_train.main(argv + ["--eval", "--output-dir", str(tmp_path / "eval")])
+    assert 0.0 <= acc <= 100.0
+
+
+def test_pretrained_with_a_float_name_exits(tmp_path):
+    argv = _one_epoch(1) + ["--model", "deit_tiny_fp32", "--pretrained", "x.pth", "--output-dir", str(tmp_path)]
+    with pytest.raises(SystemExit, match=r"deit_tiny_fp32.*ROADMAP\.md §3 item 9.*quant_params_to_float"):
+        quant_train.main(argv)
+    assert not (tmp_path / "log.log").exists()
+
+
+def test_float_model_trains(tmp_path):
+    quant_train.main(_one_epoch(2) + ["--model", "deit_tiny_fp32", "--output-dir", str(tmp_path)])
+    state, extra = load_checkpoint_raw(str(tmp_path / "checkpoint.pkl"))
+    assert extra["model"] == "deit_tiny_fp32" and "softmax_bits" not in extra
+    assert int(state["step"]) == 2 and flatten(state["quant_stats"]) == {}
+    assert "blocks_0_attn_qkv" in state["params"] and len(_epoch0_losses(tmp_path)) == 2
+
+
+def test_fast_matmul_trains(tmp_path):
+    """Two steps with ``--fast-matmul``: the first loss equals the float32
+    run's (the forward is integer-exact either way); the switch is off
+    again after the run."""
+    quant_train.main(_one_epoch(2) + ["--fast-matmul", "--output-dir", str(tmp_path / "fast")])
+    assert quant.SIM_FAST_MATMUL is False
+    quant_train.main(_one_epoch(2) + ["--output-dir", str(tmp_path / "full")])
+    fast, full = _epoch0_losses(tmp_path / "fast"), _epoch0_losses(tmp_path / "full")
+    assert len(fast) == 2 and fast[0] == full[0]
