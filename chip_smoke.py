@@ -12,7 +12,9 @@ trainer's entry points (``quant_train``, ``convert_model --checkpoint``,
 ``evaluate_accuracy``) end to end on both models (phase 9), and takes
 seeded float checkpoints in the published layouts through import,
 calibration, QAT, freezing and serving, beside the float models on the
-imported weights (phase 10):
+imported weights (phase 10), and trains ViT-L and Swin-B at batch 128
+with per-block recompute and serves every path from a serialized engine
+reloaded in a fresh process (phase 11):
 
 * the main path: softmax_bits=8, stable ShiftGELU, K1 attention + K3
   LayerNorm (the default kernels);
@@ -194,7 +196,30 @@ Phases:
    K3 and K7 against their plain versions on the fine-tuned artifacts'
    own inputs; ``quant_train --model deit_small_fp32`` two steps; and a
    seeded augreg ViT-B ``.npz`` imported into ``vit_base`` (every leaf
-   equal, the import's host ms).
+   equal, the import's host ms);
+11. the recompute and the serialized engines: (a) ViT-L and Swin-B at
+   full width and depth with ``remat``: one train-mode step at batch 4,
+   drop-path 0.1 from a seeded generator, with and without the
+   recompute from the same weights (logits, every range and the
+   generator's final state bit-equal, every gradient within
+   QAT_GRAD_RTOL of its leaf's largest entry), then steps with AdamW
+   and the EMA timed both ways at the largest batch that fits without it
+   (32 and 64 by ``scripts/torch_train_memory.py``) and with it at 128,
+   each with its ms a step and ``max_memory_allocated``; (b) the DeiT-S
+   main path, routes A and B, ``strict_dyadic`` and Swin-T exported by
+   ``deploy.export_engine`` at batch 128 and 1 in EXPORT_WORKERS spawned
+   processes, each building its path's engine as this process does
+   (``path_engine``; each file's size and export time), then all
+   reloaded in one fresh process that builds no engine
+   (``scripts/torch_reload_engine.py``): logits bit-equal to the live
+   engine's and the launches a forward, every count set to 0 just
+   before it and read just after, those of phase 4 (none in strict
+   mode); (c) each but strict mode's reloaded in this process, eager
+   and captured by ``capture_infer`` beside the live engine in turns
+   (live, reloaded, reloaded, live): images/s at 128 (CUDA events) and
+   ms at batch 1 (host clock), the captured launches and the replay
+   bit-equal; (d) the host µs a call of each wrapper K1-K7 takes at
+   its batch-128 shape, through its ``ivit::`` operator (``host_us``).
 
 Any failed check raises and exits nonzero before the result lines. The
 second-to-last line is the kernels' JSON record, the last line
@@ -1486,6 +1511,307 @@ def pretrained_phase(dev) -> None:
     print(f"pretrained phase: {time.perf_counter() - t_phase:.3f} s")
 
 
+# phase 11, the recompute: each model's largest batch without remat in
+# the fit sweep of scripts/torch_train_memory.py, where the step is
+# timed both ways; the batch of the step-1 comparison; timed steps
+REMAT_MODELS = {"vit_large": 32, "swin_base": 64}
+REMAT_BATCH = 128
+REMAT_CMP_BATCH = 4
+REMAT_STEPS = 2
+HOST_CALLS = 200  # phase 11's host µs a wrapper call
+EXPORT_ITERS = 5  # phase 11's batch-128 forwards a timing, each way in turns
+EXPORT_RUNS = 20  # phase 11's batch-1 forwards a median
+# the reloaded engines phase 11 times (strict mode, the slowest, is only checked)
+TIMED_EXPORTS = ("main", "A", "B", "swin")
+EXPORT_WORKERS = 5  # phase 11's export processes (tracing runs on the host, one core each)
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Host µs a call takes to return, the stream held by a spin kernel
+    (about 0.2 ms a call) so that no call waits on the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(calls * 400_000)
+    t1 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def wrapper_calls(kernels, dev) -> dict:
+    """Each kernel wrapper of the package module ``kernels`` (an
+    ``ivit_tpu_torch.kernels``, this checkout's or another's) as a call on
+    seeded inputs at its path's batch-128 shape: K1 and K2 (768, 197,
+    64), K3 (25216, 384), K4 (25216, 384) x (384, 1536), K5 (25216,
+    1536), K6 (151296, 197), K7 Swin-T stage 1 masked (24576, 49, 32)."""
+    import numpy as np
+    import torch
+
+    from ivit_tpu_torch.models.swin import sw_attn_mask
+
+    rng = np.random.default_rng(SEED + 13)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def i8(*shape):
+        return t(rng.integers(-128, 128, shape).astype(np.int8))
+
+    def f32(x) -> float:
+        return float(np.float32(x))
+
+    q, k, v = i8(768, 197, 64), i8(768, 197, 64), i8(768, 197, 64)
+    x16 = t(rng.integers(-3000, 3000, (25216, 384)).astype(np.int16))
+    bias = t(np.floor(rng.standard_normal(384) * 2**20).astype(np.float32))
+    ratio = t((rng.uniform(0.5, 2.0, 384) * np.sqrt(384) * 2.0**-25).astype(np.float32))
+    x8, w_t = i8(25216, 384), i8(1536, 384)
+    b = t(rng.integers(-(2**16), 2**16, 1536).astype(np.int32))
+    r1 = t((rng.uniform(0.5, 2.0, 1536) * 1e-4).astype(np.float32))
+    acc = t(rng.integers(-(2**20), 2**20, (25216, 1536)).astype(np.int32))
+    scores = t(rng.integers(-(2**20), 2**20, (151296, 197)).astype(np.int32))
+    wq, wk, wv = i8(24576, 49, 32), i8(24576, 49, 32), i8(24576, 49, 32)
+    wbias = t(rng.integers(-40, 40, (3, 49, 49)).astype(np.float32))
+    wmask = t(sw_attn_mask(56, 56, 7, 3) / np.float32(0.07))
+    r_attn, s_in, r2 = f32(127.0 / (3 * 8 * 74.0**2)), f32(0.031), f32(0.7)
+    return {
+        "K1": lambda: kernels.fused_int8_attention(q, k, v, r_attn, f32(0.07), f32(0.05 / 128 / 0.021), 8),
+        "K2": lambda: kernels.fused_int8_attention_v2(q, k, v, r_attn, f32(0.021), f32(0.05 / 32768 / 0.021), 197),
+        "K3": lambda: kernels.fused_layernorm_requant(x16, bias, ratio),
+        "K4": lambda: kernels.fused_linear_shiftgelu(x8, w_t.T, b, r1, s_in, r2),
+        "K5": lambda: kernels.fused_requant_shiftgelu(acc, r1, s_in, r2),
+        "K6": lambda: kernels.fused_requant_shiftmax(scores, f32(3.1e-5), f32(0.021), 197),
+        "K7": lambda: kernels.fused_int8_window_attention(wq, wk, wv, wbias, wmask, r_attn, f32(0.8), f32(0.07),
+                                                          f32(0.05 / 128 / 0.021), 3),
+    }
+
+
+def path_engine(name: str, dev):
+    """The engine of serving path ``name`` as ``main`` builds it from its
+    seeded synthetic artifact: DeiT-S at sm8 + stable GELU by the
+    default kernels (``main``) or with ``strict_dyadic`` (``strict``), at
+    sm16 + row-max GELU by route ``A`` or ``B``, or Swin-T (``swin``)."""
+    from ivit_tpu_torch.deploy import build_swin_infer, build_vit_infer, synthetic_swin_artifact
+    from ivit_tpu_torch.deploy import synthetic_vit_artifact
+
+    if name == "swin":
+        return build_swin_infer(synthetic_swin_artifact("swin_tiny", seed=SEED), dev)
+    sm8 = name in ("main", "strict")
+    art = synthetic_vit_artifact("deit_small", seed=SEED, softmax_bits=8 if sm8 else 16, gelu_stable=sm8)
+    if name == "strict":
+        return build_vit_infer(art, dev, kernels=(), strict_dyadic=True)
+    return build_vit_infer(art, dev) if name == "main" else build_vit_infer(art, dev, kernels={"A": ROUTE_A,
+                                                                                                "B": ROUTE_B}[name])
+
+
+def export_file(task: tuple) -> tuple:
+    """Phase 11's export in a spawned worker: ``task`` is (path name,
+    batch, file, device); builds the path's engine on the device
+    (``path_engine``), writes it to the file by ``deploy.export_engine``
+    and returns (bytes, seconds of the export)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from ivit_tpu_torch.deploy.export import export_engine
+
+    name, batch, path, device = task
+    fn = path_engine(name, torch.device(device))
+    t0 = time.perf_counter()
+    size = len(export_engine(fn, batch, fn.tensors["config"]["img_size"], path=path))
+    return size, time.perf_counter() - t0
+
+
+def remat_phase(dev) -> None:
+    """Phase 11 (a): ViT-L and Swin-B QAT steps with ``remat`` (module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from ivit_tpu_torch.models import create_model
+    from ivit_tpu_torch.train import AdamW, create_train_state, make_train_step, soft_target_cross_entropy
+
+    rng = np.random.default_rng(SEED + 11)
+
+    for name, fit_batch in REMAT_MODELS.items():
+        t_model = time.perf_counter()
+        model = create_model(name, dev, seed=SEED, drop_path_rate=TRAIN_DROP_PATH)
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        size, classes = model.config["img_size"], model.config["num_classes"]
+
+        def batch(n: int):
+            """Seeded normal images and label-smoothed one-hot targets, on the card."""
+            x = rng.standard_normal((n, size, size, 3), dtype=np.float32)
+            t = np.full((n, classes), TRAIN_SMOOTHING / classes, np.float32)
+            t[np.arange(n), rng.integers(0, classes, n)] += 1.0 - TRAIN_SMOOTHING
+            return torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)
+
+        # step 1 with and without the recompute, from the same weights and
+        # the same generator seed
+        x, t = batch(REMAT_CMP_BATCH)
+        runs = []
+        for remat in (False, True):
+            model.load_state_dict(init)
+            model.remat = remat
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            names, params = zip(*model.named_parameters())
+            logits = model(x, train=True, generator=gen)
+            grads = torch.autograd.grad(soft_target_cross_entropy(logits, t), params, materialize_grads=True)
+            runs.append((logits.detach(), {n: b.clone() for n, b in model.named_buffers()},
+                         dict(zip(names, grads)), gen.get_state()))
+            del logits, grads
+        (l0, b0, g0, s0), (l1, b1, g1, s1) = runs
+        ranges_equal = all(torch.equal(b1[n], b0[n]) for n in b0)
+        grad_errs = {n: float((g1[n] - g0[n]).abs().max()) / max(float(g0[n].abs().max()), 1e-30) for n in g0}
+        worst = max(grad_errs, key=grad_errs.get)
+        exact = sum(torch.equal(g1[n], g0[n]) for n in g0)
+        print(f"remat {name}, step 1 at batch {REMAT_CMP_BATCH}, drop-path {TRAIN_DROP_PATH}, with against without "
+              f"the recompute: logits max_abs_err {float((l1 - l0).abs().max())}, {len(b0)} ranges equal "
+              f"{ranges_equal} (tolerance 0); gradients bit-equal in {exact} of {len(g0)} leaves, the largest error "
+              f"{grad_errs[worst]} of its leaf's largest entry ({worst}; bound {QAT_GRAD_RTOL}); the generator's "
+              f"state equal {torch.equal(s0, s1)}")
+        check(torch.equal(l1, l0), f"remat {name}: the logits differ from the step without the recompute")
+        check(ranges_equal, f"remat {name}: the ranges differ from the step without the recompute")
+        check(grad_errs[worst] <= QAT_GRAD_RTOL, f"remat {name}: gradient {worst} off by {grad_errs[worst]}")
+        check(torch.equal(s0, s1), f"remat {name}: the generator ends elsewhere than without the recompute")
+        del runs, l0, l1, b0, b1, g0, g1
+
+        # timed steps (AdamW, the EMA, drop-path from a seeded generator):
+        # both ways at the batch both fit, then at 128 with the recompute
+        steps = {}
+        for remat, b in ((False, fit_batch), (True, fit_batch), (True, REMAT_BATCH)):
+            model.load_state_dict(init)
+            model.remat = remat
+            state = create_train_state(model, AdamW(TRAIN_LR, weight_decay=TRAIN_WD), ema_decay=TRAIN_EMA, device=dev)
+            step = make_train_step(model, ema_decay=TRAIN_EMA)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            batches = [batch(b) for _ in range(REMAT_STEPS + 1)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            losses = [step(state, *batches[0], gen)[1]["loss"]]  # the warm-up step
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for xb, tb in batches[1:]:
+                losses.append(step(state, xb, tb, gen)[1]["loss"])
+            end.record()
+            end.synchronize()
+            ms, peak = start.elapsed_time(end) / REMAT_STEPS, torch.cuda.max_memory_allocated(dev)
+            losses = [v.item() for v in losses]
+            steps[(remat, b)] = ms
+            print(f"remat {name}: remat={remat} batch {b}: {ms} ms/step, {b * 1000 / ms} images/s over {REMAT_STEPS} "
+                  f"steps after a warm-up step (CUDA events); max_memory_allocated {peak} bytes ({peak / 1e9:.3f} GB); "
+                  f"losses {losses}")
+            check(all(math.isfinite(v) for v in losses), f"remat {name} batch {b}: a non-finite loss {losses}")
+            del state, step, batches
+            torch.cuda.empty_cache()
+        print(f"remat {name}: step time with/without the recompute at batch {fit_batch}: "
+              f"{steps[(True, fit_batch)] / steps[(False, fit_batch)]}; phase {time.perf_counter() - t_model:.3f} s")
+        del model, init
+        torch.cuda.empty_cache()
+
+
+def export_phase(dev, paths: dict, images) -> None:
+    """Phase 11 (b)-(d): every path exported at batch 128 and 1, reloaded
+    in a fresh process and in this one, eager and graphed beside the live
+    engine; the host µs a wrapper call (module docstring). ``paths``:
+    name → (live engine, its launches a forward), each engine
+    ``path_engine(name)`` builds; ``images`` the batch-128 CPU images.
+    The exports run in EXPORT_WORKERS spawned processes, each building
+    its path's engine anew, the longest (strict mode's) first."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from ivit_tpu_torch import kernels
+    from ivit_tpu_torch.deploy.export import load_engine
+    from ivit_tpu_torch.deploy.graphs import capture_infer
+    from ivit_tpu_torch.kernels import WRAPPERS
+
+    images_dev = images.to(dev)
+    img = images.shape[1]
+    live = {name: fn(images_dev) for name, (fn, _) in paths.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "images.npy"), images.numpy())
+        files = {(name, b): os.path.join(tmp, f"{name}_b{b}.pt2") for name in paths for b in (BATCH, 1)}
+        tasks = sorted(((name, b, path, str(dev)) for (name, b), path in files.items()),
+                       key=lambda task: (task[0] != "strict", task[0] != "swin", -task[1]))
+        t0 = time.perf_counter()
+        with multiprocessing.get_context("spawn").Pool(EXPORT_WORKERS) as pool:
+            exported = pool.map(export_file, tasks, chunksize=1)
+        for (name, b, _, _), (size, seconds) in zip(tasks, exported):
+            print(f"export {name} batch {b}: {size} bytes ({size / 1e6:.3f} MB) in {seconds:.3f} s")
+        print(f"exports: {len(tasks)} files by {EXPORT_WORKERS} processes in {time.perf_counter() - t0:.3f} s")
+
+        # (b) every file reloaded in a fresh process that builds no engine
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "torch_reload_engine.py"),
+                              os.path.join(tmp, "images.npy"), *files.values()],
+                             cwd=REPO, capture_output=True, text=True, timeout=600)
+        print(f"reload: scripts/torch_reload_engine.py exit {run.returncode} in {time.perf_counter() - t0:.1f} s")
+        for line in run.stderr.strip().splitlines()[-6:]:
+            print(f"  stderr: {line}")
+        check(run.returncode == 0, f"reload: exit {run.returncode}")
+        lines = [json.loads(line) for line in run.stdout.strip().splitlines()]
+        check(len(lines) == len(files), f"reload: {len(lines)} lines for {len(files)} engines")
+        for ((name, b), path), line in zip(files.items(), lines):
+            got = torch.from_numpy(np.load(path + ".logits.npy"))
+            want = live[name][:b].cpu()
+            e = float((got - want).abs().max())
+            print(f"reload {name} batch {b}: launches a forward {line['launches']} (device {line['device']}); logits "
+                  f"vs the live engine max_abs_err {e} (tolerance 0)")
+            check(line["launches"] == paths[name][1], f"reload {name} batch {b}: launches {line['launches']}")
+            check(torch.equal(got, want), f"reload {name} batch {b}: differs from the live engine")
+
+        # (c) reloaded here: eager and graphed beside the live engine, in
+        # turns (live, reloaded, reloaded, live)
+        def host_ms(fn, x, runs: int = EXPORT_RUNS) -> float:
+            lat = []
+            for i in range(runs + 5):
+                t1 = time.perf_counter()
+                fn(x)
+                torch.cuda.synchronize()
+                if i >= 5:
+                    lat.append((time.perf_counter() - t1) * 1e3)
+            return sorted(lat)[len(lat) // 2]
+
+        for (name, b), path in files.items():
+            if name not in TIMED_EXPORTS:
+                continue
+            fn, per_forward = paths[name]
+            engine = load_engine(path)
+            x = images_dev[:b]
+            check(torch.equal(engine(x), live[name][:b]), f"reloaded {name} batch {b}: differs from the live engine")
+            graphs = {"live": capture_infer(fn, b, img, dev), "reloaded": capture_infer(engine, b, img, dev)}
+            check(graphs["reloaded"].launches == per_forward,
+                  f"reloaded {name} batch {b}: {graphs['reloaded'].launches} launches a captured forward")
+            check(torch.equal(graphs["reloaded"](x), live[name][:b]), f"reloaded {name} batch {b}: replay differs")
+            eager = {"live": fn, "reloaded": engine}
+            row = {}
+            for way, fns in (("eager", eager), ("graphed", graphs)):
+                if b == BATCH:
+                    t = [cuda_ms(lambda: fns[k](x), EXPORT_ITERS) for k in ("live", "reloaded", "reloaded", "live")]
+                    row[way] = (BATCH / ((t[0] + t[3]) / 2) * 1e3, BATCH / ((t[1] + t[2]) / 2) * 1e3)
+                else:
+                    t = [host_ms(fns[k], x) for k in ("live", "reloaded", "reloaded", "live")]
+                    row[way] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2)
+            unit = (f"images/s (CUDA events over {EXPORT_ITERS} forwards)" if b == BATCH
+                    else f"ms/image (host clock, median of {EXPORT_RUNS})")
+            print(f"reloaded {name} batch {b}: eager live {row['eager'][0]}, reloaded {row['eager'][1]}; graphed live "
+                  f"{row['graphed'][0]}, reloaded {row['graphed'][1]} {unit}; reloaded/live graphed "
+                  f"{row['graphed'][1] / row['graphed'][0]}")
+            del engine, graphs, eager
+            torch.cuda.empty_cache()
+
+    # (d) the host µs a wrapper call, at the paths' batch-128 shapes
+    calls = wrapper_calls(kernels, dev)
+    us = {name: host_us(fn) for name, fn in calls.items()}
+    print(f"host us a wrapper call (through its ivit:: operator; {HOST_CALLS} calls queued behind a spin kernel): {us}")
+    check(set(us) == set(WRAPPERS), f"host us: {sorted(us)}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2351,6 +2677,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     pretrained_phase(dev)
     print(f"chip_smoke so far {time.perf_counter() - t_main:.3f} s")
+
+    # 11. the recompute, and the serialized engines over the kernels' operators
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    remat_phase(dev)
+    print(f"remat phase: {time.perf_counter() - t0:.3f} s; chip_smoke so far {time.perf_counter() - t_main:.3f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    export_phase(dev, {
+        "main": (infer, {"K1": depth, "K3": layernorms}),
+        "A": (routes16["A"], expects["A"]),
+        "B": (routes16["B"], expects["B"]),
+        "strict": (path_engine("strict", dev), {}),
+        "swin": (swin, {"K7": swin_blocks, "K3": swin_norms}),
+    }, images)
+    print(f"export phase: {time.perf_counter() - t0:.3f} s; chip_smoke so far {time.perf_counter() - t_main:.3f} s")
 
     big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",
            "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",

@@ -29,8 +29,11 @@ checkpoint that pickles objects other than tensors and containers (the
 reference's ``checkpoint.pth.tar`` may hold its ``argparse.Namespace``)
 does not load, on either side.
 
-``--export-engine`` comes with the serialized-engine slice: it exits
-with a message, before any work.
+``--export-engine PATH`` then writes the artifact's engine as a
+serialized ``torch.export`` program (``deploy.export``), built on
+``--device`` with the engine's default kernels and specialized to
+``--export-batch`` images at the artifact's input size, as the JAX CLI
+writes its StableHLO engine; ``deploy.load_engine(PATH)`` runs it.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ def main(argv=None):
                    help="--checkpoint: Swin window size, defaults to the recorded value (7 before the "
                         "metadata); --torch-checkpoint reads it from the rel-pos table")
     p.add_argument("--export-engine", default="",
-                   help="also export a serialized engine; comes with the export slice")
+                   help="also write a serialized engine (torch.export) of the artifact to this path")
     p.add_argument("--export-batch", default=1, type=int,
                    help="batch size the exported engine is built for")
     p.add_argument("--softmax-bits", default=None, type=int, choices=(8, 16),
@@ -72,7 +75,8 @@ def main(argv=None):
                    help="elementwise-stable ShiftGELU (must match training; recorded in the artifact); "
                         "defaults to the recorded value")
     p.add_argument("--device", default="cuda",
-                   help="--checkpoint: where the model is frozen, cuda (raises without a card) or cpu")
+                   help="where --checkpoint's model is frozen and --export-engine's engine is built: cuda "
+                        "(raises without a card) or cpu")
     args = p.parse_args(argv)
 
     if (args.checkpoint is None) == (args.torch_checkpoint is None):
@@ -80,14 +84,21 @@ def main(argv=None):
             "pass exactly one of --checkpoint (our QAT state) or "
             "--torch-checkpoint (the reference's checkpoint.pth.tar)"
         )
+    artifact = _ingest_torch(args) if args.torch_checkpoint else _convert_checkpoint(args)
     if args.export_engine:
-        raise SystemExit(
-            "--export-engine comes with the serialized-engine slice of ivit_tpu_torch; "
-            "capture the engine at run time with ivit_tpu_torch.deploy.graphs.capture_infer"
-        )
-    if args.torch_checkpoint:
-        return _ingest_torch(args)
-    return _convert_checkpoint(args)
+        _export_engine(args, artifact)
+    return artifact
+
+
+def _export_engine(args, artifact):
+    """--export-engine: the artifact's engine on --device with its default
+    kernels, serialized at --export-batch images."""
+    from .deploy import build_swin_infer, build_vit_infer, export_engine
+
+    build = build_swin_infer if "depths" in artifact["config"] else build_vit_infer
+    export_engine(build(artifact, args.device), args.export_batch, artifact["config"]["img_size"],
+                  path=args.export_engine)
+    print(f"wrote {args.export_engine} (torch.export, batch {args.export_batch})")
 
 
 def _resolve(flag_name, cli_value, recorded, default):
@@ -181,6 +192,7 @@ def _ingest_torch(args):
     print(f"wrote {args.output} (ingested reference checkpoint: "
           f"depth {depth}, dim {c['embed_dim']}, "
           f"img {c['img_size']}, classes {c['num_classes']})")
+    return artifact
 
 
 if __name__ == "__main__":

@@ -279,7 +279,8 @@ def build_vit_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS, stri
     the JAX engine's strict mode does, and needs ``kernels=()``. The
     engine runs on the card unless ``device`` says otherwise, and raises
     if there is none; on the CPU every kernel's wrapper runs its plain
-    version. The kernels in use are ``infer.kernels``.
+    version. The kernels in use are ``infer.kernels``, its device
+    ``infer.device``.
     """
     if strict_dyadic and kernels:
         raise ValueError(
@@ -313,4 +314,5 @@ def build_vit_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS, stri
 
     infer.tensors = t
     infer.kernels = active
+    infer.device = torch.device(device)
     return infer

@@ -35,8 +35,8 @@ WARMUP = 3
 
 def capture_infer(infer, batch: int, img_size: int, device="cuda"):
     """Capture one forward of ``infer`` (a ``build_vit_infer`` or
-    ``build_swin_infer`` function) at ``batch`` images of ``img_size``²
-    on a CUDA ``device``.
+    ``build_swin_infer`` function, or a reloaded ``deploy.load_engine``
+    engine) at ``batch`` images of ``img_size``² on a CUDA ``device``.
 
     Returns ``replay(images)``: it copies the (batch, img_size, img_size,
     3) images into the graph's input, replays the graph and returns a

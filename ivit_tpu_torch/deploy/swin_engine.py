@@ -283,7 +283,7 @@ def build_swin_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS):
     docstring); ``kernels=()`` is the plain path. The engine runs on the
     card unless ``device`` says otherwise, and raises if there is none;
     on the CPU every kernel's wrapper runs its plain version. The kernels
-    in use are ``infer.kernels``.
+    in use are ``infer.kernels``, its device ``infer.device``.
     """
     t = swin_artifact_to_torch(artifact, device)
     active = select_swin_kernels(t["config"], kernels)
@@ -299,4 +299,5 @@ def build_swin_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS):
 
     infer.tensors = t
     infer.kernels = active
+    infer.device = torch.device(device)
     return infer

@@ -1,9 +1,16 @@
 """Hand-written CUDA kernels (``csrc/``) behind torch wrappers.
 
-Each wrapper checks its inputs, runs its plain torch version for CPU
-tensors, launches the kernel for CUDA tensors (or raises), and counts
-its launches in a ``launches`` attribute. Importing this package builds
-nothing: the libraries are compiled at the first CUDA launch.
+Each wrapper checks its inputs (shapes, dtypes, strides: what a fake
+tensor has too) and calls its operator, ``ivit::<wrapper name>``, a
+``torch.library.custom_op`` with a fake implementation, so that
+``torch.export`` records each kernel as one node of the graph
+(``deploy.export``). The operator runs the plain torch version for CPU
+tensors and launches the kernel for CUDA tensors (or raises: a check
+that needs real memory, such as an alignment, lies there), and counts
+its launches in the wrapper's ``launches`` attribute, whoever calls it:
+the wrapper or a reloaded exported program. Importing this package
+registers the operators and builds nothing: the libraries are compiled
+at the first CUDA launch.
 """
 
 from .attention_fused import fused_int8_attention, fused_int8_attention_reference

@@ -93,22 +93,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out_bits: int) -> 
         raise ValueError(f"out_bits must be 8 or 16, got {out_bits}")
 
 
-def fused_int8_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    r1: float,
-    scale: float,
-    r_out: float,
-    out_bits: int = 8,
-) -> torch.Tensor:
-    """q/k/v: (G, N, hd) int8, G = batch·heads, N ≤ 256 unpadded.
-    ``r1``: ratio from the score scale into the softmax input scale
-    ``scale``; ``r_out``: ratio from the context scale
-    (softmax scale · v scale) into the int8 output scale. The three are
-    float32 values (a Python float is rounded to float32). Returns the
-    int8 (G, N, hd) context."""
-    _check(q, k, v, out_bits)
+@torch.library.custom_op(
+    "ivit::fused_int8_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, float r1, float scale, float r_out, int out_bits) -> Tensor",
+)
+def _attention_op(q, k, v, r1, scale, r_out, out_bits):
     if q.device.type == "cpu":
         return fused_int8_attention_reference(q, k, v, r1, scale, r_out, out_bits)
     if q.device.type != "cuda":
@@ -127,6 +116,31 @@ def fused_int8_attention(
     _build.check(err, "fused_int8_attention")
     fused_int8_attention.launches += 1
     return out
+
+
+@_attention_op.register_fake
+def _(q, k, v, r1, scale, r_out, out_bits):
+    return torch.empty_like(q)
+
+
+def fused_int8_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    r1: float,
+    scale: float,
+    r_out: float,
+    out_bits: int = 8,
+) -> torch.Tensor:
+    """q/k/v: (G, N, hd) int8, G = batch·heads, N ≤ 256 unpadded.
+    ``r1``: ratio from the score scale into the softmax input scale
+    ``scale``; ``r_out``: ratio from the context scale
+    (softmax scale · v scale) into the int8 output scale. The three are
+    float32 values (a Python float is rounded to float32). Returns the
+    int8 (G, N, hd) context, through the operator
+    ``ivit::fused_int8_attention``."""
+    _check(q, k, v, out_bits)
+    return _attention_op(q, k, v, float(r1), float(scale), float(r_out), out_bits)
 
 
 fused_int8_attention.launches = 0

@@ -75,18 +75,13 @@ def _check(q, k, v, scale, n_valid, out_bits) -> None:
         )
 
 
-def fused_int8_attention_v2(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    r1: float, scale: float, r_out: float, n_valid: int, out_bits: int = 16,
-) -> torch.Tensor:
-    """q/k/v: (G, N, hd) int8, G = batch·heads, N ≤ 256 unpadded;
-    ``n_valid`` = N. ``r1``: ratio from the score scale into the softmax
-    input scale ``scale``; ``r_out``: ratio from the context scale into
-    the int8 output scale (float32 values). Raises ``ValueError`` where
-    ``scale`` fails v2's gate. Returns the int8 (G, N, hd) context."""
-    _check(q, k, v, scale, n_valid, out_bits)
+@torch.library.custom_op(
+    "ivit::fused_int8_attention_v2", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, float r1, float scale, float r_out, int out_bits) -> Tensor",
+)
+def _attention_v2_op(q, k, v, r1, scale, r_out, out_bits):
     if q.device.type == "cpu":
-        return fused_int8_attention_v2_reference(q, k, v, r1, scale, r_out, n_valid, out_bits)
+        return fused_int8_attention_v2_reference(q, k, v, r1, scale, r_out, q.shape[1], out_bits)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if any(t.data_ptr() % 4 for t in (q, k, v)):
@@ -103,6 +98,25 @@ def fused_int8_attention_v2(
     _build.check(err, "fused_int8_attention_v2")
     fused_int8_attention_v2.launches += 1
     return out
+
+
+@_attention_v2_op.register_fake
+def _(q, k, v, r1, scale, r_out, out_bits):
+    return torch.empty_like(q)
+
+
+def fused_int8_attention_v2(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    r1: float, scale: float, r_out: float, n_valid: int, out_bits: int = 16,
+) -> torch.Tensor:
+    """q/k/v: (G, N, hd) int8, G = batch·heads, N ≤ 256 unpadded;
+    ``n_valid`` = N. ``r1``: ratio from the score scale into the softmax
+    input scale ``scale``; ``r_out``: ratio from the context scale into
+    the int8 output scale (float32 values). Raises ``ValueError`` where
+    ``scale`` fails v2's gate. Returns the int8 (G, N, hd) context,
+    through the operator ``ivit::fused_int8_attention_v2``."""
+    _check(q, k, v, scale, n_valid, out_bits)
+    return _attention_v2_op(q, k, v, float(r1), float(scale), float(r_out), out_bits)
 
 
 fused_int8_attention_v2.launches = 0

@@ -54,13 +54,11 @@ def _check(x: torch.Tensor, bias_int: torch.Tensor, ratio: torch.Tensor) -> None
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def fused_layernorm_requant(
-    x: torch.Tensor, bias_int: torch.Tensor, ratio: torch.Tensor
-) -> torch.Tensor:
-    """x: (M, C) int16; ``bias_int``: (C,) float32 folded β; ``ratio``:
-    (C,) float32 per-channel ratio (LN output scale / next input scale).
-    Returns int8 (M, C)."""
-    _check(x, bias_int, ratio)
+@torch.library.custom_op(
+    "ivit::fused_layernorm_requant", mutates_args=(),
+    schema="(Tensor x, Tensor bias_int, Tensor ratio) -> Tensor",
+)
+def _layernorm_op(x, bias_int, ratio):
     if x.device.type == "cpu":
         return fused_layernorm_requant_reference(x, bias_int, ratio)
     if x.device.type != "cuda":
@@ -76,6 +74,22 @@ def fused_layernorm_requant(
     _build.check(err, "fused_layernorm_requant")
     fused_layernorm_requant.launches += 1
     return out
+
+
+@_layernorm_op.register_fake
+def _(x, bias_int, ratio):
+    return x.new_empty(x.shape, dtype=torch.int8)
+
+
+def fused_layernorm_requant(
+    x: torch.Tensor, bias_int: torch.Tensor, ratio: torch.Tensor
+) -> torch.Tensor:
+    """x: (M, C) int16; ``bias_int``: (C,) float32 folded β; ``ratio``:
+    (C,) float32 per-channel ratio (LN output scale / next input scale).
+    Returns int8 (M, C), through the operator
+    ``ivit::fused_layernorm_requant``."""
+    _check(x, bias_int, ratio)
+    return _layernorm_op(x, bias_int, ratio)
 
 
 fused_layernorm_requant.launches = 0

@@ -75,14 +75,11 @@ def _check(x, w, b, r1) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def fused_linear_shiftgelu(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, r1: torch.Tensor, s_in: float, r2: float
-) -> torch.Tensor:
-    """x: (M, K) int8; w: (K, C) int8, K-contiguous (``w_t.T``); b: (C,)
-    int32; r1: (C,) float32 per-channel ratio into the GELU input scale
-    ``s_in``; r2: ratio into the output int8 scale. ``s_in`` and ``r2``
-    are float32 values. Returns int8 (M, C)."""
-    _check(x, w, b, r1)
+@torch.library.custom_op(
+    "ivit::fused_linear_shiftgelu", mutates_args=(),
+    schema="(Tensor x, Tensor w, Tensor b, Tensor r1, float s_in, float r2) -> Tensor",
+)
+def _linear_gelu_op(x, w, b, r1, s_in, r2):
     if x.device.type == "cpu":
         return fused_linear_shiftgelu_reference(x, w, b, r1, s_in, r2)
     if x.device.type != "cuda":
@@ -103,6 +100,23 @@ def fused_linear_shiftgelu(
     _build.check(err, "fused_linear_shiftgelu")
     fused_linear_shiftgelu.launches += 1
     return out
+
+
+@_linear_gelu_op.register_fake
+def _(x, w, b, r1, s_in, r2):
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=torch.int8)
+
+
+def fused_linear_shiftgelu(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, r1: torch.Tensor, s_in: float, r2: float
+) -> torch.Tensor:
+    """x: (M, K) int8; w: (K, C) int8, K-contiguous (``w_t.T``); b: (C,)
+    int32; r1: (C,) float32 per-channel ratio into the GELU input scale
+    ``s_in``; r2: ratio into the output int8 scale. ``s_in`` and ``r2``
+    are float32 values. Returns int8 (M, C), through the operator
+    ``ivit::fused_linear_shiftgelu``."""
+    _check(x, w, b, r1)
+    return _linear_gelu_op(x, w, b, r1, float(s_in), float(r2))
 
 
 fused_linear_shiftgelu.launches = 0

@@ -43,13 +43,11 @@ def _check(x: torch.Tensor, r1: torch.Tensor) -> None:
         raise ValueError(f"r1 is on {r1.device}, x on {x.device}")
 
 
-def fused_requant_shiftgelu(x: torch.Tensor, r1: torch.Tensor, s_in: float, r2: float) -> torch.Tensor:
-    """x: (M, C) int32 fc1 accumulator; ``r1``: (C,) float32 per-channel
-    ratio into the int8 GELU input scale ``s_in``; ``r2``: ratio from the
-    GELU output scale (``s_in/2^7``) to the fc2 input scale. ``s_in`` and
-    ``r2`` are float32 values (a Python float is rounded to float32).
-    Returns int8 (M, C)."""
-    _check(x, r1)
+@torch.library.custom_op(
+    "ivit::fused_requant_shiftgelu", mutates_args=(),
+    schema="(Tensor x, Tensor r1, float s_in, float r2) -> Tensor",
+)
+def _shiftgelu_op(x, r1, s_in, r2):
     if x.device.type == "cpu":
         return fused_requant_shiftgelu_reference(x, r1, s_in, r2)
     if x.device.type != "cuda":
@@ -68,6 +66,22 @@ def fused_requant_shiftgelu(x: torch.Tensor, r1: torch.Tensor, s_in: float, r2: 
     _build.check(err, "fused_requant_shiftgelu")
     fused_requant_shiftgelu.launches += 1
     return out
+
+
+@_shiftgelu_op.register_fake
+def _(x, r1, s_in, r2):
+    return x.new_empty(x.shape, dtype=torch.int8)
+
+
+def fused_requant_shiftgelu(x: torch.Tensor, r1: torch.Tensor, s_in: float, r2: float) -> torch.Tensor:
+    """x: (M, C) int32 fc1 accumulator; ``r1``: (C,) float32 per-channel
+    ratio into the int8 GELU input scale ``s_in``; ``r2``: ratio from the
+    GELU output scale (``s_in/2^7``) to the fc2 input scale. ``s_in`` and
+    ``r2`` are float32 values (a Python float is rounded to float32).
+    Returns int8 (M, C), through the operator
+    ``ivit::fused_requant_shiftgelu``."""
+    _check(x, r1)
+    return _shiftgelu_op(x, r1, float(s_in), float(r2))
 
 
 fused_requant_shiftgelu.launches = 0

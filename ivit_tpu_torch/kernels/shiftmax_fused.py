@@ -59,14 +59,11 @@ def _check(x: torch.Tensor, n_valid: int, out_bits: int) -> None:
         raise ValueError(f"out_bits must be 8 or 16, got {out_bits}")
 
 
-def fused_requant_shiftmax(
-    x: torch.Tensor, r1: float, scale: float, n_valid: int, out_bits: int = 16
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (M, N) int32 attention logits, N ≤ 256 unpadded, the first
-    ``n_valid`` columns real. ``r1``: ratio into the Shiftmax input scale
-    ``scale`` (float32 values). Returns int8 ``(hi, lo)`` of shape (M, N)
-    with ``sm = 256·hi + (lo + 128)`` at scale ``1/2^(out_bits−1)``."""
-    _check(x, n_valid, out_bits)
+@torch.library.custom_op(
+    "ivit::fused_requant_shiftmax", mutates_args=(),
+    schema="(Tensor x, float r1, float scale, int n_valid, int out_bits) -> (Tensor, Tensor)",
+)
+def _shiftmax_op(x, r1, scale, n_valid, out_bits):
     if x.device.type == "cpu":
         return fused_requant_shiftmax_reference(x, r1, scale, n_valid, out_bits)
     if x.device.type != "cuda":
@@ -84,6 +81,24 @@ def fused_requant_shiftmax(
     _build.check(err, "fused_requant_shiftmax")
     fused_requant_shiftmax.launches += 1
     return hi, lo
+
+
+@_shiftmax_op.register_fake
+def _(x, r1, scale, n_valid, out_bits):
+    hi = x.new_empty(x.shape, dtype=torch.int8)
+    return hi, torch.empty_like(hi)
+
+
+def fused_requant_shiftmax(
+    x: torch.Tensor, r1: float, scale: float, n_valid: int, out_bits: int = 16
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (M, N) int32 attention logits, N ≤ 256 unpadded, the first
+    ``n_valid`` columns real. ``r1``: ratio into the Shiftmax input scale
+    ``scale`` (float32 values). Returns int8 ``(hi, lo)`` of shape (M, N)
+    with ``sm = 256·hi + (lo + 128)`` at scale ``1/2^(out_bits−1)``,
+    through the operator ``ivit::fused_requant_shiftmax``."""
+    _check(x, n_valid, out_bits)
+    return _shiftmax_op(x, float(r1), float(scale), n_valid, out_bits)
 
 
 fused_requant_shiftmax.launches = 0

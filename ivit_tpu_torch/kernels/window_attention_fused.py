@@ -114,27 +114,12 @@ def _check(q, k, v, bias, mask, heads: int) -> None:
         raise ValueError(f"G={G} cells is not a whole number of {mask.shape[0]} windows x {heads} heads")
 
 
-def fused_int8_window_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    bias: torch.Tensor,
-    mask: torch.Tensor | None,
-    r1: float,
-    rb: float,
-    scale: float,
-    r_out: float,
-    heads: int,
-) -> torch.Tensor:
-    """q/k/v: (G, N, hd) int8, G = B·nW·heads with the head innermost,
-    N ≤ 256 unpadded. ``bias``: (heads, N, N) float32, the frozen integer
-    relative-position bias at the softmax input scale; ``mask``: the
-    (nW, N, N) float32 shifted-window addend, or None. ``r1``: score →
-    ``s_attn1`` ratio; ``rb``: ``s_attn1 → s_bias`` merge ratio;
-    ``scale``: the softmax input scale ``s_bias``; ``r_out``: context →
-    int8 output ratio (float32 values). Returns the int8 (G, N, hd)
-    context."""
-    _check(q, k, v, bias, mask, heads)
+@torch.library.custom_op(
+    "ivit::fused_int8_window_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor bias, Tensor? mask, float r1, float rb, float scale, "
+           "float r_out, int heads) -> Tensor",
+)
+def _window_attention_op(q, k, v, bias, mask, r1, rb, scale, r_out, heads):
     if q.device.type == "cpu":
         return fused_int8_window_attention_reference(q, k, v, bias, mask, r1, rb, scale, r_out, heads)
     if q.device.type != "cuda":
@@ -155,6 +140,35 @@ def fused_int8_window_attention(
     _build.check(err, "fused_int8_window_attention")
     fused_int8_window_attention.launches += 1
     return out
+
+
+@_window_attention_op.register_fake
+def _(q, k, v, bias, mask, r1, rb, scale, r_out, heads):
+    return torch.empty_like(q)
+
+
+def fused_int8_window_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,
+    mask: torch.Tensor | None,
+    r1: float,
+    rb: float,
+    scale: float,
+    r_out: float,
+    heads: int,
+) -> torch.Tensor:
+    """q/k/v: (G, N, hd) int8, G = B·nW·heads with the head innermost,
+    N ≤ 256 unpadded. ``bias``: (heads, N, N) float32, the frozen integer
+    relative-position bias at the softmax input scale; ``mask``: the
+    (nW, N, N) float32 shifted-window addend, or None. ``r1``: score →
+    ``s_attn1`` ratio; ``rb``: ``s_attn1 → s_bias`` merge ratio;
+    ``scale``: the softmax input scale ``s_bias``; ``r_out``: context →
+    int8 output ratio (float32 values). Returns the int8 (G, N, hd)
+    context, through the operator ``ivit::fused_int8_window_attention``."""
+    _check(q, k, v, bias, mask, heads)
+    return _window_attention_op(q, k, v, bias, mask, float(r1), float(rb), float(scale), float(r_out), heads)
 
 
 fused_int8_window_attention.launches = 0

@@ -58,12 +58,15 @@ def create_model(name: str, device="cuda", seed: int = 0, **kwargs) -> torch.nn.
     truncated normals of std 0.02, zero biases, unit LayerNorm scales),
     so a model on the card and one on the CPU start equal. Keyword
     arguments override config fields or set the model's own (the drop
-    rates; for a Swin ``ape`` and ``remat``). The defaults are JAX's: a
+    rates, ``remat``; for a Swin ``ape``). The defaults are JAX's: a
     QAT Swin's drop-path rate is 0.1, a ViT's and the float models' 0.
-    A float model takes no ``softmax_bits`` or ``gelu_stable``. Raises
-    for a CUDA device on a machine without one."""
+    A float model takes no ``softmax_bits``, ``gelu_stable`` or ``remat``
+    (JAX's float models have none; ``ValueError``). Raises for a CUDA
+    device on a machine without one."""
     device = target_device(device)
     if name in FLOAT_REGISTRY:
+        if "remat" in kwargs:
+            raise ValueError(f"{name}: the float models take no remat (JAX's have none)")
         build = functools.partial(FLOAT_REGISTRY[name], **kwargs)
     else:
         own = {k: kwargs.pop(k) for k in _TRAIN_ONLY if k in kwargs}

@@ -14,7 +14,9 @@ names (``layers_{i}_blocks_{j}``, ``layers_{i}_downsample``,
 ``attn.relative_position_bias_table``), so ``nn.flax_state`` carries a
 flax Swin's variables across.
 
-JAX's ``remat`` is not ported, for the reason ``models/vit.py`` gives.
+``remat=True`` recomputes each ``SwinBlock`` in the backward, as JAX's
+``nn.remat(SwinBlock)`` does (``PatchMerging`` keeps its activations,
+as in JAX), by ``nn.remat`` as ``models/vit.py`` says.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from torch import nn
 
 from ..core.qtensor import QTensor
 from ..nn.quant import IntLayerNorm, IntSoftmax, QuantAct, QuantLinear, QuantPatchEmbed, exact_int_matmul, trunc_normal_
+from ..nn.remat import remat as remat_block
 from ..nn.vit_blocks import Mlp, drop_path, quant_dropout
 from ..ops.interp import div, f32
 
@@ -314,8 +317,8 @@ class SwinTransformer(nn.Module):
     ``gelu_stable`` selects the elementwise ShiftGELU (the artifact
     records it); ``drop_rate``, ``attn_drop_rate`` and
     ``drop_path_rate`` (stochastic depth, rising linearly over the
-    blocks) act only under ``train=True``. ``remat=True`` raises (module
-    docstring).
+    blocks) act only under ``train=True``. ``remat`` recomputes each
+    ``SwinBlock`` in the backward (module docstring).
     """
 
     def __init__(
@@ -338,9 +341,7 @@ class SwinTransformer(nn.Module):
         gelu_stable: bool = False,
     ):
         super().__init__()
-        if remat:
-            raise NotImplementedError("remat is not ported: a re-run forward would move every QuantAct's range "
-                                      "twice (models/vit.py)")
+        self.remat = remat
         self.config = swin_config(img_size, patch_size, num_classes, embed_dim, depths, num_heads, window_size,
                                   mlp_ratio, gelu_stable)
         self.ape = ape
@@ -387,7 +388,12 @@ class SwinTransformer(nn.Module):
             x = self.qact1(x, update_stats=train)
 
         for layer in self.layers:
-            x = layer(x, train, generator) if isinstance(layer, SwinBlock) else layer(x, train)
+            if not isinstance(layer, SwinBlock):
+                x = layer(x, train)
+            elif self.remat:
+                x = remat_block(layer, x, train, generator)
+            else:
+                x = layer(x, train, generator)
 
         x = self.qact2(self.norm(x), update_stats=train)
         # the token-mean pool: a fractional carrier that qact3 re-rounds

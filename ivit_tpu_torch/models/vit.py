@@ -11,9 +11,11 @@ pos-embed quantized on its own and merged in a 16-bit ``QuantAct`` →
 pre-norm blocks → I-LayerNorm → CLS token → ``QuantAct`` → quantized
 head, whose output is the only dequantization.
 
-JAX's ``remat`` is not ported: ``torch.utils.checkpoint`` runs the
-forward again in the backward, which would move every ``QuantAct``'s
-EMA range twice, where JAX's functional remat does not.
+``remat=True`` recomputes each block's activations in the backward
+instead of keeping them (``nn.remat``: the re-run holds the
+``QuantAct`` ranges and replays the block's random draws), as JAX's
+``nn.remat(Block)`` does; the values, ranges and gradients are those
+without it.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from torch import nn
 
 from ..core.qtensor import QTensor
 from ..nn.quant import IntLayerNorm, QuantAct, QuantLinear, QuantPatchEmbed, trunc_normal_
+from ..nn.remat import remat as remat_block
 from ..nn.vit_blocks import Block
 from ..ops.interp import SIM, div
 
@@ -62,7 +65,8 @@ class VisionTransformer(nn.Module):
     deployed graph runs; ``gelu_stable`` selects the elementwise ShiftGELU.
     Both are model properties the frozen artifact records. ``drop_rate``,
     ``attn_drop_rate`` and ``drop_path_rate`` (stochastic depth, rising
-    linearly over the blocks) act only under ``train=True``.
+    linearly over the blocks) act only under ``train=True``. ``remat``
+    recomputes each block in the backward (module docstring).
     """
 
     def __init__(
@@ -81,8 +85,10 @@ class VisionTransformer(nn.Module):
         drop_path_rate: float = 0.0,
         softmax_bits: int = 16,
         gelu_stable: bool = False,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = remat
         self.config = vit_config(img_size, patch_size, num_classes, embed_dim, depth, num_heads,
                                  mlp_ratio, softmax_bits, gelu_stable)
         num_patches = (img_size // patch_size) ** 2
@@ -124,7 +130,7 @@ class VisionTransformer(nn.Module):
         x = self.qact1(x, identity=pos.replace(q=pos.q.expand(x.q.shape)), update_stats=train)
 
         for blk in self.blocks:
-            x = blk(x, train, generator)
+            x = remat_block(blk, x, train, generator) if self.remat else blk(x, train, generator)
 
         x = self.norm(x)
         x = self.qact2(x.replace(q=x.q[:, 0]), update_stats=train)  # CLS token

@@ -61,11 +61,17 @@ class QuantAct(nn.Module):
     another scale. The first update assigns the batch's range (the
     ``min == max`` sentinel of a fresh module), later ones move it by
     ``momentum``.
+
+    ``hold_range`` (set by ``held_ranges``) turns the update off whatever
+    ``update_stats`` says: a recompute (``nn.remat``) runs the module
+    again on the range the forward's one update left, which is the range
+    that forward quantized with.
     """
 
     def __init__(self, bits: int = 8, momentum: float = 0.95):
         super().__init__()
         self.bits, self.momentum = bits, momentum
+        self.hold_range = False
         self.register_buffer("min_val", torch.zeros((), dtype=torch.float32))
         self.register_buffer("max_val", torch.zeros((), dtype=torch.float32))
 
@@ -74,7 +80,7 @@ class QuantAct(nn.Module):
         real = x.dequantize() if is_q else x.to(torch.float32)
         if identity is not None:
             real = real + identity.dequantize()
-        if update_stats:
+        if update_stats and not self.hold_range:
             with torch.no_grad():
                 cur_min, cur_max = torch.aminmax(real.detach())
                 first = self.min_val == self.max_val
@@ -94,6 +100,21 @@ class QuantAct(nn.Module):
                 interp=SIM,
             )
         return QTensor(q, scale, self.bits)
+
+
+@contextlib.contextmanager
+def held_ranges(module: nn.Module):
+    """Hold the range of every ``QuantAct`` in ``module`` for the block
+    (``QuantAct.hold_range``); each is restored after."""
+    acts = [m for m in module.modules() if isinstance(m, QuantAct)]
+    before = [m.hold_range for m in acts]
+    for m in acts:
+        m.hold_range = True
+    try:
+        yield
+    finally:
+        for m, held in zip(acts, before):
+            m.hold_range = held
 
 
 # Set by ``quant_train --fast-matmul`` (JAX's ``SIM_FAST_MATMUL``): the

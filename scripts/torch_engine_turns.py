@@ -15,9 +15,10 @@ at every width of those paths and K5 and K6 at route B's shapes, on seeded
 inputs, as ms per launch by CUDA events over 20 launches, launched as a
 caller launches them (``ms``) and queued behind a spin kernel (``queued
 ms``), with ``chip_smoke.py``'s ``cuda_ms`` (this script's own
-checkout's), and as the host µs a wrapper call takes to return (``host
-us``, 200 calls queued behind a spin kernel, so that none waits on the
-device).
+checkout's); and the host µs a call of each kernel's wrapper, K1-K7,
+takes to return at its path's batch-128 shape (``K1 host us`` ...,
+``chip_smoke.py``'s ``host_us`` on its ``wrapper_calls``: 200 calls
+queued behind a spin kernel, so that none waits on the device).
 Run it for two checkouts in alternating order (parent, change, change,
 parent, ...) and compare the medians. Prints one JSON line; exits
 nonzero without a CUDA device.
@@ -34,7 +35,6 @@ BATCH = 128
 ITERS = 10
 KERNEL_ITERS = 20
 LATENCY_RUNS = 50
-HOST_CALLS = 200
 # K3's (rows, width) on the batch-128 paths: DeiT-S and Swin-T's four
 # stages and three patch mergings
 K3_SHAPES = ((25216, 384), (401408, 96), (100352, 192), (25088, 384), (6272, 768),
@@ -57,22 +57,6 @@ def batch1_ms(fn, image) -> float:
     return sorted(lat)[len(lat) // 2]
 
 
-def host_us(fn, calls: int = HOST_CALLS) -> float:
-    """Host µs a call takes to return, the stream held by a spin kernel
-    (about 0.2 ms a call) so that no call waits on the device."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(calls * 400_000)
-    t1 = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    elapsed = time.perf_counter() - t1
-    torch.cuda.synchronize()
-    return elapsed / calls * 1e6
-
-
 def main() -> int:
     import numpy as np
     import torch
@@ -85,9 +69,10 @@ def main() -> int:
         return 1
     root = os.path.abspath(sys.argv[1])
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from chip_smoke import cuda_ms
+    from chip_smoke import cuda_ms, host_us, wrapper_calls
 
     sys.path[0] = root  # the package under test comes from ROOT
+    from ivit_tpu_torch import kernels
     from ivit_tpu_torch.deploy.engine import build_vit_infer
     from ivit_tpu_torch.deploy.swin_engine import build_swin_infer
     from ivit_tpu_torch.deploy.swin_synthetic import synthetic_swin_artifact
@@ -117,7 +102,6 @@ def main() -> int:
         for label, queued in (("ms", False), ("queued ms", True)):
             result[f"K3 ({M}, {C}) {label}"] = cuda_ms(lambda: fused_layernorm_requant(x, bias, ratio),
                                                        KERNEL_ITERS, queued=queued)
-        result[f"K3 ({M}, {C}) host us"] = host_us(lambda: fused_layernorm_requant(x, bias, ratio))
     M, C = K5_SHAPE
     acc = torch.from_numpy(rng.integers(-(2**20), 2**20, (M, C)).astype(np.int32)).to(dev)
     r1 = torch.from_numpy((rng.uniform(0.5, 2.0, C) * 1e-4).astype(np.float32)).to(dev)
@@ -125,14 +109,14 @@ def main() -> int:
     for label, queued in (("ms", False), ("queued ms", True)):
         result[f"K5 ({M}, {C}) {label}"] = cuda_ms(lambda: fused_requant_shiftgelu(acc, r1, s_in, r2),
                                                    KERNEL_ITERS, queued=queued)
-    result[f"K5 ({M}, {C}) host us"] = host_us(lambda: fused_requant_shiftgelu(acc, r1, s_in, r2))
     M, N = K6_SHAPE
     scores = torch.from_numpy(rng.integers(-(2**20), 2**20, (M, N)).astype(np.int32)).to(dev)
     r1, scale = float(np.float32(3.1e-5)), float(np.float32(0.021))
     for label, queued in (("ms", False), ("queued ms", True)):
         result[f"K6 ({M}, {N}) {label}"] = cuda_ms(lambda: fused_requant_shiftmax(scores, r1, scale, N),
                                                    KERNEL_ITERS, queued=queued)
-    result[f"K6 ({M}, {N}) host us"] = host_us(lambda: fused_requant_shiftmax(scores, r1, scale, N))
+    for name, fn in wrapper_calls(kernels, dev).items():
+        result[f"{name} host us"] = host_us(fn)
     print(json.dumps(result))
     return 0
 

@@ -9,10 +9,12 @@ normal images, and prints one JSON line per batch: the model, whether
 it fit, the peak ``torch.cuda.max_memory_allocated`` in bytes, the
 card's name and total memory, and the second step's ms (CUDA events),
 or the out-of-memory message. One model and train state serve the
-batches, in the order given.
+batches, in the order given. ``--remat`` builds the model with
+``remat=True`` (each block recomputed in the backward) and says so in
+every line.
 
 Usage, from the repository root on a machine with one card:
-``python scripts/torch_train_memory.py [--model NAME] [batch ...]``
+``python scripts/torch_train_memory.py [--model NAME] [--remat] [batch ...]``
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ def main(argv: list[str]) -> int:
 
     p = argparse.ArgumentParser("torch_train_memory")
     p.add_argument("--model", default="deit_small")
+    p.add_argument("--remat", action="store_true", help="recompute each block in the backward")
     p.add_argument("batches", nargs="*", type=int, default=[64, 128])
     args = p.parse_args(argv)
 
@@ -43,7 +46,7 @@ def main(argv: list[str]) -> int:
 
     dev = torch.device("cuda", 0)
     total = torch.cuda.get_device_properties(dev).total_memory
-    model = create_model(args.model, dev, drop_path_rate=0.1)
+    model = create_model(args.model, dev, drop_path_rate=0.1, remat=args.remat)
     state = create_train_state(model, AdamW(1e-6), ema_decay=0.99996, device=dev)
     step = make_train_step(model, ema_decay=0.99996)
     for b in args.batches:
@@ -53,7 +56,8 @@ def main(argv: list[str]) -> int:
         t[torch.arange(b), torch.from_numpy(rng.integers(0, 1000, b)).to(dev)] += 0.9
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        row = {"model": args.model, "batch": b, "device": torch.cuda.get_device_name(dev), "total_bytes": total}
+        row = {"model": args.model, "remat": args.remat, "batch": b, "device": torch.cuda.get_device_name(dev),
+               "total_bytes": total}
         try:
             step(state, x, t)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -3,9 +3,10 @@
 
 * ``python -m ivit_tpu_torch.convert_model --torch-checkpoint``: a
   reference-style state dict saved with ``torch.save`` comes back as the
-  artifact JAX's ingester makes from it (tolerance 0); ``--export-engine``
-  exits with its message (``--checkpoint`` is
-  ``tests/test_torch_convert_checkpoint.py``'s).
+  artifact JAX's ingester makes from it (tolerance 0) (``--checkpoint``
+  is ``tests/test_torch_convert_checkpoint.py``'s); ``--export-engine``
+  after either writes the engine, which reloads and equals the live
+  engine on the written artifact.
 * ``evaluate_latency --device cpu`` prints the JAX CLI's line at a tiny
   size, for ViT and Swin.
 * ``bench._float_vit_infer`` agrees with the root ``bench.py``'s
@@ -28,10 +29,18 @@ import torch
 
 from ivit_tpu.deploy import ingest_torch as jax_ingest
 from ivit_tpu_torch import bench, convert_model, evaluate_latency
-from ivit_tpu_torch.deploy import build_swin_infer, build_vit_infer, synthetic_swin_artifact, synthetic_vit_artifact
+from ivit_tpu_torch.deploy import (
+    build_swin_infer,
+    build_vit_infer,
+    load_engine,
+    synthetic_swin_artifact,
+    synthetic_vit_artifact,
+)
 from ivit_tpu_torch.deploy.graphs import capture_infer
 from ivit_tpu_torch.deploy.swin_engine import token_mean
 from ivit_tpu_torch.ops.interp import f32
+from tests.test_torch_convert_checkpoint import META as CKPT_META
+from tests.test_torch_convert_checkpoint import _checkpoint as _qat_checkpoint
 from tests.test_torch_ingest import SWIN_TINY, assert_same, reference_swin_state, reference_vit_state
 
 # bench.py's JSON keys (bench.py:213-222)
@@ -61,14 +70,34 @@ def test_convert_torch_checkpoint_roundtrip(family, tmp_path, capsys):
         assert_same(pickle.load(f), expect)
 
 
+@pytest.mark.parametrize("source", ["torch-checkpoint", "checkpoint"])
+def test_convert_exports_an_engine(source, tmp_path, capsys):
+    """``--export-engine`` after ``--torch-checkpoint`` (deit_tiny's
+    reference-style state) and after ``--checkpoint`` (the port's
+    checkpoint of a full-width deit_tiny at 32²): the engine file reloads
+    and gives the live engine's logits on the written artifact
+    (tolerance 0) at ``--export-batch``."""
+    if source == "checkpoint":
+        argv = ["--checkpoint", _qat_checkpoint(tmp_path, CKPT_META), "--device", "cpu"]
+    else:
+        argv = ["--model", "deit_tiny", "--torch-checkpoint", str(_save_checkpoint(tmp_path, reference_vit_state())),
+                "--device", "cpu"]
+    out, engine_path = tmp_path / "artifact.pkl", tmp_path / "engine.pt2"
+    convert_model.main(argv + ["--output", str(out), "--export-engine", str(engine_path), "--export-batch", "2"])
+    assert f"wrote {engine_path} (torch.export, batch 2)" in capsys.readouterr().out
+    with open(out, "rb") as f:
+        artifact = pickle.load(f)
+    size = artifact["config"]["img_size"]
+    images = torch.from_numpy(np.random.default_rng(5).standard_normal((2, size, size, 3)).astype(np.float32))
+    torch.testing.assert_close(load_engine(str(engine_path))(images), build_vit_infer(artifact, "cpu")(images),
+                               rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("argv, message", [
-    (["--model", "deit_small", "--torch-checkpoint", "x.pth", "--export-engine", "e.bin"],
-     "comes with the serialized-engine slice"),
-    (["--checkpoint", "ckpt.pkl", "--export-engine", "e.bin"], "comes with the serialized-engine slice"),
     (["--torch-checkpoint", "x.pth"], "requires a --model name"),
     (["--model", "deit_small"], "pass exactly one of --checkpoint"),
     (["--checkpoint", "ckpt.pkl", "--torch-checkpoint", "x.pth"], "pass exactly one of --checkpoint"),
-], ids=["export-engine", "checkpoint-export-engine", "no-model", "no-input", "both-inputs"])
+], ids=["no-model", "no-input", "both-inputs"])
 def test_convert_refusals_exit_with_their_message(argv, message, tmp_path):
     with pytest.raises(SystemExit) as info:
         convert_model.main(argv + ["--output", str(tmp_path / "a.pkl")])

@@ -16,6 +16,7 @@ import torch
 
 from ivit_tpu_torch.deploy.convert import freeze_vit
 from ivit_tpu_torch.deploy.engine import build_vit_infer
+from ivit_tpu_torch.deploy.export import export_engine, load_engine
 from ivit_tpu_torch.deploy.graphs import capture_infer
 from ivit_tpu_torch.deploy.swin_engine import build_swin_infer
 from ivit_tpu_torch.deploy.swin_synthetic import synthetic_swin_artifact
@@ -971,3 +972,66 @@ def test_fast_matmul_backward_on_card(dev, monkeypatch):
             bound = 2 * (k - 1) * 2.0**-24 * torch.matmul(lhs16.abs(), rhs16.abs())
             assert bool(((card[i].to(torch.float64) - host[i].to(torch.float64)).abs() <= bound.reshape(card[i].shape)).all())
     assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction == reduced
+
+
+@pytest.mark.parametrize(
+    "kernels,counts",
+    [
+        (("attention", "layernorm"), {"K1": 2, "K3": 5}),
+        (("layernorm", "attention2", "linear_gelu"), {"K2": 2, "K4": 2, "K3": 5}),
+        (("layernorm", "softmax", "gelu"), {"K6": 2, "K5": 2, "K3": 5}),
+    ],
+    ids=["main", "A", "B"],
+)
+def test_exported_engine_on_card_equals_live(dev, kernels, counts):
+    """An engine exported on the card and reloaded from its bytes: the
+    live engine's logits (tolerance 0) and its launches, counted by the
+    operators; captured as a CUDA graph, the same again."""
+    artifact = synthetic_vit_artifact(
+        "deit_tiny", seed=1, softmax_bits=16, gelu_stable=False,
+        img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2, num_classes=16,
+    )
+    images = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 32, 32, 3)).astype(np.float32)).to(dev)
+    live = build_vit_infer(artifact, dev, kernels=kernels)
+    engine = load_engine(export_engine(live, 3, 32))
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    logits = engine(images)
+    torch.cuda.synchronize()
+    assert {name: fn.launches for name, fn in WRAPPERS.items() if fn.launches} == counts
+    torch.testing.assert_close(logits, live(images), rtol=0, atol=0)
+    replay = capture_infer(engine, 3, 32, dev)
+    assert replay.launches == counts
+    torch.testing.assert_close(replay(images), logits, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seeded", [True, False], ids=["generator", "global-rng"])
+@pytest.mark.parametrize("name", ["deit_tiny", "swin_tiny"])
+def test_remat_step_on_card_equals_no_remat(dev, name, seeded):
+    """One train step with drop-path 0.1 on the card, the masks drawn from
+    a seeded generator or from the card's global one, with and without
+    ``remat``: logits and every range bit-equal, gradients within 1e-5 of
+    each leaf's largest entry (the backward's sums may take another order
+    on the card), the generator's state equal."""
+    small = dict(img_size=32, num_classes=16, depth=2) if name == "deit_tiny" else \
+        dict(img_size=32, num_classes=16, depths=(2, 2), num_heads=(2, 4), window_size=4, embed_dim=32)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((4, 32, 32, 3)).astype(np.float32)).to(dev)
+    t = torch.full((4, 16), 1 / 16, device=dev)
+    runs = []
+    for remat in (False, True):
+        model = create_model(name, dev, seed=2, drop_path_rate=0.1, remat=remat, **small)
+        gen = torch.Generator(device=dev).manual_seed(9) if seeded else None
+        torch.cuda.manual_seed(9)
+        names, params = zip(*model.named_parameters())
+        logits = model(x, train=True, generator=gen)
+        grads = torch.autograd.grad(soft_target_cross_entropy(logits, t), params, materialize_grads=True)
+        state = gen.get_state() if seeded else torch.cuda.get_rng_state(dev)
+        runs.append((logits.detach(), dict(model.named_buffers()), dict(zip(names, grads)), state))
+    (l0, b0, g0, s0), (l1, b1, g1, s1) = runs
+    torch.testing.assert_close(l1, l0, rtol=0, atol=0)
+    for n in b0:
+        torch.testing.assert_close(b1[n], b0[n], rtol=0, atol=0, msg=n)
+    for n in g0:
+        torch.testing.assert_close(g1[n], g0[n], rtol=0, atol=1e-5 * float(g0[n].abs().max()), msg=n)
+    assert torch.equal(s0, s1)

@@ -83,8 +83,9 @@ def test_freeze_and_engine_match_jax(config):
 def test_entry_points():
     """``create_model("swin_tiny")``: JAX's parameter count and its
     drop-path default (0.1, rising linearly over the 12 blocks);
-    ``remat=True`` raises, and so does freezing an ``ape`` model; without
-    a card the entry points raise instead of running on the CPU."""
+    ``remat=True`` builds (a float name with it raises); freezing an
+    ``ape`` model raises; without a card the entry points raise instead
+    of running on the CPU."""
     model = create_model("swin_tiny", device="cpu")
     shapes = jax.eval_shape(lambda: JaxSwin(**create_config("swin_tiny")).init(
         jax.random.PRNGKey(0), jnp.zeros((1, 224, 224, 3)), train=False))
@@ -92,8 +93,9 @@ def test_entry_points():
     assert JaxSwin.drop_path_rate == 0.1 and model.config == create_config("swin_tiny")
     rates = [m.drop_path_rate for n, m in model.named_children() if "_blocks_" in n]
     np.testing.assert_array_equal(rates, np.linspace(0.0, 0.1, 12))
-    with pytest.raises(NotImplementedError):
-        create_model("swin_tiny", device="cpu", remat=True)
+    assert create_model("swin_tiny", device="cpu", remat=True).remat is True
+    with pytest.raises(ValueError, match="remat"):
+        create_model("deit_small_fp32", device="cpu", remat=True)
     _, _, ape = _pair("a", ape=True)
     with pytest.raises(NotImplementedError):
         freeze_swin(ape, device="cpu")
