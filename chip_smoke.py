@@ -12,9 +12,10 @@ trainer's entry points (``quant_train``, ``convert_model --checkpoint``,
 ``evaluate_accuracy``) end to end on both models (phase 9), and takes
 seeded float checkpoints in the published layouts through import,
 calibration, QAT, freezing and serving, beside the float models on the
-imported weights (phase 10), and trains ViT-L and Swin-B at batch 128
+imported weights (phase 10), trains ViT-L and Swin-B at batch 128
 with per-block recompute and serves every path from a serialized engine
-reloaded in a fresh process (phase 11):
+reloaded in a fresh process (phase 11), and serves and trains over
+``torch.distributed`` meshes on the one card (phase 12):
 
 * the main path: softmax_bits=8, stable ShiftGELU, K1 attention + K3
   LayerNorm (the default kernels);
@@ -219,7 +220,31 @@ Phases:
    (live, reloaded, reloaded, live): images/s at 128 (CUDA events) and
    ms at batch 1 (host clock), the captured launches and the replay
    bit-equal; (d) the host µs a call of each wrapper K1-K7 takes at
-   its batch-128 shape, through its ``ivit::`` operator (``host_us``).
+   its batch-128 shape, through its ``ivit::`` operator (``host_us``);
+12. multi-GPU on the one card: (a) a world of one over nccl, launched by
+   ``python -m torch.distributed.run --standalone --nproc-per-node 1``:
+   ``quant_train --distributed --zero1`` (DeiT-S, two steps at batch 32)
+   whose checkpoint equals the same run's without ``--distributed`` leaf
+   for leaf, then ``evaluate_accuracy --mesh-data 1`` on the converted
+   result, its logits equal to the single-process sweep's and 12 K1 + 25
+   K3 a captured forward; (b) MESH_RANKS spawned ranks sharing cuda:0
+   over a gloo group named explicitly (the tensors and kernels on the
+   card, each collective staged through the host; no figure of this
+   phase is a scaling figure): the DeiT-S main path data-parallel at
+   batch 128 and tensor-parallel at 128 and 1, route B and Swin-T
+   tensor-parallel at 128, every rank's logits bit-equal to phase 4's
+   single-process engine and its launches a forward read around its own
+   run (12 K1 + 25 K3; 12 K6 + 12 K5 + 25 K3; 12 K7 + 28 K3), K4 under a
+   model axis raising; K1, K3, K5, K6 and K7 (each Swin-T stage's first
+   block, stage 1 replicated) against their plain versions on each
+   rank's own inputs (tolerance 0; timed on rank 0 with its bound, the
+   ``tp2`` entries of the kernels line); and DeiT-S QAT at a global batch
+   of MESH_QAT_BATCH (drop path 0.1, mixup/cutmix) for MESH_QAT_STEPS
+   steps, data-parallel and with ZeRO-1, against the single-process step
+   on the card: every range and logit bit-equal, the loss and the
+   parameters within the bounds of ``tests/test_torch_parallel_train.py``,
+   ZeRO-1 equal to DP bit for bit, and each rank's optimizer-state bytes
+   both ways.
 
 Any failed check raises and exits nonzero before the result lines. The
 second-to-last line is the kernels' JSON record, the last line
@@ -1812,6 +1837,358 @@ def export_phase(dev, paths: dict, images) -> None:
     check(set(us) == set(WRAPPERS), f"host us: {sorted(us)}")
 
 
+# 12. multi-GPU on the one card: a world of one over nccl through torchrun,
+# then MESH_RANKS ranks sharing cuda:0 over a gloo group named explicitly
+MESH_RANKS = 2
+MESH_LABEL = f"{MESH_RANKS} ranks on one H100, gloo (collectives through the host); not a scaling figure"
+MESH_CLI = ["--model", "deit_small", "--batch-size", "32", "--max-steps-per-epoch", "2", "--epochs", "1"]
+MESH_EVAL_BATCH = 64
+MESH_QAT_BATCH = 64  # global: MESH_QAT_BATCH / MESH_RANKS rows a rank
+MESH_QAT_STEPS = 2
+# the QAT step of tests/test_torch_parallel_train.py and its stated bounds
+# after the first step: the loss within MESH_LOSS_ULPS, each parameter
+# within 1e-3·lr where its gradient (the first moment, 0.1·g) is at least
+# 1e-2 of its leaf's largest, else within Adam's bound of 3·lr (a gradient
+# near eps: its rounding moves the update)
+MESH_LR, MESH_WD, MESH_EMA, MESH_CLIP = 1e-3, 0.05, 0.9, 1.0
+MESH_LOSS_ULPS = 4
+MESH_PARAM_ATOL, MESH_SMALL_GRAD, MESH_ADAM_ATOL = 1e-3 * MESH_LR, 1e-2, 3 * MESH_LR
+
+
+def torchrun(args: list, nproc: int, timeout: int) -> list:
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    nproc -m <args>`` from the repository root, as a user launches it;
+    prints its output and fails unless it exits 0."""
+    return run_cli(["torch.distributed.run", "--standalone", f"--nproc-per-node={nproc}", "-m", *args], timeout)
+
+
+def flat_state(path: str) -> dict:
+    from ivit_tpu_torch.nn.flax_state import flatten
+    from ivit_tpu_torch.utils import load_checkpoint_raw
+
+    state, extra = load_checkpoint_raw(path)
+    return {**flatten(state), **{f"extra.{k}": v for k, v in extra.items()}}
+
+
+def nccl_world_of_one(dev) -> None:
+    """Phase 12 (a): ``quant_train --distributed --zero1`` under torchrun
+    with one rank (nccl) against the same run without ``--distributed``
+    (every checkpoint leaf equal), then ``evaluate_accuracy --mesh-data
+    1`` under torchrun on the converted result against the
+    single-process sweep (logits equal, 12 K1 + 25 K3 a captured
+    forward)."""
+    import numpy as np
+
+    from ivit_tpu_torch import convert_model, evaluate_accuracy, quant_train
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d1, d0 = os.path.join(tmp, "dist"), os.path.join(tmp, "single")
+        train = [*CLI_TRAIN, *MESH_CLI]
+        lines = torchrun(["ivit_tpu_torch.quant_train", *train, "--distributed", "--zero1", "--output-dir", d1], 1, 400)
+        check(any("1 ranks over nccl" in line for line in lines + open(os.path.join(d1, "log.log")).read().splitlines()),
+              "quant_train --distributed: not one nccl rank")
+        quant_train.main([*train, "--device", str(dev), "--output-dir", d0])
+        got, want = flat_state(os.path.join(d1, "checkpoint.pkl")), flat_state(os.path.join(d0, "checkpoint.pkl"))
+        differ = [k for k in want if not np.array_equal(np.asarray(got.get(k)), np.asarray(want[k]))]
+        print(f"nccl world of one: quant_train --distributed --zero1 ({' '.join(MESH_CLI)}) checkpoint against the "
+              f"run without --distributed: {len(want)} leaves, {len(differ)} differ {differ[:5]} (tolerance 0)")
+        check(got.keys() == want.keys() and not differ, "nccl world of one: the checkpoint differs")
+        art, e1, e0 = (os.path.join(tmp, f) for f in ("artifact.pkl", "e1.npz", "e0.npz"))
+        convert_model.main(["--checkpoint", os.path.join(d1, "checkpoint.pkl"), "--output", art, "--device", str(dev)])
+        ev = ["--model", "deit_small", "--artifact", art, *CLI_EVAL, "--batch-size", str(MESH_EVAL_BATCH),
+              "--max-batches", "1"]
+        lines = torchrun(["ivit_tpu_torch.evaluate_accuracy", *ev, "--mesh-data", "1", "--dump-logits", e1], 1, 300)
+        evaluate_accuracy.main([*ev, "--device", str(dev), "--dump-logits", e0])
+        captured = re.search(r"launches a forward (\{.*\})", "\n".join(lines))
+        a, b = np.load(e1), np.load(e0)
+        same = np.array_equal(a["logits"], b["logits"]) and np.array_equal(a["labels"], b["labels"])
+        print(f"nccl world of one: evaluate_accuracy --mesh-data 1 logits {a['logits'].shape} equal to the "
+              f"single-process sweep {same}; launches a forward {captured and captured.group(1)}")
+        check(any("over nccl" in line for line in lines), "evaluate_accuracy --mesh-data 1: not over nccl")
+        check(same, "evaluate_accuracy --mesh-data 1 differs from the single-process sweep")
+        check(captured is not None and ast.literal_eval(captured.group(1)) == {"K1": 12, "K3": 25},
+              f"evaluate_accuracy --mesh-data 1: launches {captured and captured.group(1)}")
+    print(f"nccl world of one: {time.perf_counter() - t0:.3f} s")
+
+
+def mesh_rank(rank: int, world: int, init_file: str, work: str) -> None:
+    """Phase 12 (b), one rank of MESH_RANKS on cuda:0 over gloo: the
+    sharded engines against the single-process logits (in
+    ``work/inputs.pkl``) with each forward's launches, the kernels on
+    this rank's inputs against their plain versions (timed on rank 0
+    while the other ranks wait), and the data-parallel QAT steps against
+    the single-process step; writes ``work/rank<r>.pkl``."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from ivit_tpu_torch.deploy import build_swin_infer, build_vit_infer
+    from ivit_tpu_torch.deploy.engine import _layernorm, attention_half, attention_inputs, embed, int8_linear
+    from ivit_tpu_torch.deploy.swin_engine import patch_embed, swin_trunk, window_attention_inputs
+    from ivit_tpu_torch.kernels import (
+        WRAPPERS,
+        fused_int8_attention,
+        fused_int8_attention_reference,
+        fused_int8_window_attention,
+        fused_int8_window_attention_reference,
+        fused_layernorm_requant,
+        fused_layernorm_requant_reference,
+        fused_requant_shiftgelu,
+        fused_requant_shiftgelu_reference,
+        fused_requant_shiftmax,
+        fused_requant_shiftmax_reference,
+    )
+    from ivit_tpu_torch.models import create_model
+    from ivit_tpu_torch.parallel import init_distributed, make_mesh, shard_infer, shard_infer_tp, shard_train_state
+    from ivit_tpu_torch.parallel import gather_train_state
+    from ivit_tpu_torch.train import AdamW, MixupConfig, create_train_state, make_train_step, mixup_cutmix
+
+    joined = init_distributed(backend="gloo", device="cuda", init_method=f"file://{init_file}", rank=rank,
+                              world_size=world)
+    dev = joined.device
+    with open(os.path.join(work, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    images = torch.from_numpy(inp["images"]).to(dev)
+    dp, tp = make_mesh(world, 1), make_mesh(1, world)
+    out = {"device": str(dev), "backend": joined.backend, "paths": {}, "kernels": {}}
+
+    def drive(label, fn, x, ref):
+        torch.cuda.synchronize()
+        dist.barrier()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        y = fn(x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        y = y.cpu()
+        out["paths"][label] = {"equal": torch.equal(y, ref), "max_abs_err": float((y - ref).abs().max()),
+                               "launches": {k: w.launches for k, w in WRAPPERS.items() if w.launches}, "ms": ms}
+
+    main_tp = shard_infer_tp(inp["art8"], tp)
+    b_tp = shard_infer_tp(inp["art16"], tp, kernels=ROUTE_B)
+    swin_tp = shard_infer_tp(inp["swin"], tp, build_fn=build_swin_infer)
+    main_tp(images[:1])  # loads the kernels in this process
+    drive("main DP=2 batch 128", shard_infer(build_vit_infer(inp["art8"], dev), dp), images, inp["ref"]["main"])
+    drive("main TP=2 batch 128", main_tp, images, inp["ref"]["main"])
+    drive("main TP=2 batch 1", main_tp, images[:1], inp["ref"]["main"][:1])
+    drive("B TP=2 batch 128", b_tp, images, inp["ref"]["B"])
+    drive("swin TP=2 batch 128", swin_tp, images, inp["ref"]["swin"])
+    try:
+        shard_infer_tp(inp["art16"], tp, kernels=ROUTE_A)
+        out["k4_raises"] = None
+    except ValueError as e:
+        out["k4_raises"] = str(e)
+
+    def kernel(name, shape, fn, ref, args, bound):
+        got, want = fn(*args), ref(*args)
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]  # K6: (hi, lo)
+        err = max(max_abs_err(a, b) for a, b in pairs)
+        torch.cuda.synchronize()
+        dist.barrier()
+        k_ms = p_ms = q_ms = None
+        if rank == 0:
+            k_ms, p_ms, q_ms = paired_ms(lambda: fn(*args), lambda: ref(*args), 10)
+        dist.barrier()
+        out["kernels"][name] = {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "queued_ms": q_ms,
+                                "bound_ms": bound[0], "bound_by": bound[1]}
+
+    with torch.inference_mode():
+        t, cfg = main_tp.tensors, main_tp.tensors["config"]
+        D, N = cfg["embed_dim"], (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
+        hidden = int(D * cfg["mlp_ratio"])
+        x = embed(images, t)
+        blk = t["blocks"][0]
+        rows = x.reshape(-1, D)
+        M = rows.shape[0]
+        kernel("K3", f"({M}, {D}) full rows", fused_layernorm_requant, fused_layernorm_requant_reference,
+               (rows, blk["norm1"]["bias_int"], blk["norm1"]["ratio"]),
+               bound_ms(M * D * 3 + 8 * D, elementwise=per_element(M * D, LAYERNORM_OPS)))
+        q, k, v = attention_inputs(x, blk, blk["heads"])
+        a, (G, _, hd) = blk["attn"], q.shape
+        kernel("K1", f"({G}, {N}, {hd}) sm8, {blk['heads']} of {cfg['num_heads']} heads", fused_int8_attention,
+               fused_int8_attention_reference, (q, k, v, a["r1"], a["scale"], a["r_out"], 8),
+               bound_ms(4 * G * N * hd, int8_ops=2 * G * N * N * hd * 2, elementwise=per_element(G * N * N, ATTN_TABLE_OPS)))
+        tb = b_tp.tensors
+        xb = embed(images, tb)
+        blkb = tb["blocks"][0]
+        q, k, v = attention_inputs(xb, blkb, blkb["heads"], b_tp.kernels)
+        scores = torch.matmul(q.to(torch.float64), k.to(torch.float64).transpose(-1, -2)).to(torch.int32)
+        scores = scores.view(-1, N)
+        a = blkb["attn"]
+        kernel("K6", f"({scores.shape[0]}, {N}) out_bits 16, {blkb['heads']} heads", fused_requant_shiftmax,
+               fused_requant_shiftmax_reference, (scores, a["r1"], a["scale"], N),
+               bound_ms(scores.numel() * 6, elementwise=per_element(scores.numel(), K6_TABLE_OPS)))
+        h = attention_half(xb, blkb, tb["config"], b_tp.kernels)  # proj's all-reduce
+        acc = int8_linear(_layernorm(h, blkb["norm2"], b_tp.kernels), blkb["fc1"])  # fc1's all-gather
+        fc1, gelu = blkb["fc1"], blkb["gelu"]
+        kernel("K5", f"({acc.shape[0]}, {acc.shape[1]}) gathered rows", fused_requant_shiftgelu,
+               fused_requant_shiftgelu_reference, (acc, fc1["ratio"], gelu["s_in"], gelu["r2"]),
+               bound_ms(M * hidden * 5 + 4 * hidden + 256 * 256, elementwise=per_element(M * hidden, K5_TABLE_OPS)))
+        ts = swin_tp.tensors
+        firsts = {id(stage["blocks"][0]): i for i, stage in enumerate(ts["stages"])}
+        seen = {}
+
+        def visit(layer, x):
+            if id(layer) in firsts:
+                seen[firsts[id(layer)]] = (layer, window_attention_inputs(x, layer, kernels=()))
+
+        swin_trunk(patch_embed(images, ts), ts, swin_tp.kernels, on_layer=visit)  # the blocks' collectives
+        full_heads = ts["config"]["num_heads"]
+        for i in sorted(seen):
+            layer, (q, k, v) = seen[i]
+            a, heads = layer["attn"], layer["heads"]
+            G, Nw, hdw = q.shape
+            kernel(f"K7 stage {i + 1}", f"({G}, {Nw}, {hdw}), {heads} of {full_heads[i]} heads"
+                   + (" (replicated)" if heads == full_heads[i] else ""),
+                   fused_int8_window_attention, fused_int8_window_attention_reference,
+                   (q, k, v, a["bias"], a["mask"], a["r1"], a["rb"], a["scale"], a["r_out"], heads),
+                   bound_ms(4 * G * Nw * hdw + 4 * heads * Nw * Nw, int8_ops=4 * G * Nw * Nw * hdw,
+                            elementwise=per_element(G * Nw * Nw, WINDOW_TABLE_OPS)))
+    del main_tp, b_tp, swin_tp, t, tb, ts, x, xb, h, acc, scores
+    torch.cuda.empty_cache()
+
+    # the QAT steps: the same global batches on every rank (mixup/cutmix on
+    # the card from the same draws), split by the step
+    batches = []
+    for i in range(MESH_QAT_STEPS):
+        rng = np.random.default_rng((SEED, 12, i))
+        xq = torch.from_numpy(rng.standard_normal((MESH_QAT_BATCH, 224, 224, 3), dtype=np.float32))
+        labels = torch.from_numpy(rng.integers(0, 1000, MESH_QAT_BATCH))
+        batches.append(mixup_cutmix(xq, labels, MixupConfig(), np.random.default_rng((SEED, 12, i, 1)), device=dev))
+
+    def qat(mesh, zero1):
+        model = create_model("deit_small", dev, seed=SEED, drop_path_rate=TRAIN_DROP_PATH)
+        state = create_train_state(model, AdamW(MESH_LR, weight_decay=MESH_WD), ema_decay=MESH_EMA, device=dev)
+        if zero1:
+            state = shard_train_state(state, mesh)
+        step = make_train_step(model, ema_decay=MESH_EMA, grad_clip=MESH_CLIP, mesh=mesh)
+        seen_logits = []
+        hook = model.register_forward_hook(lambda m, args, o: seen_logits.append(o.detach()))
+        rec = {"logits": [], "ranges": [], "loss": [], "ms": []}
+        for i, (xq, tq) in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, met = step(state, xq, tq, torch.Generator(device=dev).manual_seed(1000 + i))
+            loss = float(met["loss"])
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            logits = seen_logits[-1] if mesh is None else mesh.all_gather(seen_logits[-1], "data")
+            rec["logits"].append(logits.cpu())
+            rec["ranges"].append({n: b.cpu().clone() for n, b in model.named_buffers()})
+            rec["loss"].append(loss)
+            if i == 0:  # the parameters after the first step, and the first moment (0.1·g) of a whole state
+                rec["params1"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+                rec["mu1"] = None if state.zero1 else dict(zip(rec["params1"], [m.clone() for m in state.opt_state.mu]))
+        hook.remove()
+        local = list(state.opt_state.mu) + list(state.opt_state.nu) + list((state.ema_params or {}).values())
+        rec["opt_bytes"] = sum(tq.numel() * tq.element_size() for tq in local)
+        whole = gather_train_state(state)
+        names = [n for n, _ in model.named_parameters()]
+        rec["params"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+        rec["mu"] = dict(zip(names, whole.opt_state.mu))
+        rec["nu"] = dict(zip(names, whole.opt_state.nu))
+        rec["ema"] = dict(whole.ema_params)
+        return rec
+
+    single = qat(None, False) if rank == 0 else None
+    dist.barrier()
+    shared = [None if single is None else {k: single[k] for k in ("logits", "ranges", "loss")}]
+    dist.broadcast_object_list(shared, src=0)
+    ref = shared[0]
+    runs = {"DP": qat(dp, False), "DP + ZeRO-1": qat(dp, True)}
+    res = {"loss": {k: r["loss"] for k, r in runs.items()}, "single_loss": ref["loss"],
+           "opt_bytes": {k: r["opt_bytes"] for k, r in runs.items()}, "ms": {k: r["ms"] for k, r in runs.items()}}
+    d, z = runs["DP"], runs["DP + ZeRO-1"]
+    # step 1 runs both on the same parameters: its logits and ranges are
+    # equal by design; later steps run on parameters the all-reduce's
+    # rounding has moved, and are printed
+    res["logits_max_abs_err"] = [float((a - b).abs().max()) for a, b in zip(d["logits"], ref["logits"])]
+    res["ranges_differ"] = [sum(not torch.equal(a[n], b[n]) for n in b) for a, b in zip(d["ranges"], ref["ranges"])]
+    res["loss_ulps"] = [float(abs(np.float32(a) - np.float32(b)) / np.spacing(np.abs(np.float32(b))))
+                        for a, b in zip(d["loss"], ref["loss"])]
+    res["zero1_equal_dp"] = (d["loss"] == z["loss"] and all(torch.equal(a, b) for a, b in zip(d["logits"], z["logits"]))
+                             and all(torch.equal(d[key][n], z[key][n]) for key in ("params", "mu", "nu", "ema")
+                                     for n in d[key]))
+    sums = torch.stack([p.double().sum() for p in d["params"].values()])
+    res["ranks_agree"] = bool(torch.equal(dp.all_gather(sums[None], "data")[0], dp.all_gather(sums[None], "data")[-1]))
+    if single is not None:
+        worst, errs = 0.0, 0
+        for n, p in single["params1"].items():
+            m = single["mu1"][n].abs()
+            atol = torch.where(m >= MESH_SMALL_GRAD * m.max(), MESH_PARAM_ATOL, MESH_ADAM_ATOL)
+            diff = (d["params1"][n] - p).abs()
+            worst = max(worst, float(diff.max()))
+            errs += int((diff > atol + 2.0**-22 * p.abs()).sum())
+        res["param_max_abs_err"], res["params_outside"] = worst, errs
+    out["qat"] = res
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def mesh_phase(smi: str, inputs: dict) -> dict:
+    """Phase 12 (b) (``mesh_rank`` on MESH_RANKS spawned ranks): prints
+    and checks each rank's results; returns rank 0's kernel entries."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        with open(os.path.join(work, "inputs.pkl"), "wb") as f:
+            pickle.dump(inputs, f)
+        mp.start_processes(mesh_rank, args=(MESH_RANKS, os.path.join(work, "rendezvous"), work), nprocs=MESH_RANKS,
+                           join=True, start_method="spawn")
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    print(f"phase 12 mesh: {MESH_LABEL}; {smi}")
+    depth, layernorms = 12, 25
+    expect = {"main DP=2 batch 128": {"K1": depth, "K3": layernorms}, "main TP=2 batch 128": {"K1": depth, "K3": layernorms},
+              "main TP=2 batch 1": {"K1": depth, "K3": layernorms},
+              "B TP=2 batch 128": {"K6": depth, "K5": depth, "K3": layernorms},
+              "swin TP=2 batch 128": {"K7": 12, "K3": 28}}
+    for r, res in enumerate(ranks):
+        check(res["device"] == "cuda:0" and res["backend"] == "gloo", f"rank {r}: {res['device']} {res['backend']}")
+        for label, p in res["paths"].items():
+            print(f"rank {r} {label}: logits vs the single-process engine max_abs_err {p['max_abs_err']} (tolerance 0); "
+                  f"launches {p['launches']}; {p['ms']:.3f} ms a forward, host clock ({MESH_LABEL})")
+            check(p["equal"], f"rank {r} {label}: logits differ from the single-process engine")
+            check(p["launches"] == expect[label], f"rank {r} {label}: launches {p['launches']}, expected {expect[label]}")
+        print(f"rank {r}: K4 (linear_gelu) under model=2 raises ValueError: {res['k4_raises']!r}")
+        check(bool(res["k4_raises"]), f"rank {r}: K4 under TP did not raise")
+        for name, kr in res["kernels"].items():
+            timing = "" if kr["ms"] is None else (f"; kernel {kr['ms']} ms (queued {kr['queued_ms']} ms), plain "
+                                                  f"{kr['plain_ms']} ms, bound {kr['bound_ms']} ms ({kr['bound_by']})")
+            print(f"rank {r} {name} on this rank's inputs {kr['shape']}: max_abs_err {kr['max_abs_err']} "
+                  f"(tolerance 0){timing}")
+            check(kr["max_abs_err"] == 0, f"rank {r} {name}: differs from its plain version")
+        q = res["qat"]
+        print(f"rank {r} QAT DeiT-S, global batch {MESH_QAT_BATCH}, {MESH_QAT_STEPS} steps (drop path "
+              f"{TRAIN_DROP_PATH}, mixup/cutmix), DP against the single-process step by step: ranges that differ "
+              f"{q['ranges_differ']}, logits max_abs_err {q['logits_max_abs_err']} (step 1: tolerance 0); loss "
+              f"{q['loss']} vs {q['single_loss']} ({q['loss_ulps']} ulps; step 1 bound {MESH_LOSS_ULPS}); ZeRO-1 "
+              f"equal to DP (params, moments, EMA, logits, loss) {q['zero1_equal_dp']}; ranks agree "
+              f"{q['ranks_agree']}; optimizer-state bytes a rank {q['opt_bytes']}; ms a step {q['ms']} ({MESH_LABEL})")
+        check(q["ranges_differ"][0] == 0 and q["logits_max_abs_err"][0] == 0,
+              f"rank {r}: DP step 1 ranges or logits differ from the single-process step")
+        check(q["loss_ulps"][0] <= MESH_LOSS_ULPS, f"rank {r}: DP step 1 loss off by {q['loss_ulps'][0]} ulps")
+        check(q["zero1_equal_dp"] and q["ranks_agree"], f"rank {r}: ZeRO-1 differs from DP, or the ranks differ")
+        check(q["opt_bytes"]["DP + ZeRO-1"] < q["opt_bytes"]["DP"], f"rank {r}: ZeRO-1 holds no less state")
+        if "param_max_abs_err" in q:
+            print(f"rank {r} QAT: parameters after step 1 vs the single-process step: max_abs_err "
+                  f"{q['param_max_abs_err']}, {q['params_outside']} entries outside the bounds ({MESH_PARAM_ATOL} "
+                  f"where the first moment is not small, else {MESH_ADAM_ATOL})")
+            check(q["params_outside"] == 0, f"rank {r}: DP parameters outside the stated bounds")
+    print(f"mesh phase: {time.perf_counter() - t0:.3f} s")
+    return ranks[0]["kernels"]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2694,6 +3071,17 @@ def main() -> int:
     }, images)
     print(f"export phase: {time.perf_counter() - t0:.3f} s; chip_smoke so far {time.perf_counter() - t_main:.3f} s")
 
+    # 12. multi-GPU on the one card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    nccl_world_of_one(dev)
+    torch.cuda.empty_cache()
+    mesh_kernels = mesh_phase(smi, {
+        "art8": art8, "art16": art16, "swin": art_swin, "images": images.numpy(),
+        "ref": {"main": logits.cpu(), "B": route_logits["B"].cpu(), "swin": swin_logits.cpu()},
+    })
+    print(f"multi-GPU phase: {time.perf_counter() - t0:.3f} s; chip_smoke so far {time.perf_counter() - t_main:.3f} s")
+
     big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",
            "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",
            "K5": f"({BATCH * N}, {hidden})", "K6": f"({BATCH * H * N}, {N})",
@@ -2708,6 +3096,7 @@ def main() -> int:
     launches = {"K1": main_counts["K1"], "K3": main_counts["K3"], "K2": route_counts["A"]["K2"],
                 "K4": route_counts["A"]["K4"], "K5": route_counts["B"]["K5"], "K6": route_counts["B"]["K6"],
                 "K7": swin_counts["K7"]}
+    tp2_launches = {"K1": depth, "K3": layernorms, "K5": depth, "K6": depth, "K7": swin_blocks}
     record = {"kernels": []}
     for name, fn in WRAPPERS.items():
         key = (name, big[name])
@@ -2719,6 +3108,10 @@ def main() -> int:
             "ms": timings[key][0], "queued_ms": timings[key][2], "plain_ms": timings[key][1],
             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
             "library_ms": library.get(key),
+            # phase 12: the kernel on one rank's inputs at TP=2 (K7 at each
+            # stage), its launches a forward there
+            "tp2": [dict(kr, stage=k, launches=tp2_launches.get(name)) for k, kr in mesh_kernels.items()
+                    if k.split()[0] == name] or None,
         })
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

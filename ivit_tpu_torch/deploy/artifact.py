@@ -146,12 +146,16 @@ def carry_norm(nrm: dict, device, s_next) -> dict:
             "ratio": div(host_f32(nrm["out_scale"]), s_next).to(device)}
 
 
-def artifact_to_torch(artifact: dict, device) -> dict:
+def artifact_to_torch(artifact: dict, device, validate: bool = True) -> dict:
     """Carry a frozen artifact onto ``device``: int8 weights (K, N),
-    int32 biases, float32 scales and the precomputed float32 ratios.
-    Raises ``RuntimeError`` for a CUDA device on a machine without one."""
+    int32 biases, float32 scales and the precomputed float32 ratios; each
+    block's head count as ``heads``. Raises ``RuntimeError`` for a CUDA
+    device on a machine without one. ``validate=False`` skips the schema
+    check, for a tensor-parallel shard of a checked artifact
+    (``parallel.tp_infer``), whose sharded layers are narrower."""
     device = target_device(device)
-    validate_artifact(artifact)
+    if validate:
+        validate_artifact(artifact)
     cfg = dict(artifact["config"])
     D, H = cfg["embed_dim"], cfg["num_heads"]
     sm_bits = int(cfg["softmax_bits"])
@@ -185,6 +189,7 @@ def artifact_to_torch(artifact: dict, device) -> dict:
         fc1["w_t"] = fc1["w"][:k, :n].T.contiguous()  # K-contiguous for K4, unpadded
         r_out = div(s_sm * sa1, s["s_attn_out"])
         blocks.append({
+            "heads": H,
             "norm1": carry_norm(blk["norm1"], device, s["s_qact1"]),
             "qkv": carry_linear(blk["qkv"], device, sa1),
             "attn": {

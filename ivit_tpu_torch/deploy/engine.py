@@ -120,9 +120,21 @@ def int8_linear(x: torch.Tensor, layer: dict) -> torch.Tensor:
     ``ops.intmm.int8_matmul``; the bias is added where the layer has one
     (Swin's patch-merging ``reduction`` has none). A ``w`` carried
     zero-padded to multiples of 8 (``artifact.carry_linear``, which sets
-    the true N as ``n``) is cut back to N."""
+    the true N as ``n``) is cut back to N.
+
+    A layer carried as one rank's tensor-parallel shard
+    (``parallel.tp_infer``) may also hold ``cols``, the (start, stop) of
+    x's columns its row block multiplies; ``reduce``, which sums the
+    partial products over the model group before the bias is added once;
+    and ``gather``, which joins the column blocks of the group after it."""
+    if "cols" in layer:
+        x = x[:, slice(*layer["cols"])].contiguous()
     acc = int8_matmul(x, layer["w"], layer.get("n"))
-    return acc + layer["b"] if "b" in layer else acc
+    if "reduce" in layer:
+        acc = layer["reduce"](acc)
+    if "b" in layer:
+        acc = acc + layer["b"]
+    return layer["gather"](acc) if "gather" in layer else acc
 
 
 def _layernorm(x: torch.Tensor, norm: dict, kernels: frozenset) -> torch.Tensor:
@@ -162,10 +174,10 @@ def attention_inputs(x: torch.Tensor, blk: dict, num_heads: int, kernels=DEFAULT
 
 def qkv_heads(y: torch.Tensor, qkv: dict, B: int, num_heads: int):
     """qkv GEMM → requant → head split of int8 rows (B·N, C) holding B
-    sequences; returns contiguous int8 q, k, v of shape (B·H, N, hd)."""
-    C = y.shape[1]
-    N, hd = y.shape[0] // B, C // num_heads
+    sequences; returns contiguous int8 q, k, v of shape (B·H, N, hd),
+    where the qkv columns hold ``num_heads`` heads as (3, H, hd)."""
     z = requant(int8_linear(y, qkv), qkv["ratio"], *INT8).to(torch.int8)
+    N, hd = y.shape[0] // B, z.shape[1] // (3 * num_heads)
     z = z.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4).contiguous()
     z = z.view(3, B * num_heads, N, hd)
     return z[0], z[1], z[2]
@@ -229,10 +241,10 @@ def attention_half(x: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNEL
     """The attention half of a block on the int16 stream (B, N, C):
     returns the (B·N, C) int16 stream after the first residual."""
     B, N, C = x.shape
-    H = cfg["num_heads"]
+    H = blk["heads"]
     q, k, v = attention_inputs(x, blk, H, kernels)
     ctx = _attention(q, k, v, blk["attn"], int(cfg["softmax_bits"]), kernels)
-    ctx = ctx.reshape(B, H, N, C // H).permute(0, 2, 1, 3).reshape(B * N, C)
+    ctx = ctx.reshape(B, H, N, -1).permute(0, 2, 1, 3).reshape(B * N, -1)
     proj = blk["proj"]
     branch = requant(int8_linear(ctx, proj), proj["ratio"], *INT16)
     return _residual(branch, x.reshape(B * N, C), blk["res1"])
@@ -269,6 +281,47 @@ def _strict_ratios(t: dict) -> None:
         blk["attn"]["dyadic"] = (dyadic(blk["attn"]["r1"]), dyadic(blk["attn"]["r_out"]))
 
 
+def engine_tensors(artifact: dict, device, kernels=DEFAULT_KERNELS, strict_dyadic: bool = False,
+                   validate: bool = True) -> tuple[dict, frozenset]:
+    """The carried tensors of ``artifact`` on ``device`` and the kernels
+    the engine runs, with ``build_vit_infer``'s gates (it raises where
+    they refuse); ``validate=False`` carries an artifact whose schema the
+    caller has checked (a tensor-parallel shard)."""
+    if strict_dyadic and kernels:
+        raise ValueError(
+            f"strict_dyadic requantizes in integers; the kernels {sorted(kernels)} requant in float32 "
+            "inside: pass kernels=()"
+        )
+    t = artifact_to_torch(artifact, device, validate=validate)
+    cfg = t["config"]
+    active = select_kernels(cfg, kernels)
+    if strict_dyadic:
+        _strict_ratios(t)
+    if "attention2" in active:
+        n_tokens = (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
+        for i, blk in enumerate(t["blocks"]):
+            if not scale_gate(n_tokens, blk["attn"]["scale"]):
+                raise ValueError(
+                    f"attention2: block {i}'s softmax input scale {blk['attn']['scale']} fails "
+                    f"K2's gate N*ceil(1/scale)*2^15 < 2^31 at N={n_tokens}"
+                )
+    return t, active
+
+
+def vit_forward(images: torch.Tensor, t: dict, kernels: frozenset) -> torch.Tensor:
+    """The engine's forward on carried tensors ``t``: float32 NHWC images
+    on ``t``'s device → logits."""
+    cfg = t["config"]
+    x = embed(images, t)
+    for blk in t["blocks"]:
+        x = vit_block(x, blk, cfg, kernels)
+    # final norm on the CLS rows only (row-wise: the other rows'
+    # values never reach the head)
+    y = _layernorm(x[:, 0].contiguous(), t["norm"], kernels)
+    head = t["head"]
+    return int8_linear(y, head).to(torch.float32) * head["out_scale"]
+
+
 def build_vit_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS, strict_dyadic: bool = False):
     """Build the int8 inference function: NHWC float images → logits.
 
@@ -282,35 +335,11 @@ def build_vit_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS, stri
     version. The kernels in use are ``infer.kernels``, its device
     ``infer.device``.
     """
-    if strict_dyadic and kernels:
-        raise ValueError(
-            f"strict_dyadic requantizes in integers; the kernels {sorted(kernels)} requant in float32 "
-            "inside: pass kernels=()"
-        )
-    t = artifact_to_torch(artifact, device)
-    cfg = t["config"]
-    active = select_kernels(cfg, kernels)
-    if strict_dyadic:
-        _strict_ratios(t)
-    if "attention2" in active:
-        n_tokens = (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
-        for i, blk in enumerate(t["blocks"]):
-            if not scale_gate(n_tokens, blk["attn"]["scale"]):
-                raise ValueError(
-                    f"attention2: block {i}'s softmax input scale {blk['attn']['scale']} fails "
-                    f"K2's gate N*ceil(1/scale)*2^15 < 2^31 at N={n_tokens}"
-                )
+    t, active = engine_tensors(artifact, device, kernels, strict_dyadic)
 
     @torch.inference_mode()
     def infer(images: torch.Tensor) -> torch.Tensor:
-        x = embed(images.to(device=device, dtype=torch.float32), t)
-        for blk in t["blocks"]:
-            x = vit_block(x, blk, cfg, active)
-        # final norm on the CLS rows only (row-wise: the other rows'
-        # values never reach the head)
-        y = _layernorm(x[:, 0].contiguous(), t["norm"], active)
-        head = t["head"]
-        return int8_linear(y, head).to(torch.float32) * head["out_scale"]
+        return vit_forward(images.to(device=device, dtype=torch.float32), t, active)
 
     infer.tensors = t
     infer.kernels = active

@@ -125,13 +125,16 @@ def validate_swin_artifact(artifact: dict) -> None:
     check_schema({k: v for k, v in artifact.items() if k != "config"}, swin_artifact_spec(cfg), "")
 
 
-def swin_artifact_to_torch(artifact: dict, device) -> dict:
+def swin_artifact_to_torch(artifact: dict, device, validate: bool = True) -> dict:
     """Carry a ``freeze_swin`` artifact onto ``device``: int8 weights
     (K, N), int32 biases, the (H, N, N) bias and (nW, N, N) mask addends,
     and the precomputed float32 ratios (module docstring). Raises
-    ``RuntimeError`` for a CUDA device on a machine without one."""
+    ``RuntimeError`` for a CUDA device on a machine without one.
+    ``validate=False`` skips the schema check, for a tensor-parallel
+    shard of a checked artifact (``parallel.tp_infer``)."""
     device = target_device(device)
-    validate_swin_artifact(artifact)
+    if validate:
+        validate_swin_artifact(artifact)
     cfg = dict(artifact["config"])
     # 2^-7: the 8-bit probability scale and the ShiftGELU output shift
     s_sm = host_f32(1.0 / 2.0**7)

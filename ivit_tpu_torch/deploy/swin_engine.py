@@ -230,7 +230,7 @@ def swin_block(x: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNELS) -
     ctx = attend(q, k, v, a["bias"], a["mask"], a["r1"], a["rb"], a["scale"], a["r_out"], H)
     # head merge: contracting (H, hd) with the proj weight is this GEMM
     G, N, hd = ctx.shape
-    ctx = ctx.view(G // H, H, N, hd).permute(0, 2, 1, 3).reshape(-1, C)
+    ctx = ctx.view(G // H, H, N, hd).permute(0, 2, 1, 3).reshape(-1, H * hd)
     proj = blk["proj"]
     branch = requant(int8_linear(ctx, proj), proj["ratio"], *INT16).to(torch.int16)
     g = window_reverse(branch.view(-1, N, C), ws, res, res)
@@ -275,6 +275,17 @@ def swin_trunk(x: torch.Tensor, t: dict, kernels=DEFAULT_KERNELS, on_layer=None)
     return x
 
 
+def swin_forward(images: torch.Tensor, t: dict, kernels: frozenset) -> torch.Tensor:
+    """The engine's forward on carried tensors ``t``: float32 NHWC images
+    on ``t``'s device → logits."""
+    x = swin_trunk(patch_embed(images, t), t, kernels)
+    B, L, C = x.shape
+    y = _layernorm(x.reshape(B * L, C), t["norm"], kernels).view(B, L, C)
+    y8 = requant(token_mean(y, t["inv_tokens"]), t["pool_ratio"], *INT8).to(torch.int8)
+    head = t["head"]
+    return int8_linear(y8, head).to(torch.float32) * head["out_scale"]
+
+
 def build_swin_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS):
     """Build the int8 Swin inference function: NHWC float images → logits.
 
@@ -290,12 +301,7 @@ def build_swin_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS):
 
     @torch.inference_mode()
     def infer(images: torch.Tensor) -> torch.Tensor:
-        x = swin_trunk(patch_embed(images.to(device=device, dtype=torch.float32), t), t, active)
-        B, L, C = x.shape
-        y = _layernorm(x.reshape(B * L, C), t["norm"], active).view(B, L, C)
-        y8 = requant(token_mean(y, t["inv_tokens"]), t["pool_ratio"], *INT8).to(torch.int8)
-        head = t["head"]
-        return int8_linear(y8, head).to(torch.float32) * head["out_scale"]
+        return swin_forward(images.to(device=device, dtype=torch.float32), t, active)
 
     infer.tensors = t
     infer.kernels = active

@@ -17,15 +17,26 @@ cpu`` runs the eager engine. ``--dump-logits`` saves the engine's
 logits and labels in val order, image for image beside ``quant_train
 --eval --dump-logits``.
 
-``--mesh-data`` and ``--mesh-model`` above 1 exit with a message naming
-the ``ROADMAP.md`` item that ports them; ``--weight-args`` is TPU-only.
+``--mesh-data D --mesh-model M`` serve over ``D·M`` ranks, one process
+per rank under ``torchrun`` (``nccl`` with a card per rank, ``gloo``
+with ``--device cpu``), as the JAX CLI does: ``parallel.shard_infer``
+(each data rank's rows through its own engine, captured as a CUDA graph
+at its share of ``--batch-size`` on the card) at ``M = 1``, else
+``parallel.shard_infer_tp`` (the engine's layers split over the model
+axis, eager). ``D·M`` must equal ``WORLD_SIZE``; under torchrun a world
+of one runs the mesh path too. Only rank 0 prints and dumps.
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m ivit_tpu_torch.evaluate_accuracy --mesh-data 2 --artifact a.pkl ...
+
+``--weight-args`` is TPU-only.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
-_MULTI_GPU_ITEM = "ROADMAP.md §1 item 8 (multi-GPU)"
 _TPU_ONLY_ITEM = "ROADMAP.md §1 item 9 (not ported: TPU-only machinery)"
 
 
@@ -39,10 +50,8 @@ def main(argv=None):
     p.add_argument("--input-size", default=224, type=int)
     p.add_argument("--nb-classes", default=1000, type=int)
     p.add_argument("--num-workers", default=8, type=int)
-    p.add_argument("--mesh-data", default=1, type=int,
-                   help=f"data-parallel inference; > 1 comes with {_MULTI_GPU_ITEM}")
-    p.add_argument("--mesh-model", default=1, type=int,
-                   help=f"tensor-parallel inference; > 1 comes with {_MULTI_GPU_ITEM}")
+    p.add_argument("--mesh-data", default=1, type=int, help="data-parallel ranks (under torchrun)")
+    p.add_argument("--mesh-model", default=1, type=int, help="tensor-parallel ranks (under torchrun)")
     p.add_argument("--max-batches", default=0, type=int, help="0 = full validation set")
     p.add_argument("--dump-logits", default="",
                    help="save per-image engine logits + labels to this .npz (aligns image for image with "
@@ -52,13 +61,34 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="cuda (a CUDA graph) or cpu (the eager engine)")
     args = p.parse_args(argv)
 
-    if args.mesh_data > 1 or args.mesh_model > 1:
-        raise SystemExit(f"--mesh-data/--mesh-model > 1 are not ported to ivit_tpu_torch yet: they come with "
-                         f"{_MULTI_GPU_ITEM}")
+    ranks = args.mesh_data * args.mesh_model
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if ranks != world:
+        raise SystemExit(f"--mesh-data {args.mesh_data} x --mesh-model {args.mesh_model} = {ranks} ranks, but "
+                         f"WORLD_SIZE is {world}: launch one process per rank with `python -m "
+                         f"torch.distributed.run --nproc-per-node {ranks} -m ivit_tpu_torch.evaluate_accuracy ...`")
     if args.weight_args:
         raise SystemExit(f"--weight-args is TPU-only (it passes the artifact's buffers as jit arguments to keep "
                          f"XLA programs small) and is not ported: {_TPU_ONLY_ITEM}")
 
+    import torch
+
+    joined = None
+    if "WORLD_SIZE" in os.environ:
+        from .parallel import init_distributed
+
+        try:
+            joined = init_distributed(device=args.device)
+        except RuntimeError as e:
+            raise SystemExit(f"--mesh-data/--mesh-model: {e}") from None
+    try:
+        return _evaluate(args, joined)
+    finally:
+        if joined is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _evaluate(args, joined):
     import numpy as np
     import torch
 
@@ -67,16 +97,32 @@ def main(argv=None):
     from .data.transforms import EvalTransform
     from .deploy import build_swin_infer, build_vit_infer
     from .deploy.graphs import capture_infer
+    from .parallel import make_mesh, shard_infer, shard_infer_tp
     from .utils import load_artifact
 
-    device = target_device(args.device)
+    device = target_device(args.device if joined is None else joined.device)
+    lead = joined is None or joined.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     artifact = load_artifact(args.artifact)
     build_infer = build_swin_infer if args.model.startswith("swin") else build_vit_infer
-    infer = build_infer(artifact, device)
-    print(f"engine: kernels {sorted(infer.kernels)}")
-    if device.type == "cuda":
-        infer = capture_infer(infer, args.batch_size, artifact["config"]["img_size"], device)
-        print(f"capture: CUDA graph at batch {args.batch_size}; launches a forward {infer.launches}")
+    rows = -(-args.batch_size // args.mesh_data)  # each data rank's share of a (padded) batch
+    if joined is None:
+        infer = build_infer(artifact, device)
+        say(f"engine: kernels {sorted(infer.kernels)}")
+    elif args.mesh_model == 1:
+        mesh = make_mesh(data=args.mesh_data, model=1, device=device)
+        infer = build_infer(artifact, device)
+    else:
+        mesh = make_mesh(data=args.mesh_data, model=args.mesh_model, device=device)
+        infer = shard_infer_tp(artifact, mesh, build_fn=build_infer)
+    if joined is not None:
+        say(f"engine: kernels {sorted(infer.kernels)}; mesh data={args.mesh_data} model={args.mesh_model} over "
+            f"{joined.backend}")
+    if device.type == "cuda" and args.mesh_model == 1:
+        infer = capture_infer(infer, rows, artifact["config"]["img_size"], device)
+        say(f"capture: CUDA graph at batch {rows}; launches a forward {infer.launches}")
+    if joined is not None and args.mesh_model == 1:
+        infer = shard_infer(infer, mesh)
 
     ds = build_dataset(args.data_set, args.data, False, args.input_size, args.nb_classes)
     loader = DataLoader(ds, args.batch_size, EvalTransform(size=args.input_size),
@@ -89,8 +135,10 @@ def main(argv=None):
         if args.max_batches and b >= args.max_batches:
             break
         n = len(labels)
-        pad = args.batch_size - n if device.type == "cuda" else 0
-        if pad:  # the graph's static batch: pad with the batch's own images
+        # the graph's static batch, or a multiple of the data axis: pad
+        # with the batch's own images (modular: pad can exceed n)
+        pad = rows * args.mesh_data - n if device.type == "cuda" and args.mesh_model == 1 else -n % args.mesh_data
+        if pad:
             images = np.concatenate([images, images[np.arange(pad) % n]])
         logits = infer(torch.from_numpy(images).to(device))[:n].cpu().numpy()
         if args.dump_logits:
@@ -101,11 +149,11 @@ def main(argv=None):
         top5 += int((order[:, -5:] == labels[:, None]).any(-1).sum())
         seen += len(labels)
         if b % 20 == 0:
-            print(f"[{seen}] top1 {100*top1/seen:.3f} top5 {100*top5/seen:.3f}")
-    print(f"FINAL top1 {100*top1/seen:.3f} top5 {100*top5/seen:.3f} over {seen}")
-    if args.dump_logits:
+            say(f"[{seen}] top1 {100*top1/seen:.3f} top5 {100*top5/seen:.3f}")
+    say(f"FINAL top1 {100*top1/seen:.3f} top5 {100*top5/seen:.3f} over {seen}")
+    if args.dump_logits and lead:
         np.savez(args.dump_logits, logits=np.concatenate(dumped_logits), labels=np.concatenate(dumped_labels))
-        print(f"dumped {seen} engine logits to {args.dump_logits}")
+        say(f"dumped {seen} engine logits to {args.dump_logits}")
     return top1, top5, seen
 
 

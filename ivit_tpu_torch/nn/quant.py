@@ -31,6 +31,8 @@ the TPU: bf16-rounded operands summed in float32.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -53,6 +55,41 @@ def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator | None
     return nn.init.trunc_normal_(t, 0.0, s, -2.0 * s, 2.0 * s, generator=generator)
 
 
+@dataclasses.dataclass(frozen=True)
+class DataShard:
+    """This process's share of a data-parallel step's global batch: rows
+    ``[rank·b, (rank+1)·b)`` of ``size·b``, and ``reduce_range``, which
+    takes this shard's ``(min, max)`` to the global batch's."""
+
+    rank: int
+    size: int
+    reduce_range: Callable[[torch.Tensor, torch.Tensor], tuple]
+
+
+_SHARD: DataShard | None = None
+
+
+@contextlib.contextmanager
+def data_shard(shard: DataShard | None):
+    """Run the block as one shard of a data-parallel step
+    (``train.make_train_step`` with a mesh): every ``QuantAct`` range
+    update takes the global batch's range, as JAX's ``jnp.min``/``max``
+    over a data-sharded batch does, and the dropout and drop-path masks
+    are drawn for the global batch (``nn.vit_blocks.keep_mask``). None
+    leaves the block single-process."""
+    global _SHARD
+    prev, _SHARD = _SHARD, shard
+    try:
+        yield
+    finally:
+        _SHARD = prev
+
+
+def current_shard() -> DataShard | None:
+    """The ``data_shard`` in force, or None."""
+    return _SHARD
+
+
 class QuantAct(nn.Module):
     """Activation (re)quantizer with EMA range tracking.
 
@@ -65,7 +102,8 @@ class QuantAct(nn.Module):
     ``hold_range`` (set by ``held_ranges``) turns the update off whatever
     ``update_stats`` says: a recompute (``nn.remat``) runs the module
     again on the range the forward's one update left, which is the range
-    that forward quantized with.
+    that forward quantized with. Inside ``data_shard`` the batch's range
+    is the global batch's.
     """
 
     def __init__(self, bits: int = 8, momentum: float = 0.95):
@@ -83,6 +121,8 @@ class QuantAct(nn.Module):
         if update_stats and not self.hold_range:
             with torch.no_grad():
                 cur_min, cur_max = torch.aminmax(real.detach())
+                if _SHARD is not None:
+                    cur_min, cur_max = _SHARD.reduce_range(cur_min, cur_max)
                 first = self.min_val == self.max_val
                 m = self.momentum
                 new_min = torch.where(first, cur_min, m * self.min_val + (1 - m) * cur_min)

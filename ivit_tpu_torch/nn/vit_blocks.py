@@ -17,14 +17,21 @@ from torch import nn
 
 from ..core.qtensor import QTensor
 from ..ops.interp import div, f32
-from .quant import IntGELU, IntLayerNorm, IntSoftmax, QuantAct, QuantLinear, quant_matmul
+from .quant import IntGELU, IntLayerNorm, IntSoftmax, QuantAct, QuantLinear, current_shard, quant_matmul
 
 
 def keep_mask(shape, keep: float, generator: torch.Generator | None, device) -> torch.Tensor:
     """A float32 0/1 mask, each entry 1 with probability ``keep``
-    (``jax.random.bernoulli``: uniform < keep)."""
-    u = torch.rand(shape, generator=generator, device=device)
-    return (u < keep).to(torch.float32)
+    (``jax.random.bernoulli``: uniform < keep). ``shape`` leads with the
+    batch; inside ``nn.quant.data_shard`` the mask is drawn for the
+    global batch and this shard's rows are kept, so every rank's
+    generator makes the same draws as the single-process step's."""
+    shard = current_shard()
+    if shard is None:
+        return (torch.rand(shape, generator=generator, device=device) < keep).to(torch.float32)
+    b = shape[0]
+    u = torch.rand((b * shard.size, *shape[1:]), generator=generator, device=device)
+    return (u[shard.rank * b:(shard.rank + 1) * b] < keep).to(torch.float32)
 
 
 def quant_dropout(x: QTensor, rate: float, generator: torch.Generator | None = None) -> QTensor:

@@ -29,10 +29,28 @@ bf16-rounded operands (``nn.quant.SIM_FAST_MATMUL``) for the run. The
 ``*_fp32`` names train and evaluate the float models through the same
 loop.
 
+``--distributed`` runs data-parallel, one process per rank under
+``torchrun`` (``parallel.init_distributed``: ``nccl`` with a card per
+rank, ``gloo`` with ``--device cpu``), on a ``(data,)`` mesh of
+``WORLD_SIZE`` ranks:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m ivit_tpu_torch.quant_train --distributed --zero1 --model deit_small ...
+
+Every rank reads the global batch the single-process loader reads
+(``--batch-size`` is the global batch, a multiple of the world) and
+runs its rows through the data-parallel step
+(``train.make_train_step(..., mesh=)``): ranges, masks and mixup are
+the global batch's, the gradients averaged. ``--zero1`` slices the
+optimizer moments and the EMA over the ranks
+(``parallel.shard_train_state``; alone, a mesh of one). Only rank 0
+logs and writes checkpoints, gathered into the single-process layout,
+so a run resumes under either.
+
 ``--pretrained auto`` (a download) and ``--pretrained`` with a
-``*_fp32`` name exit, each saying why; so do the multi-device flags
-(``--mesh-model`` > 1, ``--seq-parallel``, ``--pipe`` > 1, ``--zero1``,
-``--distributed``), naming the ``ROADMAP.md`` item that ports them.
+``*_fp32`` name exit, each saying why; so do ``--mesh-model`` > 1,
+``--seq-parallel`` and ``--pipe`` > 1, naming the ``ROADMAP.md`` item
+that ports them, and ``--distributed`` without torchrun's environment.
 """
 
 from __future__ import annotations
@@ -44,7 +62,7 @@ import signal
 import time
 
 # the ROADMAP.md §1 item that ports what this CLI refuses
-_MULTI_GPU_ITEM = "ROADMAP.md §1 item 8 (multi-GPU)"
+_MULTI_GPU_ITEM = "ROADMAP.md §1 item 8b (tensor-parallel training, sequence parallelism, GPipe)"
 
 
 def build_parser():
@@ -109,7 +127,9 @@ def build_parser():
     p.add_argument("--seq-parallel", action="store_true", help=f"sequence parallelism; comes with {_MULTI_GPU_ITEM}")
     p.add_argument("--pipe", type=int, default=1, help=f"pipeline stages; > 1 comes with {_MULTI_GPU_ITEM}")
     p.add_argument("--pipe-microbatches", type=int, default=0, help="GPipe microbatches per step (with --pipe)")
-    p.add_argument("--zero1", action="store_true", help=f"sharded optimizer state; comes with {_MULTI_GPU_ITEM}")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: slice the AdamW moments and the EMA over the data-parallel ranks (the update is "
+                        "unchanged)")
     p.add_argument("--pretrained", type=str, default="",
                    help="path to a torch (.pth, .pth.tar) or augreg (.npz) float checkpoint to import into the QAT "
                         "model (pass --calib-batches too: imported ranges start at zero)")
@@ -134,7 +154,9 @@ def build_parser():
     p.add_argument("--gelu-stable", action="store_true",
                    help="elementwise-stable ShiftGELU (recorded in the artifact so deploy runs the same "
                         "formulation)")
-    p.add_argument("--distributed", action="store_true", help=f"multi-host; comes with {_MULTI_GPU_ITEM}")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel over torchrun's ranks (torch.distributed.init_process_group from its "
+                        "environment); --batch-size is the global batch")
     p.add_argument("--device", default="cuda", help="cuda (the card; raises without one) or cpu")
     return p
 
@@ -177,9 +199,7 @@ def refuse_unported(args) -> None:
                          "swin_quant_params_to_float) -> merge_params -> nn.load_flax_variables")
     refused = [(args.mesh_model > 1, "--mesh-model > 1", _MULTI_GPU_ITEM),
                (args.seq_parallel, "--seq-parallel", _MULTI_GPU_ITEM),
-               (args.pipe > 1, "--pipe > 1", _MULTI_GPU_ITEM),
-               (args.zero1, "--zero1", _MULTI_GPU_ITEM),
-               (args.distributed, "--distributed", _MULTI_GPU_ITEM)]
+               (args.pipe > 1, "--pipe > 1", _MULTI_GPU_ITEM)]
     for on, flag, item in refused:
         if on:
             raise SystemExit(f"{flag} is not ported to ivit_tpu_torch yet: it comes with {item}; "
@@ -206,17 +226,29 @@ def main(argv=None):
 
     from .nn import quant
 
+    joined = None
+    if args.distributed:
+        import torch.distributed as dist
+
+        from .parallel import init_distributed
+
+        try:
+            joined = init_distributed(device=args.device)
+        except RuntimeError as e:
+            raise SystemExit(f"--distributed: {e}") from None
     # --fast-matmul holds for this run only: an in-process caller's later
     # runs and backward passes see the switch as it was
     prev_fast = quant.SIM_FAST_MATMUL
     quant.SIM_FAST_MATMUL = args.fast_matmul
     try:
-        return _run(args)
+        return _run(args, joined)
     finally:
         quant.SIM_FAST_MATMUL = prev_fast
+        if joined is not None:
+            dist.destroy_process_group()
 
 
-def _run(args):
+def _run(args, joined=None):
     import numpy as np
     import torch
 
@@ -224,20 +256,29 @@ def _run(args):
     from .data import build_dataloaders, build_dataset
     from .models import create_model
     from .models.model_utils import model_variables
+    from .nn.quant import data_shard
+    from .parallel import batch_shard, gather_train_state, make_mesh, shard_train_state
     from .train import SGD, AdamW, MixupConfig, cosine_schedule, create_train_state, make_eval_step
     from .train import make_train_step, mixup_cutmix
     from .train.augment import one_hot_smooth
     from .utils import AverageMeter, MetricLogger, load_checkpoint, save_checkpoint
 
-    device = target_device(args.device)
+    device = target_device(args.device if joined is None else joined.device)
+    # the (data,) mesh of the run: torchrun's world, or one rank
+    mesh = make_mesh(device=device) if joined is not None or args.zero1 else None
+    world = 1 if mesh is None else mesh.shape["data"]
+    lead = mesh is None or mesh.rank == 0  # the rank that logs and writes
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} (the global batch) is not a multiple of the "
+                         f"{world} ranks (WORLD_SIZE)")
     os.makedirs(args.output_dir, exist_ok=True)
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(message)s",
-        handlers=[logging.StreamHandler(), logging.FileHandler(os.path.join(args.output_dir, "log.log"))],
-        force=True,
-    )
+    handlers = [logging.StreamHandler(), logging.FileHandler(os.path.join(args.output_dir, "log.log"))] if lead else \
+        [logging.NullHandler()]
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", handlers=handlers, force=True)
     logging.info(str(args))
+    if joined is not None:
+        logging.info("distributed: %d ranks over %s, rank 0 on %s; data-parallel on a (data=%d,) mesh%s",
+                     joined.world_size, joined.backend, device, world, ", ZeRO-1" if args.zero1 else "")
     np.random.seed(args.seed)
 
     ds_train = build_dataset(args.data_set, args.data, True, args.input_size, args.nb_classes)
@@ -292,10 +333,18 @@ def _run(args):
         start_epoch = extra.get("epoch", 0) + 1
         best_acc1 = extra.get("best_acc1", 0.0)
         logging.info("resumed from %s at epoch %d", args.resume, start_epoch)
+    if args.zero1:
+        state = shard_train_state(state, mesh)
 
-    train_step = make_train_step(model, ema_decay=ema_decay, grad_clip=args.clip_grad)
+    def save(path, extra):
+        # every rank joins the gather; rank 0 writes the whole state
+        whole = gather_train_state(state)
+        if lead:
+            save_checkpoint(path, whole, extra)
+
+    train_step = make_train_step(model, ema_decay=ema_decay, grad_clip=args.clip_grad, mesh=mesh)
     dump_logits = bool(args.dump_logits) and args.eval
-    eval_step = make_eval_step(model, return_logits=dump_logits)
+    eval_step = make_eval_step(model, return_logits=dump_logits, mesh=mesh)
     mix_cfg = MixupConfig(mixup_alpha=args.mixup, cutmix_alpha=args.cutmix, switch_prob=args.mixup_switch_prob,
                           label_smoothing=args.smoothing, num_classes=args.nb_classes)
 
@@ -305,16 +354,22 @@ def _run(args):
         dumped_logits, dumped_labels = [], []
         for images, labels in val_loader:
             n = images.shape[0]
+            pad = -n % world
+            if pad:
+                # modular indexing, as JAX's CLI: pad can exceed n; the
+                # step weighs the duplicates out by n
+                idx = np.arange(pad) % n
+                images, labels = np.concatenate([images, images[idx]]), np.concatenate([labels, labels[idx]])
             out = eval_step(variables, torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device), n)
             if dump_logits:
                 m, batch_logits = out
-                dumped_logits.append(batch_logits.cpu().numpy())
-                dumped_labels.append(labels)
+                dumped_logits.append(batch_logits[:n].cpu().numpy())
+                dumped_labels.append(labels[:n])
             else:
                 m = out
             acc1.update(float(m["acc1"]), n)
             acc5.update(float(m["acc5"]), n)
-        if dump_logits:
+        if dump_logits and lead:
             np.savez(args.dump_logits, logits=np.concatenate(dumped_logits), labels=np.concatenate(dumped_labels))
             logging.info("dumped %d val logits to %s", sum(len(a) for a in dumped_labels), args.dump_logits)
         logging.info("epoch %d  val acc@1 %.3f  acc@5 %.3f", epoch, acc1.avg, acc5.avg)
@@ -326,11 +381,12 @@ def _run(args):
         train_loader.set_epoch(0)
         gen = torch.Generator(device=device).manual_seed(0)
         n_cal = 0
-        with torch.no_grad():
+        with torch.no_grad(), data_shard(None if mesh is None else batch_shard(mesh)):
             for i, (images, _) in enumerate(train_loader):
                 if i >= args.calib_batches:
                     break
-                state.model(torch.from_numpy(images).to(device), train=True, generator=gen)
+                images = torch.from_numpy(images if mesh is None else mesh.block(images, "data"))
+                state.model(images.to(device), train=True, generator=gen)
                 n_cal += 1
         if n_cal == 0:
             raise RuntimeError("calibration saw ZERO batches — the train loader is empty (dataset smaller "
@@ -379,9 +435,13 @@ def _run(args):
                 losses.append(float(metrics["loss"]))
                 logger.update(loss=losses[-1], acc1=float(metrics["acc1"]))
                 logger.log(i)
+                if mesh is not None:  # a signal to any rank stops them all at this step
+                    flag = torch.tensor([float(preempt_sig[0]) if preempt_sig else 0.0], device=device)
+                    signum = int(mesh.all_reduce(flag, "data", op="max").item())
+                    if signum and not preempt_sig:
+                        preempt_sig.append(signum)
                 if preempt_sig:
-                    save_checkpoint(ckpt_path, state, {"epoch": epoch - 1, "best_acc1": best_acc1,
-                                                       "preempted_step": i, **ckpt_meta})
+                    save(ckpt_path, {"epoch": epoch - 1, "best_acc1": best_acc1, "preempted_step": i, **ckpt_meta})
                     logging.info("preempted (signal %d) at epoch %d step %d — rolling checkpoint saved; rerun with "
                                  "--resume %s to restart the epoch", preempt_sig[0], epoch, i, ckpt_path)
                     return best_acc1
@@ -397,10 +457,9 @@ def _run(args):
             acc1 = validate(epoch)
             if acc1 > best_acc1:
                 best_acc1 = acc1
-                save_checkpoint(os.path.join(args.output_dir, "best.pkl"), state,
-                                {"epoch": epoch, "best_acc1": best_acc1, **ckpt_meta})
+                save(os.path.join(args.output_dir, "best.pkl"), {"epoch": epoch, "best_acc1": best_acc1, **ckpt_meta})
             # the rolling resume checkpoint, every epoch
-            save_checkpoint(ckpt_path, state, {"epoch": epoch, "best_acc1": best_acc1, **ckpt_meta})
+            save(ckpt_path, {"epoch": epoch, "best_acc1": best_acc1, **ckpt_meta})
             logging.info("best acc@1: %.3f", best_acc1)
 
         return best_acc1

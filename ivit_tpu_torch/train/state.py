@@ -152,13 +152,17 @@ class SGD:
 class TrainState:
     """The model holds the live parameters and ``quant_stats`` buffers
     (``models.model_utils.model_variables``); ``ema_params`` (torch name
-    → tensor) is None without an EMA."""
+    → tensor) is None without an EMA. ``zero1`` is the
+    ``parallel.data.Zero1`` layout of a state whose moments (and EMA)
+    hold only this rank's slices (``parallel.data.shard_train_state``),
+    None for a whole state."""
 
     model: torch.nn.Module
     tx: AdamW | SGD
     opt_state: AdamWState | SGDState
     step: int = 0
     ema_params: dict | None = None
+    zero1: object | None = None
 
 
 def create_train_state(model: torch.nn.Module, tx: AdamW | SGD, ema_decay: float = 0.0, device="cuda") -> TrainState:

@@ -44,7 +44,7 @@ def test_package_has_modules():
               "train/augment.py", "utils/checkpoint.py", "utils/metrics.py", "data/datasets.py",
               "data/transforms.py", "data/loader.py", "data/pil_ops.py", "quant_train.py", "evaluate_accuracy.py",
               "models/vit_float.py", "models/swin_float.py", "models/import_torch.py", "models/import_swin.py",
-              "nn/remat.py", "deploy/export.py"):
+              "nn/remat.py", "deploy/export.py", "parallel/mesh.py", "parallel/tp_infer.py", "parallel/data.py"):
         assert f in files
 
 
@@ -90,11 +90,20 @@ def test_modules_import_without_pillow():
 
 @pytest.mark.parametrize("relpath", ["chip_smoke.py", "scripts/torch_engine_turns.py",
                                      "scripts/torch_int_mm_domain.py", "scripts/torch_train_memory.py",
-                                     "scripts/torch_reload_engine.py"])
+                                     "scripts/torch_reload_engine.py", "scripts/torch_repeat_qat_forward.py"])
 def test_card_scripts_import_no_jax(relpath):
     """The scripts that run on the card's machine import no JAX either."""
     roots = set(_imported_roots(os.path.join(_REPO, relpath)))
     assert not roots & set(_FORBIDDEN), f"{relpath} imports {sorted(roots & set(_FORBIDDEN))}"
+
+
+def test_rank_worker_imports_no_jax():
+    """The ranks the multi-process tests spawn import neither JAX nor a
+    test file (``tests/torch_parallel_worker.py``), so each starts in
+    seconds."""
+    roots = set(_imported_roots(os.path.join(_REPO, "tests", "torch_parallel_worker.py")))
+    assert not roots & set(_FORBIDDEN), sorted(roots & set(_FORBIDDEN))
+    assert not {r for r in roots if r.startswith("test_")}
 
 
 @pytest.mark.parametrize("root", [_REPO, os.path.join(_REPO, "no_such_checkout")], ids=["checkout", "missing"])

@@ -15,7 +15,9 @@ on the synthetic set with the Pillow-free flags.
   labels in the same order, equal argmax) and the engine within 4 head
   scales of the simulator.
 * SGD, calibration, the SIGTERM save, ``--profile-steps``, the refused
-  flags, the spec guard
+  flags (``--distributed`` outside torchrun, meshes wider than the
+  world; the multi-GPU runs are ``tests/test_torch_parallel_cli.py``),
+  the spec guard
   (``check_resume_spec``, the cases of ``tests/test_cli.py``) and the
   default device without a card.
 * ``--pretrained`` from a seeded DeiT-Ti state dict on a 4×4 grid (the
@@ -203,19 +205,35 @@ def test_profile_steps_write_a_trace(tmp_path):
     assert trace.exists() and '"traceEvents"' in trace.read_text()
 
 
+# what each refused trainer flag's exit names: a ROADMAP item, or for
+# --distributed outside torchrun the environment it lacks. --zero1 runs
+# now; with a model axis (ZeRO-1 x TP) it still waits for item 8b.
+REFUSALS = {"--pretrained": r"ROADMAP\.md §1 item \d", "--mesh-model": r"ROADMAP\.md §1 item 8b",
+            "--seq-parallel": r"ROADMAP\.md §1 item 8b", "--pipe": r"ROADMAP\.md §1 item 8b",
+            "--zero1": r"ROADMAP\.md §1 item 8b", "--distributed": r"no torchrun environment \(RANK, WORLD_SIZE"}
+
+
 @pytest.mark.parametrize("flag", [["--pretrained", "auto"], ["--mesh-model", "2"], ["--seq-parallel"], ["--pipe", "2"],
-                                  ["--zero1"], ["--distributed"]],
+                                  ["--zero1", "--mesh-model", "2"], ["--distributed"]],
                          ids=lambda f: f[0])
-def test_unported_trainer_flags_exit_with_their_roadmap_item(flag, tmp_path):
-    with pytest.raises(SystemExit, match=r"ROADMAP\.md §1 item \d") as info:
+def test_unported_trainer_flags_exit_with_their_roadmap_item(flag, tmp_path, monkeypatch):
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match=REFUSALS[flag[0]]) as info:
         quant_train.main(BASE + flag + ["--output-dir", str(tmp_path)])
-    assert flag[0] in str(info.value.code)
+    assert (flag[1] if flag[0] == "--zero1" else flag[0]) in str(info.value.code)
     assert not (tmp_path / "log.log").exists()
 
 
-@pytest.mark.parametrize("argv,match", [(["--mesh-data", "2"], "item 8"), (["--mesh-model", "2"], "item 8"),
-                                        (["--weight-args"], "TPU-only")])
-def test_unported_evaluate_flags_exit(argv, match):
+# the first two ids keep the names they had while these flags were refused
+@pytest.mark.parametrize("argv,match", [(["--mesh-data", "2"], r"= 2 ranks, but WORLD_SIZE is 1"),
+                                        (["--mesh-model", "2"], r"= 2 ranks, but WORLD_SIZE is 1"),
+                                        (["--weight-args"], "TPU-only")],
+                         ids=["argv0-item 8", "argv1-item 8", "argv2-TPU-only"])
+def test_unported_evaluate_flags_exit(argv, match, monkeypatch):
+    """A mesh of more ranks than the world (one, outside torchrun) exits
+    naming WORLD_SIZE; --weight-args is TPU-only."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(SystemExit, match=match):
         evaluate_accuracy.main(["--artifact", "a.pkl"] + argv)
 
