@@ -14,8 +14,10 @@ seeded float checkpoints in the published layouts through import,
 calibration, QAT, freezing and serving, beside the float models on the
 imported weights (phase 10), trains ViT-L and Swin-B at batch 128
 with per-block recompute and serves every path from a serialized engine
-reloaded in a fresh process (phase 11), and serves and trains over
-``torch.distributed`` meshes on the one card (phase 12):
+reloaded in a fresh process (phase 11), serves and trains over
+``torch.distributed`` meshes on the one card (phase 12), and trains
+DeiT-S and Swin-T tensor-parallel, sequence-parallel and with ZeRO-1 on a
+model axis, then serves the frozen results tensor-parallel (phase 13):
 
 * the main path: softmax_bits=8, stable ShiftGELU, K1 attention + K3
   LayerNorm (the default kernels);
@@ -244,7 +246,26 @@ Phases:
    on the card: every range and logit bit-equal, the loss and the
    parameters within the bounds of ``tests/test_torch_parallel_train.py``,
    ZeRO-1 equal to DP bit for bit, and each rank's optimizer-state bytes
-   both ways.
+   both ways;
+13. tensor-parallel QAT on the one card (``parallel.tensor_parallel``),
+   ranks sharing cuda:0 over gloo as in phase 12 (no figure a scaling
+   figure): DeiT-S at sm8 with the stable GELU and at sm16 with the
+   row-max GELU, depth 12, on a (1, 2) mesh, tensor-parallel and
+   sequence-parallel (197 tokens as 99 and 98), and Swin-T at TP=2 (its
+   3-head stage 1 whole), each TPQ_STEPS steps at a global batch of
+   TPQ_BATCH (drop path 0.1, mixup/cutmix), then DeiT-S sm16 on a (2, 2)
+   mesh of four ranks, tensor-parallel, with ZeRO-1 and remat, and
+   sequence-parallel with both: against the single-process step on the
+   card, step 1's logits and every range bit-equal, the first gradient
+   within TPQ_GRAD_RTOL of each leaf's largest entry, the step-1 loss
+   within MESH_LOSS_ULPS, ZeRO-1 + remat equal to the tensor-parallel
+   step bit for bit; each rank's ms a step and optimizer-state bytes.
+   The TP-trained DeiT-S (sm8, stable) and Swin-T are gathered whole,
+   frozen and served by ``shard_infer_tp`` at TPQ_SERVE_BATCH: every
+   rank's logits equal to the single-process engine's, 12 K1 + 25 K3
+   and 12 K7 + 28 K3 a forward, and K3, K1 and K7 (each stage) against
+   their plain versions on each rank's inputs (timed on rank 0: the
+   ``tp2_trained`` entries of the kernels line).
 
 Any failed check raises and exits nonzero before the result lines. The
 second-to-last line is the kernels' JSON record, the last line
@@ -1912,6 +1933,86 @@ def nccl_world_of_one(dev) -> None:
     print(f"nccl world of one: {time.perf_counter() - t0:.3f} s")
 
 
+def rank_kernel(kernels: dict, rank: int, name: str, shape: str, fn, ref, args: tuple, bound: tuple) -> None:
+    """One kernel of a rank against its plain version on the rank's own
+    inputs (``kernels[name]``: the largest difference, and on rank 0,
+    while the other ranks wait, its time beside the plain version's and
+    its bound). Every rank of the default group calls it in turn."""
+    import torch
+    import torch.distributed as dist
+
+    got, want = fn(*args), ref(*args)
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]  # K6: (hi, lo)
+    err = max(max_abs_err(a, b) for a, b in pairs)
+    torch.cuda.synchronize()
+    dist.barrier()
+    k_ms = p_ms = q_ms = None
+    if rank == 0:
+        k_ms, p_ms, q_ms = paired_ms(lambda: fn(*args), lambda: ref(*args), 10)
+    dist.barrier()
+    kernels[name] = {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "queued_ms": q_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def tp_vit_kernels(kernels: dict, rank: int, infer, images, suffix: str = "") -> None:
+    """K3 on block 0's full rows and K1 (sm8) on this rank's heads of a
+    tensor-parallel ViT engine (``shard_infer_tp``), each by
+    ``rank_kernel``."""
+    from ivit_tpu_torch.deploy.engine import attention_inputs, embed
+    from ivit_tpu_torch.kernels import (
+        fused_int8_attention,
+        fused_int8_attention_reference,
+        fused_layernorm_requant,
+        fused_layernorm_requant_reference,
+    )
+
+    t, cfg = infer.tensors, infer.tensors["config"]
+    D, N = cfg["embed_dim"], (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
+    x = embed(images, t)
+    blk = t["blocks"][0]
+    rows = x.reshape(-1, D)
+    M = rows.shape[0]
+    rank_kernel(kernels, rank, "K3" + suffix, f"({M}, {D}) full rows", fused_layernorm_requant,
+                fused_layernorm_requant_reference, (rows, blk["norm1"]["bias_int"], blk["norm1"]["ratio"]),
+                bound_ms(M * D * 3 + 8 * D, elementwise=per_element(M * D, LAYERNORM_OPS)))
+    q, k, v = attention_inputs(x, blk, blk["heads"])
+    a, (G, _, hd) = blk["attn"], q.shape
+    rank_kernel(kernels, rank, "K1" + suffix, f"({G}, {N}, {hd}) sm8, {blk['heads']} of {cfg['num_heads']} heads",
+                fused_int8_attention, fused_int8_attention_reference, (q, k, v, a["r1"], a["scale"], a["r_out"], 8),
+                bound_ms(4 * G * N * hd, int8_ops=2 * G * N * N * hd * 2,
+                         elementwise=per_element(G * N * N, ATTN_TABLE_OPS)))
+
+
+def tp_swin_kernels(kernels: dict, rank: int, infer, images, suffix: str = "") -> None:
+    """K7 on each stage's first block of a tensor-parallel Swin engine,
+    on this rank's heads (a stage the model axis leaves whole on all of
+    them), each by ``rank_kernel``; the trunk runs the blocks'
+    collectives."""
+    from ivit_tpu_torch.deploy.swin_engine import patch_embed, swin_trunk, window_attention_inputs
+    from ivit_tpu_torch.kernels import fused_int8_window_attention, fused_int8_window_attention_reference
+
+    ts = infer.tensors
+    firsts = {id(stage["blocks"][0]): i for i, stage in enumerate(ts["stages"])}
+    seen = {}
+
+    def visit(layer, x):
+        if id(layer) in firsts:
+            seen[firsts[id(layer)]] = (layer, window_attention_inputs(x, layer, kernels=()))
+
+    swin_trunk(patch_embed(images, ts), ts, infer.kernels, on_layer=visit)
+    full_heads = ts["config"]["num_heads"]
+    for i in sorted(seen):
+        layer, (q, k, v) = seen[i]
+        a, heads = layer["attn"], layer["heads"]
+        G, Nw, hdw = q.shape
+        rank_kernel(kernels, rank, f"K7 stage {i + 1}{suffix}", f"({G}, {Nw}, {hdw}), {heads} of {full_heads[i]} heads"
+                    + (" (replicated)" if heads == full_heads[i] else ""),
+                    fused_int8_window_attention, fused_int8_window_attention_reference,
+                    (q, k, v, a["bias"], a["mask"], a["r1"], a["rb"], a["scale"], a["r_out"], heads),
+                    bound_ms(4 * G * Nw * hdw + 4 * heads * Nw * Nw, int8_ops=4 * G * Nw * Nw * hdw,
+                             elementwise=per_element(G * Nw * Nw, WINDOW_TABLE_OPS)))
+
+
 def mesh_rank(rank: int, world: int, init_file: str, work: str) -> None:
     """Phase 12 (b), one rank of MESH_RANKS on cuda:0 over gloo: the
     sharded engines against the single-process logits (in
@@ -1928,15 +2029,8 @@ def mesh_rank(rank: int, world: int, init_file: str, work: str) -> None:
     sys.path.insert(0, REPO)
     from ivit_tpu_torch.deploy import build_swin_infer, build_vit_infer
     from ivit_tpu_torch.deploy.engine import _layernorm, attention_half, attention_inputs, embed, int8_linear
-    from ivit_tpu_torch.deploy.swin_engine import patch_embed, swin_trunk, window_attention_inputs
     from ivit_tpu_torch.kernels import (
         WRAPPERS,
-        fused_int8_attention,
-        fused_int8_attention_reference,
-        fused_int8_window_attention,
-        fused_int8_window_attention_reference,
-        fused_layernorm_requant,
-        fused_layernorm_requant_reference,
         fused_requant_shiftgelu,
         fused_requant_shiftgelu_reference,
         fused_requant_shiftmax,
@@ -1984,35 +2078,15 @@ def mesh_rank(rank: int, world: int, init_file: str, work: str) -> None:
     except ValueError as e:
         out["k4_raises"] = str(e)
 
-    def kernel(name, shape, fn, ref, args, bound):
-        got, want = fn(*args), ref(*args)
-        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]  # K6: (hi, lo)
-        err = max(max_abs_err(a, b) for a, b in pairs)
-        torch.cuda.synchronize()
-        dist.barrier()
-        k_ms = p_ms = q_ms = None
-        if rank == 0:
-            k_ms, p_ms, q_ms = paired_ms(lambda: fn(*args), lambda: ref(*args), 10)
-        dist.barrier()
-        out["kernels"][name] = {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "queued_ms": q_ms,
-                                "bound_ms": bound[0], "bound_by": bound[1]}
+    def kernel(*args):
+        rank_kernel(out["kernels"], rank, *args)
 
     with torch.inference_mode():
+        tp_vit_kernels(out["kernels"], rank, main_tp, images)
         t, cfg = main_tp.tensors, main_tp.tensors["config"]
         D, N = cfg["embed_dim"], (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
         hidden = int(D * cfg["mlp_ratio"])
-        x = embed(images, t)
-        blk = t["blocks"][0]
-        rows = x.reshape(-1, D)
-        M = rows.shape[0]
-        kernel("K3", f"({M}, {D}) full rows", fused_layernorm_requant, fused_layernorm_requant_reference,
-               (rows, blk["norm1"]["bias_int"], blk["norm1"]["ratio"]),
-               bound_ms(M * D * 3 + 8 * D, elementwise=per_element(M * D, LAYERNORM_OPS)))
-        q, k, v = attention_inputs(x, blk, blk["heads"])
-        a, (G, _, hd) = blk["attn"], q.shape
-        kernel("K1", f"({G}, {N}, {hd}) sm8, {blk['heads']} of {cfg['num_heads']} heads", fused_int8_attention,
-               fused_int8_attention_reference, (q, k, v, a["r1"], a["scale"], a["r_out"], 8),
-               bound_ms(4 * G * N * hd, int8_ops=2 * G * N * N * hd * 2, elementwise=per_element(G * N * N, ATTN_TABLE_OPS)))
+        M = images.shape[0] * N
         tb = b_tp.tensors
         xb = embed(images, tb)
         blkb = tb["blocks"][0]
@@ -2029,27 +2103,8 @@ def mesh_rank(rank: int, world: int, init_file: str, work: str) -> None:
         kernel("K5", f"({acc.shape[0]}, {acc.shape[1]}) gathered rows", fused_requant_shiftgelu,
                fused_requant_shiftgelu_reference, (acc, fc1["ratio"], gelu["s_in"], gelu["r2"]),
                bound_ms(M * hidden * 5 + 4 * hidden + 256 * 256, elementwise=per_element(M * hidden, K5_TABLE_OPS)))
-        ts = swin_tp.tensors
-        firsts = {id(stage["blocks"][0]): i for i, stage in enumerate(ts["stages"])}
-        seen = {}
-
-        def visit(layer, x):
-            if id(layer) in firsts:
-                seen[firsts[id(layer)]] = (layer, window_attention_inputs(x, layer, kernels=()))
-
-        swin_trunk(patch_embed(images, ts), ts, swin_tp.kernels, on_layer=visit)  # the blocks' collectives
-        full_heads = ts["config"]["num_heads"]
-        for i in sorted(seen):
-            layer, (q, k, v) = seen[i]
-            a, heads = layer["attn"], layer["heads"]
-            G, Nw, hdw = q.shape
-            kernel(f"K7 stage {i + 1}", f"({G}, {Nw}, {hdw}), {heads} of {full_heads[i]} heads"
-                   + (" (replicated)" if heads == full_heads[i] else ""),
-                   fused_int8_window_attention, fused_int8_window_attention_reference,
-                   (q, k, v, a["bias"], a["mask"], a["r1"], a["rb"], a["scale"], a["r_out"], heads),
-                   bound_ms(4 * G * Nw * hdw + 4 * heads * Nw * Nw, int8_ops=4 * G * Nw * Nw * hdw,
-                            elementwise=per_element(G * Nw * Nw, WINDOW_TABLE_OPS)))
-    del main_tp, b_tp, swin_tp, t, tb, ts, x, xb, h, acc, scores
+        tp_swin_kernels(out["kernels"], rank, swin_tp, images)
+    del main_tp, b_tp, swin_tp, t, tb, xb, h, acc, scores
     torch.cuda.empty_cache()
 
     # the QAT steps: the same global batches on every rank (mixup/cutmix on
@@ -2187,6 +2242,288 @@ def mesh_phase(smi: str, inputs: dict) -> dict:
             check(q["params_outside"] == 0, f"rank {r}: DP parameters outside the stated bounds")
     print(f"mesh phase: {time.perf_counter() - t0:.3f} s")
     return ranks[0]["kernels"]
+
+
+# 13. tensor-parallel QAT on the one card: TPQ ranks sharing cuda:0 over
+# gloo (the collectives staged through the host, as in phase 12) train
+# each model at full width and depth on a (1, 2) mesh, TP and with
+# sequence parallelism, then four ranks on a (2, 2) mesh with ZeRO-1 and
+# remat; the TP-trained DeiT-S and Swin-T are frozen and served by
+# shard_infer_tp. The step's arithmetic is phase 12's (MESH_LR, MESH_WD,
+# MESH_EMA, MESH_CLIP, drop path 0.1, mixup/cutmix) at a global batch of
+# TPQ_BATCH for TPQ_STEPS steps.
+TPQ_LABEL = "ranks on one H100, gloo (collectives through the host); not a scaling figure"
+TPQ_SIZE = 224
+TPQ_BATCH = 8
+TPQ_STEPS = 2
+TPQ_SERVE_BATCH = 32
+TPQ_GRAD_RTOL = 1e-5  # of each leaf's largest entry: the model group's float32 sums in another order
+TPQ_MODELS = {"deit_small sm8 stable": ("deit_small", {"softmax_bits": 8, "gelu_stable": True}),
+              "deit_small sm16 row-max": ("deit_small", {}),
+              "swin_tiny": ("swin_tiny", {})}
+# (mesh, {model label: {variant: flags}}, the labels served after their "TP" run)
+TPQ_RUNS = (((1, 2), {"deit_small sm8 stable": {"TP": {}, "SP": {"seq": True}},
+                      "deit_small sm16 row-max": {"TP": {}, "SP": {"seq": True}},
+                      "swin_tiny": {"TP": {}}}, ("deit_small sm8 stable", "swin_tiny")),
+            ((2, 2), {"deit_small sm16 row-max": {"TP": {}, "TP + ZeRO-1 + remat": {"zero1": True, "remat": True},
+                                                  "SP + ZeRO-1 + remat": {"seq": True, "zero1": True,
+                                                                          "remat": True}}}, ()))
+
+
+def tpq_train(name: str, kw: dict, dev, mesh, batches: list, seq=False, zero1=False, remat=False) -> dict:
+    """One QAT run of phase 13 (single-process without ``mesh``): the
+    first batch's gradient whole (the ranges put back after its forward),
+    then TPQ_STEPS steps, each step's logits (the global batch's) and
+    ranges, the losses, the ms a step (host clock), this rank's
+    optimizer-state bytes, and the whole variables after the last step,
+    all on the host."""
+    import torch
+
+    from ivit_tpu_torch.models import create_model
+    from ivit_tpu_torch.nn.quant import data_shard
+    from ivit_tpu_torch.parallel import (
+        batch_shard,
+        data_mean,
+        gather_train_state,
+        shard_train_state,
+        tensor_parallel,
+    )
+    from ivit_tpu_torch.train import AdamW, create_train_state, make_train_step, soft_target_cross_entropy
+
+    model = create_model(name, dev, seed=SEED, drop_path_rate=TRAIN_DROP_PATH, remat=remat, **kw)
+    state = create_train_state(model, AdamW(MESH_LR, weight_decay=MESH_WD), ema_decay=MESH_EMA, device=dev)
+    if mesh is not None and mesh.shape["model"] > 1:
+        tensor_parallel(state, mesh, seq_parallel=seq)
+    if zero1:
+        shard_train_state(state, mesh)
+    rows = (lambda a: a) if mesh is None else (lambda a: mesh.block(a, "data"))
+    names = [n for n, _ in model.named_parameters()]
+    saved = {n: b.clone() for n, b in model.named_buffers()}
+    with data_shard(None if mesh is None else batch_shard(mesh)):
+        out = model(rows(batches[0][0]), train=True, generator=torch.Generator(device=dev).manual_seed(1000))
+    grads = list(torch.autograd.grad(soft_target_cross_entropy(out, rows(batches[0][1])), list(model.parameters()),
+                                     materialize_grads=True))
+    with torch.no_grad():
+        for n, b in model.named_buffers():
+            b.copy_(saved[n])
+        if mesh is not None:
+            grads = data_mean(grads, mesh)
+        if model.tp is not None:
+            grads = [model.tp.join(g, n) for g, n in zip(model.tp.reduce_grads(grads, names), names)]
+    rec = {"grads": {n: g.cpu() for n, g in zip(names, grads)}, "logits": [], "ranges": [], "loss": [], "ms": []}
+    del out, grads
+    step = make_train_step(model, ema_decay=MESH_EMA, grad_clip=MESH_CLIP, mesh=mesh)
+    seen = []
+    hook = model.register_forward_hook(lambda m, args, o: seen.append(o.detach()))
+    for i, (x, t) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, met = step(state, x, t, torch.Generator(device=dev).manual_seed(1000 + i))
+        rec["loss"].append(float(met["loss"]))
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["logits"].append((seen[-1] if mesh is None else mesh.all_gather(seen[-1], "data")).cpu())
+        rec["ranges"].append({n: b.cpu().clone() for n, b in model.named_buffers()})
+    hook.remove()
+    local = list(state.opt_state.mu) + list(state.opt_state.nu) + list((state.ema_params or {}).values())
+    rec["opt_bytes"] = sum(t.numel() * t.element_size() for t in local)
+    whole = gather_train_state(state)
+    rec["params"] = {n: p.detach().cpu() for n, p in whole.model.named_parameters()}
+    rec["buffers"] = {n: b.cpu().clone() for n, b in whole.model.named_buffers()}
+    return rec
+
+
+def tpq_compare(got: dict, ref: dict) -> dict:
+    """A phase-13 run against its reference run: each step's logits and
+    ranges (differences), the first gradient's largest difference as a
+    share of its leaf's largest entry, the step-1 loss in ulps, and the
+    parameters' largest difference after the last step."""
+    import numpy as np
+
+    return {
+        "logits_max_abs_err": [float((a - b).abs().max()) for a, b in zip(got["logits"], ref["logits"])],
+        "ranges_differ": [sum(not a[n].equal(b[n]) for n in b) for a, b in zip(got["ranges"], ref["ranges"])],
+        "grad_rel_err": max(float((got["grads"][n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                            for n, g in ref["grads"].items()),
+        "loss_ulps": float(abs(np.float32(got["loss"][0]) - np.float32(ref["loss"][0]))
+                           / np.spacing(np.abs(np.float32(ref["loss"][0])))),
+        "param_max_abs_err": max(float((got["params"][n] - p).abs().max()) for n, p in ref["params"].items()),
+        "equal": (all(a.equal(b) for a, b in zip(got["logits"], ref["logits"]))
+                  and all(got[k][n].equal(t) for k in ("params", "grads") for n, t in ref[k].items())),
+    }
+
+
+def tpq_serve(label: str, name: str, kw: dict, rec: dict, mesh, images, res: dict, rank: int) -> None:
+    """Freeze a TP-trained run (its whole variables in a single-process
+    model) and serve it by ``shard_infer_tp`` on ``mesh``: the logits
+    against the single-process engine's, the launches of one forward
+    (every count set to 0 just before it and read just after), and the
+    kernels on this rank's inputs against their plain versions."""
+    import torch
+    import torch.distributed as dist
+
+    from ivit_tpu_torch.deploy import build_swin_infer, build_vit_infer, freeze_vit
+    from ivit_tpu_torch.deploy.swin_engine import freeze_swin
+    from ivit_tpu_torch.kernels import WRAPPERS
+    from ivit_tpu_torch.models import create_model
+    from ivit_tpu_torch.parallel import shard_infer_tp
+
+    swin = name.startswith("swin")
+    model = create_model(name, images.device, seed=SEED, **kw)
+    variables = {"params": {n: p.to(images.device) for n, p in rec["params"].items()},
+                 "quant_stats": {n: b.to(images.device) for n, b in rec["buffers"].items()}}
+    art = (freeze_swin if swin else freeze_vit)(model, variables, images.device)
+    build = build_swin_infer if swin else build_vit_infer
+    with torch.inference_mode():
+        single = build(art, images.device)(images).cpu()
+        infer = shard_infer_tp(art, mesh, build_fn=build)
+        infer(images[:1])  # loads the kernels in this process
+        torch.cuda.synchronize()
+        dist.barrier()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        logits = infer(images)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: w.launches for k, w in WRAPPERS.items() if w.launches}
+        kernels: dict = {}
+        (tp_swin_kernels if swin else tp_vit_kernels)(kernels, rank, infer, images)
+    res["serve"][label] = {"equal": torch.equal(logits.cpu(), single), "launches": launches, "ms": ms,
+                           "kernels": kernels, "max_abs_err": float((logits.cpu() - single).abs().max())}
+
+
+def tpq_rank(rank: int, world: int, init_file: str, work: str) -> None:
+    """Phase 13, one rank of ``world`` on the card over gloo: each model
+    of ``work/inputs.pkl``'s run, single-process on rank 0 (the others
+    wait) and on the run's mesh in each variant, compared on rank 0;
+    the frozen TP-trained models served. Writes ``work/rank<r>.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from ivit_tpu_torch.parallel import init_distributed, make_mesh
+
+    with open(os.path.join(work, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    joined = init_distributed(backend="gloo", device=inp["device"], init_method=f"file://{init_file}", rank=rank,
+                              world_size=world)
+    dev = joined.device
+    mesh_shape, runs, served = inp["run"]
+    mesh = make_mesh(*mesh_shape)
+    res = {"device": str(dev), "backend": joined.backend, "runs": {}, "serve": {}}
+    images = torch.from_numpy(inp["serve_images"]).to(dev)
+    for label, variants in runs.items():
+        name, kw = TPQ_MODELS[label]
+        batches = [(torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)) for x, t in inp["batches"][name]]
+        single = tpq_train(name, kw, dev, None, batches) if rank == 0 else None
+        dist.barrier()
+        recs = {}
+        for variant, flags in variants.items():
+            recs[variant] = tpq_train(name, kw, dev, mesh, batches, **flags)
+            out = {"ms": recs[variant]["ms"], "opt_bytes": recs[variant]["opt_bytes"], "loss": recs[variant]["loss"]}
+            if single is not None:
+                out["vs_single"] = tpq_compare(recs[variant], single)
+                if variant != "TP":
+                    out["vs_tp"] = tpq_compare(recs[variant], recs["TP"])
+            res["runs"][f"{label} {variant}"] = out
+            torch.cuda.empty_cache()
+        if single is not None:
+            res["runs"][f"{label} single"] = {"ms": single["ms"], "opt_bytes": single["opt_bytes"],
+                                             "loss": single["loss"]}
+        if label in served:
+            tpq_serve(label, name, kw, recs["TP"], mesh, images, res, rank)
+        del single, recs
+        torch.cuda.empty_cache()
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def tpq_phase(smi: str, device: str = "cuda") -> dict:
+    """Phase 13 (``tpq_rank`` on each run's ranks): prints and checks
+    each rank's results; returns rank 0's kernel entries of the served
+    models."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from ivit_tpu_torch.train import MixupConfig, mixup_cutmix
+
+    t0 = time.perf_counter()
+    batches = {}
+    for name in ("deit_small", "swin_tiny"):
+        batches[name], size = [], TPQ_SIZE
+        for i in range(TPQ_STEPS):
+            rng = np.random.default_rng((SEED, 13, i))
+            x = torch.from_numpy(rng.standard_normal((TPQ_BATCH, size, size, 3), dtype=np.float32))
+            labels = torch.from_numpy(rng.integers(0, 1000, TPQ_BATCH))
+            x, t = mixup_cutmix(x, labels, MixupConfig(), np.random.default_rng((SEED, 13, i, 1)), device="cpu")
+            batches[name].append((x.numpy(), t.numpy()))
+    serve_images = np.random.default_rng((SEED, 13)).standard_normal((TPQ_SERVE_BATCH, TPQ_SIZE, TPQ_SIZE, 3),
+                                                                     dtype=np.float32)
+    kernels = {}
+    for run in TPQ_RUNS:
+        world = run[0][0] * run[0][1]
+        with tempfile.TemporaryDirectory() as work:
+            with open(os.path.join(work, "inputs.pkl"), "wb") as f:
+                pickle.dump({"device": device, "run": run, "batches": batches, "serve_images": serve_images}, f)
+            mp.start_processes(tpq_rank, args=(world, os.path.join(work, "rendezvous"), work), nprocs=world,
+                               join=True, start_method="spawn")
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+                    ranks.append(pickle.load(f))
+        label = f"{world} {TPQ_LABEL}; mesh (data, model) = {run[0]}"
+        print(f"phase 13 tensor-parallel QAT: {label}; {smi}")
+        for r, res in enumerate(ranks):
+            check(res["backend"] == "gloo" and res["device"].startswith(device), f"rank {r}: {res['device']}")
+            for key, q in res["runs"].items():
+                line = f"rank {r} {key}: ms a step {q['ms']}, optimizer-state bytes {q['opt_bytes']}, loss {q['loss']}"
+                for ref in ("vs_single", "vs_tp"):
+                    if ref in q:
+                        c = q[ref]
+                        line += (f"; {ref}: logits max_abs_err by step {c['logits_max_abs_err']}, ranges that "
+                                 f"differ {c['ranges_differ']} (step 1: tolerance 0), first gradient max err "
+                                 f"{c['grad_rel_err']} of its leaf's largest (bound {TPQ_GRAD_RTOL}), step-1 loss "
+                                 f"{c['loss_ulps']} ulps (bound {MESH_LOSS_ULPS}), parameters after step "
+                                 f"{TPQ_STEPS} max_abs_err {c['param_max_abs_err']}")
+                print(line + f" ({label})")
+                for ref in ("vs_single", "vs_tp"):
+                    if ref in q:
+                        c = q[ref]
+                        check(c["logits_max_abs_err"][0] == 0 and c["ranges_differ"][0] == 0,
+                              f"rank {r} {key} {ref}: step 1 logits or ranges differ")
+                        check(c["grad_rel_err"] <= TPQ_GRAD_RTOL, f"rank {r} {key} {ref}: gradient off by "
+                                                                   f"{c['grad_rel_err']}")
+                        check(c["loss_ulps"] <= MESH_LOSS_ULPS, f"rank {r} {key} {ref}: loss off by {c['loss_ulps']}")
+                if "ZeRO-1" in key:
+                    tp_bytes = res["runs"][key.split(" TP ")[0].split(" SP ")[0] + " TP"]["opt_bytes"]
+                    check(q["opt_bytes"] < tp_bytes, f"rank {r} {key}: ZeRO-1 holds no less state than TP")
+                    if "TP" in key and "vs_tp" in q:
+                        check(q["vs_tp"]["equal"], f"rank {r} {key}: differs from TP without ZeRO-1 and remat")
+            for name, sv in res["serve"].items():
+                expect = {"K7": 12, "K3": 28} if name.startswith("swin") else {"K1": 12, "K3": 25}
+                print(f"rank {r} {name} TP-trained, frozen, served by shard_infer_tp at batch {TPQ_SERVE_BATCH}: "
+                      f"logits vs the single-process engine max_abs_err {sv['max_abs_err']} (tolerance 0); launches "
+                      f"{sv['launches']}; {sv['ms']:.3f} ms a forward, host clock ({label})")
+                check(sv["equal"], f"rank {r} {name}: TP-served logits differ from the single-process engine")
+                check(sv["launches"] == expect, f"rank {r} {name}: launches {sv['launches']}, expected {expect}")
+                for kname, kr in sv["kernels"].items():
+                    timing = "" if kr["ms"] is None else (
+                        f"; kernel {kr['ms']} ms (queued {kr['queued_ms']} ms), plain {kr['plain_ms']} ms, bound "
+                        f"{kr['bound_ms']} ms ({kr['bound_by']})")
+                    print(f"rank {r} {name} {kname} on this rank's inputs {kr['shape']}: max_abs_err "
+                          f"{kr['max_abs_err']} (tolerance 0){timing}")
+                    check(kr["max_abs_err"] == 0, f"rank {r} {name} {kname}: differs from its plain version")
+                    if r == 0:
+                        kernels[kname] = dict(kr, model=name, launches=sum(v for k, v in sv["launches"].items()
+                                                                           if kname.startswith(k)))
+    print(f"tensor-parallel QAT phase: {time.perf_counter() - t0:.3f} s")
+    return kernels
 
 
 def main() -> int:
@@ -3082,6 +3419,11 @@ def main() -> int:
     })
     print(f"multi-GPU phase: {time.perf_counter() - t0:.3f} s; chip_smoke so far {time.perf_counter() - t_main:.3f} s")
 
+    # 13. tensor-parallel QAT on the one card
+    torch.cuda.empty_cache()
+    tpq_kernels = tpq_phase(smi)
+    print(f"chip_smoke so far {time.perf_counter() - t_main:.3f} s")
+
     big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",
            "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",
            "K5": f"({BATCH * N}, {hidden})", "K6": f"({BATCH * H * N}, {N})",
@@ -3112,6 +3454,9 @@ def main() -> int:
             # stage), its launches a forward there
             "tp2": [dict(kr, stage=k, launches=tp2_launches.get(name)) for k, kr in mesh_kernels.items()
                     if k.split()[0] == name] or None,
+            # phase 13: the kernel on rank 0's inputs of the frozen TP-trained
+            # model served at TP=2, its launches a forward there
+            "tp2_trained": [dict(kr, stage=k) for k, kr in tpq_kernels.items() if k.split()[0] == name] or None,
         })
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,7 @@ from torch import nn
 from ..core.qtensor import QTensor
 from ..nn.quant import IntLayerNorm, IntSoftmax, QuantAct, QuantLinear, QuantPatchEmbed, exact_int_matmul, trunc_normal_
 from ..nn.remat import remat as remat_block
-from ..nn.vit_blocks import Mlp, drop_path, quant_dropout
+from ..nn.vit_blocks import Mlp, drop_path, head_logits, quant_dropout
 from ..ops.interp import div, f32
 
 
@@ -178,6 +178,8 @@ class WindowAttention(nn.Module):
                  attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
         self.window_size, self.num_heads = window_size, num_heads
+        self.head_dim = dim // num_heads
+        self.heads = (0, num_heads)  # this rank's [start, stop) of the heads (parallel.tensor)
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.relative_position_bias_table = nn.Parameter(
             trunc_normal_(torch.empty((2 * window_size - 1) ** 2, num_heads), 0.02))
@@ -196,8 +198,8 @@ class WindowAttention(nn.Module):
         """``x``: (B·nW, N, C) windows; ``mask``: the (nW, N, N) shifted-
         window mask of {0, −100} on x's device, or None."""
         Bw, N, C = x.shape
-        H = self.num_heads
-        D = C // H
+        (h0, h1), D = self.heads, self.head_dim
+        H = h1 - h0
         dev = x.q.device
         qkv = self.qact1(self.qkv(x), update_stats=train)
         parts = qkv.q.reshape(Bw, N, 3, H, D).permute(2, 0, 3, 1, 4)  # 3 × (Bw, H, N, D)
@@ -207,8 +209,10 @@ class WindowAttention(nn.Module):
         attn = QTensor(scores, qkv.scale * qkv.scale * f32(D**-0.5, dev), 32)
         attn = self.qact_attn1(attn, update_stats=train)
 
+        # the table is quantized whole (its range covers every head), then
+        # cut to this rank's heads
         table = self.qact_table(self.relative_position_bias_table, update_stats=train)
-        bias = QTensor(gather_bias(table.q, self.window_size)[None].expand(attn.shape), table.scale, 8)
+        bias = QTensor(gather_bias(table.q, self.window_size)[h0:h1][None].expand(attn.shape), table.scale, 8)
         attn = self.qact2(attn, identity=bias, update_stats=train)
 
         # the mask in the integer domain: the reference adds the real −100
@@ -220,9 +224,9 @@ class WindowAttention(nn.Module):
 
         attn = self.int_softmax(attn)
         if train and self.attn_drop > 0.0:
-            attn = quant_dropout(attn, self.attn_drop, generator)
+            attn = quant_dropout(attn, self.attn_drop, generator, ((1, self.num_heads, h0),))
 
-        out = exact_int_matmul(attn.q, parts[2]).permute(0, 2, 1, 3).reshape(Bw, N, C)
+        out = exact_int_matmul(attn.q, parts[2]).permute(0, 2, 1, 3).reshape(Bw, N, H * D)
         out = self.qact3(QTensor(out, attn.scale * v_scale, 32), update_stats=train)
         out = self.qact4(self.proj(out), update_stats=train)
         if train and self.proj_drop > 0.0:
@@ -375,6 +379,7 @@ class SwinTransformer(nn.Module):
         self.qact2 = QuantAct(8)
         self.qact3 = QuantAct(8)
         self.head = QuantLinear(nf, num_classes)
+        self.tp = None  # the parallel.tensor.TensorParallel of a tensor-parallel model
 
     def forward(self, images: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -398,4 +403,4 @@ class SwinTransformer(nn.Module):
         x = self.qact2(self.norm(x), update_stats=train)
         # the token-mean pool: a fractional carrier that qact3 re-rounds
         x = self.qact3(x.replace(q=token_mean(x.q)), update_stats=train)
-        return self.head(x).dequantize()
+        return head_logits(self.head, x)

@@ -29,7 +29,7 @@ from torch import nn
 from ..core.qtensor import QTensor
 from ..nn.quant import IntLayerNorm, QuantAct, QuantLinear, QuantPatchEmbed, trunc_normal_
 from ..nn.remat import remat as remat_block
-from ..nn.vit_blocks import Block
+from ..nn.vit_blocks import Block, head_logits
 from ..ops.interp import SIM, div
 
 
@@ -110,6 +110,7 @@ class VisionTransformer(nn.Module):
         self.norm = IntLayerNorm(embed_dim)
         self.qact2 = QuantAct(8)
         self.head = QuantLinear(embed_dim, num_classes)
+        self.tp = None  # the parallel.tensor.TensorParallel of a tensor-parallel model
 
     def forward(self, images: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -129,12 +130,19 @@ class VisionTransformer(nn.Module):
         pos = self.qact_pos(self.pos_embed, update_stats=train)
         x = self.qact1(x, identity=pos.replace(q=pos.q.expand(x.q.shape)), update_stats=train)
 
+        # sequence parallelism: each rank holds its tokens between the
+        # blocks (JAX's act_constraint sits at these boundaries)
+        seq = None if self.tp is None else self.tp.seq_axis
+        if seq is not None:
+            x = x.replace(q=seq.scatter_tokens(x.q))
         for blk in self.blocks:
             x = remat_block(blk, x, train, generator) if self.remat else blk(x, train, generator)
+        if seq is not None:
+            x = x.replace(q=seq.gather_tokens(x.q, grad_sum=False))  # the rest runs whole on every rank
 
         x = self.norm(x)
         x = self.qact2(x.replace(q=x.q[:, 0]), update_stats=train)  # CLS token
-        return self.head(x).dequantize()
+        return head_logits(self.head, x)
 
 
 deit_tiny_patch16_224 = partial(vit_config, embed_dim=192, depth=12, num_heads=3)

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.qtensor import QTensor
-from ..core.quantizers import symmetric_scale, weight_scale
+from ..core.quantizers import per_channel_minmax, symmetric_scale, weight_scale
 from ..core.ste import quantize
 from ..ops import int_layernorm, requantize, shiftgelu, shiftmax
 from ..ops.interp import SIM
@@ -59,7 +59,8 @@ def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator | None
 class DataShard:
     """This process's share of a data-parallel step's global batch: rows
     ``[rank·b, (rank+1)·b)`` of ``size·b``, and ``reduce_range``, which
-    takes this shard's ``(min, max)`` to the global batch's."""
+    takes this shard's ``(min, max)`` to the global batch's (on a model
+    axis, ``parallel.tensor``, to the whole tensor's over every rank)."""
 
     rank: int
     size: int
@@ -88,6 +89,28 @@ def data_shard(shard: DataShard | None):
 def current_shard() -> DataShard | None:
     """The ``data_shard`` in force, or None."""
     return _SHARD
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearSplit:
+    """How a ``QuantLinear`` of a tensor-parallel model
+    (``parallel.tensor``) splits over the model axis: ``rows``
+    (row-parallel: this rank holds input rows of the kernel, forms a
+    partial int32 product that the model group sums, exact, and the bias
+    is added once after the sum) or columns (its output columns: ``qkv``
+    by heads, ``fc1``, the head by classes). ``seq`` is sequence
+    parallelism: a column layer gathers its input's tokens, and a row
+    layer keeps this rank's tokens of the sum (a reduce-scatter).
+    ``axis`` is the mesh's ``parallel.mesh.ModelAxis``.
+
+    Such a layer runs inside ``data_shard`` (the steps'
+    ``parallel.batch_shard``, whose range reduction spans every rank),
+    and raises outside it: a range taken over one rank's columns alone
+    would be silently another model's."""
+
+    axis: object
+    rows: bool
+    seq: bool = False
 
 
 class QuantAct(nn.Module):
@@ -248,6 +271,36 @@ def exact_int8_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _ExactInt8Dot.apply(x, w, None)
 
 
+class _RowParallelInt8Dot(torch.autograd.Function):
+    """``_ExactInt8Dot`` of a row-parallel layer (``LinearSplit``): the
+    partial int32 product summed over the model group (or reduce-
+    scattered over tokens) before the bias and the float32 conversion, so
+    the result is the whole product's bit for bit. Backward: the
+    gradient, gathered over tokens under sequence parallelism, into this
+    rank's input columns and kernel rows, and the whole bias."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, split):
+        acc = int8_matmul(x.reshape(-1, x.shape[-1]).to(torch.int8), w.to(torch.int8))
+        acc = acc.reshape(*x.shape[:-1], w.shape[1])
+        acc = split.axis.sum_tokens(acc) if split.seq else split.axis.sum(acc)
+        if b is not None:
+            acc = acc + b.to(torch.int32)
+        ctx.save_for_backward(x, w)
+        ctx.has_bias, ctx.split = b is not None, split
+        return acc.to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if ctx.split.seq:
+            g = ctx.split.axis.all_tokens(g.contiguous())
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = backward_matmul(g, w.T)
+        dw = backward_matmul(x.reshape(-1, x.shape[-1]).T, g2)
+        return dx, dw, (g2.sum(0) if ctx.has_bias else None), None
+
+
 class _ExactIntMatmul(torch.autograd.Function):
     """Batched ``a @ b`` over the last two axes of integer-valued float32
     carriers, exact: float64 products and sums of integers are exact
@@ -298,13 +351,29 @@ class QuantLinear(nn.Module):
         self.weight_bits, self.bias_bits = weight_bits, bias_bits
         self.kernel = nn.Parameter(trunc_normal_(torch.empty(in_features, features), 0.02))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.split: LinearSplit | None = None  # set by parallel.tensor
 
     def forward(self, x: QTensor) -> QTensor:
-        w_scale = weight_scale(self.kernel.T, self.weight_bits)  # (out,)
+        split = self.split
+        if split is None:
+            w_scale = weight_scale(self.kernel.T, self.weight_bits)  # (out,)
+        else:
+            if _SHARD is None:
+                raise RuntimeError("a tensor-parallel layer runs inside nn.quant.data_shard(parallel.batch_shard("
+                                   "mesh)), as the train and eval steps run it")
+            mn, mx = per_channel_minmax(self.kernel.T)
+            if split.rows:  # each output channel's range spans every rank's input rows
+                mn, mx = split.axis.max(torch.stack([-mn, mx])).unbind(0)
+                mn = -mn
+            else:
+                x = x.replace(q=split.axis.gather_tokens(x.q) if split.seq else split.axis.copy(x.q))
+            w_scale = symmetric_scale(mn, mx, self.weight_bits)
         w_int = quantize(self.kernel, w_scale, self.weight_bits)
         out_scale = w_scale * x.scale.detach()
-        if self.bias is not None:
-            b_int = quantize(self.bias, out_scale, self.bias_bits)
+        b_int = None if self.bias is None else quantize(self.bias, out_scale, self.bias_bits)
+        if split is not None and split.rows:
+            y = _RowParallelInt8Dot.apply(x.q, w_int, b_int, split)
+        elif b_int is not None:
             y = exact_int8_dot_bias(x.q, w_int, b_int)
         else:
             y = exact_int8_dot(x.q, w_int)
@@ -398,9 +467,11 @@ class IntGELU(nn.Module):
     def __init__(self, out_bits: int = 8, stable: bool = False):
         super().__init__()
         self.out_bits, self.stable = out_bits, stable
+        self.row_max = None  # the model axis's row max where the row is split (parallel.tensor)
 
     def forward(self, x: QTensor) -> QTensor:
-        q, s = shiftgelu(x.q, x.scale, out_bits=self.out_bits, stable=self.stable, interp=SIM)
+        q, s = shiftgelu(x.q, x.scale, out_bits=self.out_bits, stable=self.stable, interp=SIM,
+                         row_max=self.row_max)
         return QTensor(q, s, 32)
 
 

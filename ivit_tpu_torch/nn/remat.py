@@ -18,7 +18,12 @@ remat does not have are undone in the re-run:
   copy set to the generator's state before the block, so it draws the
   same masks, and the caller's generator ends where it would without
   the recompute. The global generators (``generator=None``) are replayed
-  by ``checkpoint`` itself (``preserve_rng_state``).
+  by ``checkpoint`` itself (``preserve_rng_state``);
+* the backward runs outside the step's ``nn.quant.data_shard``. The
+  re-run enters the shard the forward ran in, so a data-parallel block
+  draws its rows of the global masks again and a tensor-parallel one
+  finds its context; its collectives run in the same order on every
+  rank, since every rank recomputes the same blocks.
 
 Without gradients (an eval forward, ``torch.no_grad``) there is nothing
 to recompute and the block runs as it is.
@@ -32,7 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.qtensor import QTensor
-from .quant import held_ranges
+from .quant import current_shard, data_shard, held_ranges
 
 
 def remat(block: torch.nn.Module, x: QTensor, train: bool, generator: torch.Generator | None) -> QTensor:
@@ -42,6 +47,7 @@ def remat(block: torch.nn.Module, x: QTensor, train: bool, generator: torch.Gene
         return block(x, train, generator)
     state = None if generator is None else generator.get_state()
     draws = [generator]
+    shard = current_shard()
 
     @contextlib.contextmanager
     def recompute():
@@ -49,7 +55,7 @@ def remat(block: torch.nn.Module, x: QTensor, train: bool, generator: torch.Gene
             replay = torch.Generator(device=generator.device)
             replay.set_state(state)
             draws[0] = replay
-        with held_ranges(block):
+        with held_ranges(block), data_shard(shard):
             yield
 
     return checkpoint(lambda x: block(x, train, draws[0]), x, use_reentrant=False,

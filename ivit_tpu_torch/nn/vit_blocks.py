@@ -34,12 +34,18 @@ def keep_mask(shape, keep: float, generator: torch.Generator | None, device) -> 
     return (u[shard.rank * b:(shard.rank + 1) * b] < keep).to(torch.float32)
 
 
-def quant_dropout(x: QTensor, rate: float, generator: torch.Generator | None = None) -> QTensor:
+def quant_dropout(x: QTensor, rate: float, generator: torch.Generator | None = None, split=()) -> QTensor:
     """Dropout that keeps the carrier integral: the 0/1 mask hits ``q``
     and the 1/keep rescale folds into the scale (the same expected value
-    as float dropout; the exact int8 dots downstream need integers)."""
+    as float dropout; the exact int8 dots downstream need integers).
+    ``split`` names the dimensions of which a tensor-parallel rank holds a
+    slice, ``(dim, whole size, start)`` each (heads, columns, tokens): the
+    mask is drawn whole along them and the rank keeps its slice."""
     keep = 1.0 - rate
-    mask = keep_mask(x.q.shape, keep, generator, x.q.device)
+    shape, index = list(x.q.shape), [slice(None)] * x.q.ndim
+    for dim, size, start in split:
+        shape[dim], index[dim] = size, slice(start, start + x.q.shape[dim])
+    mask = keep_mask(tuple(shape), keep, generator, x.q.device)[tuple(index)]
     return QTensor(x.q * mask, x.scale * f32(1.0 / keep, x.q.device), x.bits)
 
 
@@ -54,13 +60,31 @@ def drop_path(x: QTensor, rate: float, generator: torch.Generator | None = None)
     return x.replace(q=div(x.q * mask, keep))
 
 
+def head_logits(head: QuantLinear, x: QTensor) -> torch.Tensor:
+    """The dequantized logits of ``head`` on ``x``; a head split by
+    classes (``parallel.tensor``) gathers them over the model axis."""
+    logits = head(x).dequantize()
+    return logits if head.split is None else head.split.axis.gather_last(logits)
+
+
+def token_split(layer) -> tuple:
+    """``quant_dropout``'s ``split`` for a (B, N, C) output of ``layer``'s
+    row-parallel ``split`` (a ``QuantLinear``): this rank's tokens under
+    sequence parallelism, else nothing."""
+    split = layer.split
+    if split is None or not split.seq:
+        return ()
+    return ((1, split.axis.tokens, split.axis.token_bounds()[0]),)
+
+
 class Mlp(nn.Module):
     """fc1 → qact → ShiftGELU → qact → fc2 → qact(16 bits)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int, drop: float = 0.0,
                  gelu_stable: bool = False):
         super().__init__()
-        self.drop = drop
+        self.drop, self.hidden_features = drop, hidden_features
+        self.hidden = (0, hidden_features)  # this rank's [start, stop) of the hidden columns (parallel.tensor)
         self.fc1 = QuantLinear(in_features, hidden_features)
         self.qact_gelu = QuantAct(8)
         self.act = IntGELU(out_bits=8, stable=gelu_stable)
@@ -72,10 +96,10 @@ class Mlp(nn.Module):
         x = self.qact_gelu(self.fc1(x), update_stats=train)
         x = self.qact1(self.act(x), update_stats=train)
         if train and self.drop > 0.0:
-            x = quant_dropout(x, self.drop, generator)
+            x = quant_dropout(x, self.drop, generator, ((x.q.ndim - 1, self.hidden_features, self.hidden[0]),))
         x = self.qact2(self.fc2(x), update_stats=train)
         if train and self.drop > 0.0:
-            x = quant_dropout(x, self.drop, generator)
+            x = quant_dropout(x, self.drop, generator, token_split(self.fc2))
         return x
 
 
@@ -88,6 +112,8 @@ class Attention(nn.Module):
                  proj_drop: float = 0.0, softmax_bits: int = 16):
         super().__init__()
         self.num_heads, self.attn_drop, self.proj_drop = num_heads, attn_drop, proj_drop
+        self.head_dim = dim // num_heads
+        self.heads = (0, num_heads)  # this rank's [start, stop) of the heads (parallel.tensor)
         self.qkv = QuantLinear(dim, 3 * dim, use_bias=qkv_bias)
         self.qact1 = QuantAct(8)
         self.qact_attn1 = QuantAct(8)
@@ -97,10 +123,9 @@ class Attention(nn.Module):
         self.qact3 = QuantAct(16)
 
     def forward(self, x: QTensor, train: bool = False, generator: torch.Generator | None = None) -> QTensor:
-        B, N, C = x.shape
-        H = self.num_heads
-        D = C // H
-        qkv = self.qact1(self.qkv(x), update_stats=train)
+        H, D = self.heads[1] - self.heads[0], self.head_dim
+        qkv = self.qact1(self.qkv(x), update_stats=train)  # under sequence parallelism qkv gathers the tokens
+        B, N = qkv.shape[:2]
         parts = qkv.q.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)  # 3 × (B, H, N, D)
         q = QTensor(parts[0], qkv.scale, 8)
         k = QTensor(parts[1], qkv.scale, 8)
@@ -110,13 +135,13 @@ class Attention(nn.Module):
         attn = attn.replace(scale=attn.scale * (D**-0.5))  # 1/√d in the scale only
         attn = self.int_softmax(self.qact_attn1(attn, update_stats=train))
         if train and self.attn_drop > 0.0:
-            attn = quant_dropout(attn, self.attn_drop, generator)
+            attn = quant_dropout(attn, self.attn_drop, generator, ((1, self.num_heads, self.heads[0]),))
 
         out = quant_matmul(attn, v)
-        out = out.replace(q=out.q.permute(0, 2, 1, 3).reshape(B, N, C))
+        out = out.replace(q=out.q.permute(0, 2, 1, 3).reshape(B, N, H * D))
         out = self.qact3(self.proj(self.qact2(out, update_stats=train)), update_stats=train)
         if train and self.proj_drop > 0.0:
-            out = quant_dropout(out, self.proj_drop, generator)
+            out = quant_dropout(out, self.proj_drop, generator, token_split(self.proj))
         return out
 
 

@@ -22,11 +22,15 @@ def shiftgelu(
     n: int = 23,
     stable: bool = False,
     interp: Interp = DEPLOY,
+    row_max=None,
 ):
     """Integer GELU of integer-valued float32 ``q`` at ``scale``.
 
     Returns ``(q_out, scale_out)``, ``scale_out = scale / 2^(out_bits−1)``.
-    The sigmoid's scale is detached; ``scale_out`` is not.
+    The sigmoid's scale is detached; ``scale_out`` is not. ``row_max``
+    takes the row-max form's max over the last dimension (keepdim) where
+    a tensor-parallel rank holds only some of the row's columns
+    (``parallel.mesh.ModelAxis.row_max``); by default ``torch.amax``.
     """
     sig_scale = scale.detach() * 1.702
     if stable:
@@ -39,7 +43,7 @@ def shiftgelu(
         numer = torch.where(q >= 0.0, e0, exp_int)
         sigmoid_int = interp.floor(numer * factor / 2.0 ** (32 - out_bits))
     else:
-        q_max = torch.amax(q, dim=-1, keepdim=True)
+        q_max = torch.amax(q, dim=-1, keepdim=True) if row_max is None else row_max(q)
         exp_int, _ = int_exp_shift(q - q_max, sig_scale, n, interp)  # e^(x−max)
         exp_max, _ = int_exp_shift(-q_max, sig_scale, n, interp)  # e^(−max)
         # the upper clip must stay: an all-negative row makes −max > 0

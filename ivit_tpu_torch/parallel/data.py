@@ -41,10 +41,14 @@ from .mesh import Mesh, zero1_shardings
 
 def batch_shard(mesh: Mesh) -> DataShard:
     """This rank's ``nn.quant.DataShard`` of a batch split over the
-    mesh's ``data`` axis: its ranges reduced over the data group."""
+    mesh's ``data`` axis: its ranges reduced by MIN/MAX over every rank
+    of the mesh, which covers the data group's rows and, on a model axis
+    (``parallel.tensor``), the heads, columns or tokens each rank holds
+    (a rank holding the whole tensor repeats a value, which MIN/MAX
+    takes without harm)."""
 
     def reduce_range(lo: torch.Tensor, hi: torch.Tensor):
-        both = mesh.all_reduce(torch.stack([-lo, hi]), "data", op="max")
+        both = mesh.all_reduce(torch.stack([-lo, hi]), "world", op="max")
         return -both[0], both[1]
 
     return DataShard(mesh.coords["data"], mesh.shape["data"], reduce_range)
@@ -85,7 +89,7 @@ class Zero1:
         return t if d is None else self.mesh.all_gather(t, "data", d)
 
 
-def _slot_lists(opt_state) -> list:
+def slot_lists(opt_state) -> list:
     """The names of the optimizer state's per-parameter lists (AdamW's
     ``mu`` and ``nu``, SGD's ``trace``)."""
     return [f.name for f in dataclasses.fields(opt_state) if isinstance(getattr(opt_state, f.name), list)]
@@ -98,7 +102,7 @@ def shard_train_state(state, mesh: Mesh):
     specs = zero1_shardings(state.model, mesh)
     names = [n for n, _ in state.model.named_parameters()]
     layout = Zero1(mesh, [specs[n].index("data") if "data" in specs[n] else None for n in names])
-    for slot in _slot_lists(state.opt_state):
+    for slot in slot_lists(state.opt_state):
         full = getattr(state.opt_state, slot)
         setattr(state.opt_state, slot, [layout.take(t, i).clone() for i, t in enumerate(full)])
     if state.ema_params is not None:
@@ -107,21 +111,48 @@ def shard_train_state(state, mesh: Mesh):
     return state
 
 
+class GatheredModel:
+    """A tensor-parallel model's whole variables, as a checkpoint reads a
+    model: ``named_parameters`` and ``named_buffers`` in the
+    single-process model's names, order and shapes."""
+
+    def __init__(self, params: dict, buffers: dict):
+        self._params, self._buffers = params, buffers
+
+    def named_parameters(self):
+        return iter(self._params.items())
+
+    def named_buffers(self):
+        return iter(self._buffers.items())
+
+
 def gather_train_state(state):
-    """A replicated copy of a ZeRO-1 ``state`` (the same model, the
-    moments and the EMA whole): what a checkpoint holds. Every rank calls
-    it; a state without ZeRO-1 comes back as it is."""
-    layout = state.zero1
-    if layout is None:
+    """A whole copy of a ZeRO-1 or tensor-parallel ``state``, in the
+    single-process layout a checkpoint holds: the moments and the EMA
+    gathered over the data axis, then every split leaf (the parameters
+    too) over the model axis, where the model becomes a
+    ``GatheredModel`` of the whole variables. Every rank
+    calls it; a state with neither comes back as it is."""
+    layout, tp = state.zero1, getattr(state.model, "tp", None)
+    if layout is None and tp is None:
         return state
     names = [n for n, _ in state.model.named_parameters()]
+
+    def whole(t, i):
+        t = t if layout is None else layout.join(t, i)
+        return t if tp is None else tp.join(t, names[i])
+
     opt = dataclasses.replace(state.opt_state, **{
-        slot: [layout.join(t, i) for i, t in enumerate(getattr(state.opt_state, slot))]
-        for slot in _slot_lists(state.opt_state)})
+        slot: [whole(t, i) for i, t in enumerate(getattr(state.opt_state, slot))]
+        for slot in slot_lists(state.opt_state)})
     ema = state.ema_params
     if ema is not None:
-        ema = {n: layout.join(ema[n], i) for i, n in enumerate(names)}
-    return dataclasses.replace(state, opt_state=opt, ema_params=ema, zero1=None)
+        ema = {n: whole(ema[n], i) for i, n in enumerate(names)}
+    model = state.model
+    if tp is not None:
+        model = GatheredModel({n: tp.join(p.detach(), n) for n, p in model.named_parameters()},
+                              {n: b.detach().clone() for n, b in model.named_buffers()})
+    return dataclasses.replace(state, model=model, opt_state=opt, ema_params=ema, zero1=None)
 
 
 @torch.no_grad()

@@ -17,7 +17,13 @@ tests) and the port calls the collectives itself:
   all-gathered, so they equal the single-process engine's bit for bit;
 * ``zero1_shardings`` says along which dimension each rank holds its
   slice of the optimizer moments and of the EMA (``_add_axis``: the
-  largest evenly divisible one); ``parallel.data`` runs the step on it.
+  largest evenly divisible one); ``parallel.data`` runs the step on it;
+* ``ModelAxis`` holds the model group's collectives as a tensor-parallel
+  model's layers call them (``parallel.tensor``), as
+  ``torch.autograd.Function``s where a gradient crosses them: the
+  identity whose gradient is summed, the token gather and scatter of
+  sequence parallelism (ceil-sized blocks, ``Mesh.bounds``), the
+  last-dimension gather, the row max.
 
 **Backends and devices.** ``nccl`` when every rank has a card of its
 own (rank r runs on ``cuda:LOCAL_RANK``), ``gloo`` on the CPU. Several
@@ -125,8 +131,9 @@ def init_distributed(backend: str | None = None, device="cuda", init_method: str
 class Mesh:
     """A ``(data, model)`` grid of ranks with a process group per row and
     column. ``shape`` and ``coords`` are dicts by axis name; ``device``
-    is this rank's device. The collectives take an axis name; on an axis
-    of one rank without a process group they return their input."""
+    is this rank's device. The collectives take an axis name (``"data"``,
+    ``"model"``, or ``"world"`` for every rank); on an axis of one rank
+    without a process group they return their input."""
 
     def __init__(self, data: int, model: int, rank: int, device, groups: dict):
         self.shape = {"data": data, "model": model}
@@ -154,27 +161,53 @@ class Mesh:
         dist.all_reduce(buf, op=getattr(dist.ReduceOp, op.upper()), group=group)
         return buf.to(t.device)
 
-    def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
-        """The group's equal-shaped ``t`` concatenated along ``dim`` in
-        the order of their coordinate on ``axis``."""
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0, size: int | None = None) -> torch.Tensor:
+        """The group's ``t`` concatenated along ``dim`` in the order of
+        their coordinate on ``axis``: equal shapes, or with ``size`` the
+        ceil-sized blocks of a ``size``-long dimension (``block(...,
+        even=False)``), each padded to the block before the gather and the
+        padding, all at the end, stripped after."""
         group = self.groups.get(axis)
         if group is None:
             return t
         buf = self._staged(t, group).contiguous()
+        if size is not None:
+            b = -(-size // self.shape[axis])
+            if buf.shape[dim] < b:
+                pad = list(buf.shape)
+                pad[dim] = b - buf.shape[dim]
+                buf = torch.cat([buf, buf.new_zeros(pad)], dim)
         parts = [torch.empty_like(buf) for _ in range(self.shape[axis])]
         dist.all_gather(parts, buf, group=group)
-        return torch.cat(parts, dim).to(t.device)
+        out = torch.cat(parts, dim)
+        if size is not None:
+            out = out.narrow(dim, 0, size)
+        return out.to(t.device)
 
-    def block(self, x, axis: str, dim: int = 0):
-        """This rank's block of ``x`` (a tensor or an array) along ``dim``
-        when ``x`` is split evenly over ``axis``."""
+    def bounds(self, size: int, axis: str, even: bool = True) -> tuple[int, int]:
+        """``[start, stop)`` of this rank's block of ``size`` entries split
+        over ``axis``: equal blocks (``ValueError`` where ``size`` does not
+        divide), or with ``even=False`` ceil-sized blocks, the last ones
+        shorter (197 tokens over 2 ranks: 99 and 98; 17 over 4: 5, 5, 5
+        and 2), ``ValueError`` where a rank would hold none."""
         n, i = self.shape[axis], self.coords[axis]
-        size = x.shape[dim]
-        if size % n:
-            raise ValueError(f"{size} along dim {dim} is not divisible by the {axis} axis of {n} ranks")
-        b = size // n
+        if even:
+            if size % n:
+                raise ValueError(f"{size} is not divisible by the {axis} axis of {n} ranks")
+            b = size // n
+        else:
+            b = -(-size // n)
+            if (n - 1) * b >= size:
+                raise ValueError(f"{size} entries in ceil-sized blocks of {b} leave a rank of the {axis} axis of "
+                                 f"{n} ranks none")
+        return min(i * b, size), min((i + 1) * b, size)
+
+    def block(self, x, axis: str, dim: int = 0, even: bool = True):
+        """This rank's block of ``x`` (a tensor or an array) along ``dim``,
+        split over ``axis`` as ``bounds`` says."""
+        start, stop = self.bounds(x.shape[dim], axis, even)
         index = [slice(None)] * x.ndim
-        index[dim] = slice(i * b, (i + 1) * b)
+        index[dim] = slice(start, stop)
         return x[tuple(index)]
 
 
@@ -182,11 +215,12 @@ def make_mesh(data: int | None = None, model: int = 1, backend: str | None = Non
     """A ``(data, model)`` mesh over the ranks of the default process
     group (``data`` defaults to world / model), laid out row-major:
     rank = data index · model + model index. Every rank must call it,
-    with the same arguments: it creates a group for each row (model)
-    and each column (data), on ``backend`` (the default group's when
-    None). Without a process group it is a mesh of one, whose
-    collectives return their input; ``device`` is the mesh's device (the
-    current card, or the CPU without one, when None)."""
+    with the same arguments: it creates a group for each row (model),
+    each column (data) and one of all the ranks (world), on ``backend``
+    (the default group's when None). Without a process group it is a
+    mesh of one, whose collectives return their input; ``device`` is the
+    mesh's device (the current card, or the CPU without one, when None).
+    """
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
     else:
@@ -201,12 +235,156 @@ def make_mesh(data: int | None = None, model: int = 1, backend: str | None = Non
     if dist.is_initialized():
         backend = backend or dist.get_backend()
         grid = np.arange(world).reshape(data, model)
-        for axis, lines in (("model", grid), ("data", grid.T)):
+        for axis, lines in (("model", grid), ("data", grid.T), ("world", grid.reshape(1, -1))):
             for line in lines:
                 g = dist.new_group([int(r) for r in line], backend=backend)
                 if rank in line:
                     groups[axis] = g
     return Mesh(data, model, rank, device, groups)
+
+
+class _Copy(torch.autograd.Function):
+    """Forward the identity, backward the sum over the model group: the
+    input of a column-parallel layer, whose gradient each rank forms from
+    its own columns (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.contiguous(), "model"), None
+
+
+class _GatherLast(torch.autograd.Function):
+    """Forward the model group's equal blocks concatenated along the last
+    dimension, backward this rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh = mesh
+        return mesh.all_gather(t, "model", t.dim() - 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.block(g, "model", g.dim() - 1).contiguous(), None
+
+
+class _GatherTokens(torch.autograd.Function):
+    """Forward the model group's token blocks (dimension 1, ceil-sized)
+    concatenated to all ``size`` tokens, backward this rank's tokens of
+    the gradient: summed over the group first (a reduce-scatter) where
+    each rank's consumer forms a part of it (a column-parallel layer),
+    as it is where every rank forms all of it (a replicated one)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, size, grad_sum):
+        ctx.mesh, ctx.grad_sum = mesh, grad_sum
+        return mesh.all_gather(t, "model", 1, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.grad_sum:
+            g = ctx.mesh.all_reduce(g.contiguous(), "model")
+        return ctx.mesh.block(g, "model", 1, even=False).contiguous(), None, None, None
+
+
+class _ScatterTokens(torch.autograd.Function):
+    """Forward this rank's token block of a tensor every rank holds whole,
+    backward the group's gradient blocks gathered (_GatherTokens the
+    other way round)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        ctx.mesh, ctx.size = mesh, t.shape[1]
+        return mesh.block(t, "model", 1, even=False).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g.contiguous(), "model", 1, ctx.size), None
+
+
+class _RowMax(torch.autograd.Function):
+    """The max over the last dimension of a tensor whose columns the model
+    group splits (keepdim): the local max, then a MAX over the group.
+    Backward as ``torch.amax``'s over the whole row: the gradient, summed
+    over the group (each rank's columns add their share), split evenly
+    among the entries equal to the max, wherever they lie."""
+
+    @staticmethod
+    def forward(ctx, q, mesh):
+        m = mesh.all_reduce(torch.amax(q, -1, keepdim=True), "model", op="max")
+        if ctx.needs_input_grad[0]:
+            hit = q == m
+            ctx.save_for_backward(hit, mesh.all_reduce(hit.sum(-1, keepdim=True).to(q.dtype), "model"))
+        ctx.mesh = mesh
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        hit, count = ctx.saved_tensors
+        g = ctx.mesh.all_reduce(g.contiguous(), "model")
+        return (g / count) * hit, None
+
+
+class ModelAxis:
+    """The model axis of a tensor-parallel QAT model
+    (``parallel.tensor``): the model group's collectives as the layers
+    call them, differentiable where a gradient crosses them. Every one
+    goes through ``Mesh``, so a ``gloo`` group on the card stages it
+    through the host. ``tokens`` is the token count of a sequence-parallel
+    model (None without sequence parallelism): between its blocks'
+    matmuls each rank holds the ceil-sized block ``mesh.bounds(tokens,
+    "model", even=False)`` of the token axis (dimension 1)."""
+
+    def __init__(self, mesh: Mesh, tokens: int | None = None):
+        self.mesh, self.tokens = mesh, tokens
+        self.size, self.rank = mesh.shape["model"], mesh.coords["model"]
+
+    def copy(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``; its gradient summed over the group (``_Copy``)."""
+        return _Copy.apply(t, self.mesh)
+
+    def gather_last(self, t: torch.Tensor) -> torch.Tensor:
+        """The group's equal blocks of the last dimension concatenated."""
+        return _GatherLast.apply(t, self.mesh)
+
+    def gather_tokens(self, t: torch.Tensor, grad_sum: bool = True) -> torch.Tensor:
+        """All ``tokens`` tokens from each rank's block (``_GatherTokens``);
+        ``grad_sum=False`` where every rank forms the whole gradient."""
+        return _GatherTokens.apply(t, self.mesh, self.tokens, grad_sum)
+
+    def scatter_tokens(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's token block of a tensor every rank holds whole."""
+        return _ScatterTokens.apply(t, self.mesh)
+
+    def token_bounds(self) -> tuple[int, int]:
+        """``[start, stop)`` of this rank's tokens."""
+        return self.mesh.bounds(self.tokens, "model", even=False)
+
+    def row_max(self, q: torch.Tensor) -> torch.Tensor:
+        """The max over the whole split row (``_RowMax``)."""
+        return _RowMax.apply(q, self.mesh)
+
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` reduced by MAX over the group; no gradient."""
+        return self.mesh.all_reduce(t.detach(), "model", op="max")
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the group; no gradient (an exact dot's int32
+        partial products)."""
+        return self.mesh.all_reduce(t, "model")
+
+    def sum_tokens(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the group, then this rank's tokens (a
+        reduce-scatter); no gradient."""
+        return self.mesh.block(self.mesh.all_reduce(t, "model"), "model", 1, even=False).contiguous()
+
+    def all_tokens(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's token block gathered; no gradient."""
+        return self.mesh.all_gather(t, "model", 1, self.tokens)
 
 
 def shard_infer(infer_fn, mesh: Mesh):
@@ -247,12 +425,39 @@ def _add_axis(shape: tuple, base: tuple, n: int, axis: str) -> tuple:
     return tuple(spec)
 
 
+def whole_layers(model: torch.nn.Module, n: int) -> list:
+    """The module paths of the layers a model axis of ``n`` ranks leaves
+    whole, as ``tp_infer`` serves them: an attention whose heads (a
+    module with ``qkv`` and ``num_heads``), an Mlp whose hidden width
+    (``hidden_features``) or a head whose classes ``n`` does not
+    divide."""
+    out = []
+    for path, mod in model.named_modules():
+        if hasattr(mod, "qkv") and hasattr(mod, "num_heads"):
+            split = mod.num_heads % n == 0
+        elif hasattr(mod, "hidden_features"):
+            split = mod.hidden_features % n == 0
+        elif path == "head":
+            split = model.config["num_classes"] % n == 0
+        else:
+            continue
+        if not split:
+            out.append(path)
+    return out
+
+
 def param_shardings(model: torch.nn.Module, mesh: Mesh) -> dict:
     """Each parameter's spec by torch name: a tuple of axis names or
     None per dimension; all None (replicated) at ``model == 1``, the
-    tensor-parallel rules above a wider model axis."""
+    tensor-parallel rules above a wider model axis, except in a layer the
+    axis leaves whole (``whole_layers``: Swin-T's 3 stage-1 heads at 2),
+    which stays replicated. ``parallel.tensor.param_slices`` gives each
+    rank its slice of a split parameter (``qkv`` by heads)."""
+    n = mesh.shape["model"]
+    whole = tuple(p + "." for p in whole_layers(model, n)) if n > 1 else ()
     # the rules match flax paths: a torch name with "/" for "."
-    return {n: _spec_for(n.replace(".", "/"), p.ndim, mesh.shape["model"]) for n, p in model.named_parameters()}
+    return {name: (None,) * p.ndim if name.startswith(whole) else _spec_for(name.replace(".", "/"), p.ndim, n)
+            for name, p in model.named_parameters()}
 
 
 def zero1_shardings(model: torch.nn.Module, mesh: Mesh) -> dict:
@@ -260,7 +465,9 @@ def zero1_shardings(model: torch.nn.Module, mesh: Mesh) -> dict:
     torch name: its ``param_shardings`` spec with ``"data"`` added on the
     largest evenly divisible dimension (``_add_axis``), as JAX's
     ``zero1_shardings`` gives the same leaf's ``opt_state`` and
-    ``ema_params``."""
+    ``ema_params``. On a tensor-parallel model (``parallel.tensor``)
+    its local shapes give the same spec: they differ from the whole ones
+    only along the model axis, which ``_add_axis`` leaves alone."""
     base = param_shardings(model, mesh)
     n = mesh.shape["data"]
     return {name: _add_axis(tuple(p.shape), base[name], n, "data") for name, p in model.named_parameters()}

@@ -47,10 +47,24 @@ optimizer moments and the EMA over the ranks
 logs and writes checkpoints, gathered into the single-process layout,
 so a run resumes under either.
 
+``--mesh-model N`` adds a model axis: tensor parallelism on a ``(data,
+model)`` mesh of ``WORLD_SIZE / N`` by ``N`` ranks
+(``parallel.tensor_parallel``: attention by heads, the Mlp by hidden
+columns, the head by classes), exiting where N does not divide the
+world; ``--seq-parallel`` splits the tokens between the blocks' matmuls
+over that axis (ignored with a warning without a model axis or for a
+Swin, as JAX's CLI does); ``--zero1`` slices the moments and the EMA of
+each rank's tensor-parallel share over the data axis. Checkpoints hold
+the whole state either way, and ``--resume`` under a model axis slices
+it back.
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m ivit_tpu_torch.quant_train --distributed --mesh-model 2 --seq-parallel --zero1 ...
+
 ``--pretrained auto`` (a download) and ``--pretrained`` with a
-``*_fp32`` name exit, each saying why; so do ``--mesh-model`` > 1,
-``--seq-parallel`` and ``--pipe`` > 1, naming the ``ROADMAP.md`` item
-that ports them, and ``--distributed`` without torchrun's environment.
+``*_fp32`` name exit, each saying why; so do ``--pipe`` > 1, naming the
+``ROADMAP.md`` item that ports it, and ``--distributed`` without
+torchrun's environment.
 """
 
 from __future__ import annotations
@@ -62,7 +76,7 @@ import signal
 import time
 
 # the ROADMAP.md §1 item that ports what this CLI refuses
-_MULTI_GPU_ITEM = "ROADMAP.md §1 item 8b (tensor-parallel training, sequence parallelism, GPipe)"
+_PIPE_ITEM = "ROADMAP.md §1 item 8b (GPipe, parallel/pipeline.py, and the dryrun_multichip counterpart)"
 
 
 def build_parser():
@@ -122,10 +136,13 @@ def build_parser():
     p.add_argument("--mixup-switch-prob", type=float, default=0.5)
     p.add_argument("--mixup-mode", type=str, default="batch")
     p.add_argument("--best-acc1", type=float, default=0)
-    # the JAX CLI's multi-device and TPU extras: refused, with the ROADMAP item
-    p.add_argument("--mesh-model", type=int, default=1, help=f"tensor parallelism; > 1 comes with {_MULTI_GPU_ITEM}")
-    p.add_argument("--seq-parallel", action="store_true", help=f"sequence parallelism; comes with {_MULTI_GPU_ITEM}")
-    p.add_argument("--pipe", type=int, default=1, help=f"pipeline stages; > 1 comes with {_MULTI_GPU_ITEM}")
+    # the JAX CLI's multi-device extras
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor parallelism: the model axis of a (WORLD_SIZE / N, N) mesh (with --distributed)")
+    p.add_argument("--seq-parallel", action="store_true",
+                   help="sequence parallelism: the token axis split over the model axis between the blocks' matmuls "
+                        "(needs --mesh-model > 1 and a ViT-family model)")
+    p.add_argument("--pipe", type=int, default=1, help=f"pipeline stages; > 1 comes with {_PIPE_ITEM}")
     p.add_argument("--pipe-microbatches", type=int, default=0, help="GPipe microbatches per step (with --pipe)")
     p.add_argument("--zero1", action="store_true",
                    help="ZeRO-1: slice the AdamW moments and the EMA over the data-parallel ranks (the update is "
@@ -197,13 +214,9 @@ def refuse_unported(args) -> None:
                          "pos_embed at their random init (ROADMAP.md §3 item 9). Load a float model by the library "
                          "path: torch_vit_to_params (or torch_swin_to_params) -> quant_params_to_float (or "
                          "swin_quant_params_to_float) -> merge_params -> nn.load_flax_variables")
-    refused = [(args.mesh_model > 1, "--mesh-model > 1", _MULTI_GPU_ITEM),
-               (args.seq_parallel, "--seq-parallel", _MULTI_GPU_ITEM),
-               (args.pipe > 1, "--pipe > 1", _MULTI_GPU_ITEM)]
-    for on, flag, item in refused:
-        if on:
-            raise SystemExit(f"{flag} is not ported to ivit_tpu_torch yet: it comes with {item}; "
-                             "the JAX package's quant_train.py runs it")
+    if args.pipe > 1:
+        raise SystemExit(f"--pipe > 1 is not ported to ivit_tpu_torch yet: GPipe comes with {_PIPE_ITEM}; "
+                         "the JAX package's quant_train.py runs it")
 
 
 def step_generators(seed: int, epoch: int, step: int, device):
@@ -257,15 +270,20 @@ def _run(args, joined=None):
     from .models import create_model
     from .models.model_utils import model_variables
     from .nn.quant import data_shard
-    from .parallel import batch_shard, gather_train_state, make_mesh, shard_train_state
+    from .parallel import batch_shard, gather_train_state, make_mesh, shard_train_state, tensor_parallel
     from .train import SGD, AdamW, MixupConfig, cosine_schedule, create_train_state, make_eval_step
     from .train import make_train_step, mixup_cutmix
     from .train.augment import one_hot_smooth
     from .utils import AverageMeter, MetricLogger, load_checkpoint, save_checkpoint
 
     device = target_device(args.device if joined is None else joined.device)
-    # the (data,) mesh of the run: torchrun's world, or one rank
-    mesh = make_mesh(device=device) if joined is not None or args.zero1 else None
+    # the (data, model) mesh of the run: torchrun's world, or one rank
+    mesh = None
+    if joined is not None or args.zero1 or args.mesh_model > 1:
+        try:
+            mesh = make_mesh(model=args.mesh_model, device=device)
+        except ValueError as e:  # as JAX's make_mesh raises
+            raise SystemExit(f"--mesh-model {args.mesh_model} does not divide the world: {e}") from None
     world = 1 if mesh is None else mesh.shape["data"]
     lead = mesh is None or mesh.rank == 0  # the rank that logs and writes
     if args.batch_size % world:
@@ -277,8 +295,13 @@ def _run(args, joined=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", handlers=handlers, force=True)
     logging.info(str(args))
     if joined is not None:
-        logging.info("distributed: %d ranks over %s, rank 0 on %s; data-parallel on a (data=%d,) mesh%s",
-                     joined.world_size, joined.backend, device, world, ", ZeRO-1" if args.zero1 else "")
+        logging.info("distributed: %d ranks over %s, rank 0 on %s; a (data=%d, model=%d) mesh%s",
+                     joined.world_size, joined.backend, device, world, args.mesh_model,
+                     ", ZeRO-1" if args.zero1 else "")
+    seq_parallel = args.seq_parallel
+    if seq_parallel and (args.mesh_model == 1 or args.model.startswith("swin")):
+        logging.warning("--seq-parallel ignored (needs --mesh-model > 1 and a ViT-family model)")
+        seq_parallel = False
     np.random.seed(args.seed)
 
     ds_train = build_dataset(args.data_set, args.data, True, args.input_size, args.nb_classes)
@@ -333,11 +356,18 @@ def _run(args, joined=None):
         start_epoch = extra.get("epoch", 0) + 1
         best_acc1 = extra.get("best_acc1", 0.0)
         logging.info("resumed from %s at epoch %d", args.resume, start_epoch)
+    if mesh is not None and mesh.shape["model"] > 1:
+        try:
+            tensor_parallel(state, mesh, seq_parallel=seq_parallel)
+        except (TypeError, ValueError) as e:
+            raise SystemExit(f"--mesh-model {args.mesh_model}: {e}") from None
+        logging.info("tensor parallelism: %s over the %d-way model axis%s", args.model, args.mesh_model,
+                     ", sequence parallel" if seq_parallel else "")
     if args.zero1:
         state = shard_train_state(state, mesh)
 
     def save(path, extra):
-        # every rank joins the gather; rank 0 writes the whole state
+        # every rank joins the gather (both axes); rank 0 writes the whole state
         whole = gather_train_state(state)
         if lead:
             save_checkpoint(path, whole, extra)

@@ -32,8 +32,14 @@ def make_train_step(model: torch.nn.Module, ema_decay: float = 0.0, grad_clip: f
     same generator state, runs its rows with global ranges and masks,
     and averages the gradients and the metrics over the ``data`` axis; a
     state sliced by ``parallel.data.shard_train_state`` takes the ZeRO-1
-    update."""
+    update. A tensor-parallel model (``parallel.tensor_parallel``, on
+    the mesh's ``model`` axis) also sums over the model group the
+    gradients each rank forms in part, and clips by the norm of the
+    whole model."""
     shard = None if mesh is None else batch_shard(mesh)
+    tp = getattr(model, "tp", None)
+    if tp is not None and mesh is None:
+        raise ValueError("a tensor-parallel model trains with its mesh: make_train_step(model, ..., mesh=mesh)")
 
     def train_step(state: TrainState, images: torch.Tensor, targets: torch.Tensor,
                    generator: torch.Generator | None = None):
@@ -47,9 +53,14 @@ def make_train_step(model: torch.nn.Module, ema_decay: float = 0.0, grad_clip: f
         with torch.no_grad():
             if mesh is not None:
                 grads = data_mean(grads, mesh)
+            if tp is not None:
+                grads = tp.reduce_grads(grads, names)
             if grad_clip is not None:
-                norms = torch.stack(torch._foreach_norm(grads))
-                gnorm = torch.sqrt((norms * norms).sum())
+                if tp is None:
+                    norms = torch.stack(torch._foreach_norm(grads))
+                    gnorm = torch.sqrt((norms * norms).sum())
+                else:
+                    gnorm = tp.global_norm(grads, names)
                 torch._foreach_mul_(grads, torch.clamp(div(grad_clip, gnorm + 1e-6), max=1.0))
             if state.zero1 is not None:
                 zero1_update(state, list(params), grads, ema_decay)
@@ -74,16 +85,18 @@ def make_eval_step(model: torch.nn.Module, return_logits: bool = False, mesh=Non
     ``variables`` (``models.model_utils.eval_variables``) with
     ``train=False``; rows at or past ``n_valid`` (padding up to a batch
     multiple) count in no accuracy. With a ``mesh`` every rank passes the
-    same global batch (a multiple of the ``data`` axis), runs its rows,
-    and the hits are summed and the logits gathered over ``data``."""
+    same global batch (a multiple of the ``data`` axis), runs its rows
+    (a tensor-parallel model its share of them), and the hits are summed
+    and the logits gathered over ``data``."""
 
     @torch.no_grad()
     def eval_step(variables: dict, images: torch.Tensor, labels: torch.Tensor, n_valid: int):
         rows = torch.arange(labels.shape[0], device=labels.device)
         if mesh is not None:
             images, labels, rows = (mesh.block(t, "data") for t in (images, labels, rows))
-        logits = torch.func.functional_call(
-            model, {**variables["params"], **variables["quant_stats"]}, (images,), {"train": False})
+        with data_shard(None if mesh is None else batch_shard(mesh)):
+            logits = torch.func.functional_call(
+                model, {**variables["params"], **variables["quant_stats"]}, (images,), {"train": False})
         valid = (rows < n_valid).to(torch.float32)
         hits = torch.stack([(topk_hits(logits, labels, k) * valid).sum() for k in (1, 5)])
         if mesh is not None:

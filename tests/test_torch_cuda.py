@@ -1187,3 +1187,77 @@ def test_two_gloo_ranks_share_the_card_tp2(dev, tmp_path):
         assert r["device"] == "cuda:0" and r["kernels"] == ["attention", "layernorm"]
         np.testing.assert_array_equal(r["logits"], cpu)
         assert r["launches"] == {"K1": 2, "K3": 5}
+
+
+# the tiny DeiT of tests/test_torch_parallel_tp_train.py: 17 tokens, 4 heads
+TP_TRAIN_VIT = dict(img_size=16, patch_size=4, num_classes=8, embed_dim=32, depth=2, num_heads=4,
+                    drop_rate=0.1, attn_drop_rate=0.1, drop_path_rate=0.1)
+
+
+@pytest.mark.parametrize("seq", [False, True], ids=["tp", "sp"])
+def test_two_gloo_ranks_train_tensor_parallel_on_the_card(dev, tmp_path, seq):
+    """Two ranks on cuda:0 over gloo take two tensor-parallel QAT steps
+    (sequence-parallel with ``sp``: 17 tokens as 9 and 8): both steps'
+    logits and every range equal the single-process step's on the card,
+    tolerance 0; the first gradient within 1e-5 of each leaf's largest
+    entry (the model group's float32 sums in another order)."""
+    from torch_parallel_worker import run_ranks, tp_variant, train_tp
+
+    rng = np.random.default_rng(21)
+    batches = []
+    for i in range(2):
+        t = np.full((8, 8), 0.1 / 8, np.float32)
+        t[np.arange(8), rng.integers(0, 8, 8)] += 0.9
+        batches.append((rng.standard_normal((8, 16, 16, 3)).astype(np.float32), t, 1000 + i))
+    spec = {"model": "deit_tiny", "model_kw": TP_TRAIN_VIT, "lr": 1e-3, "wd": 0.05, "ema": 0.9, "clip": 1.0,
+            "batches": batches, "device": "cuda", "seq": seq}
+    single = tp_variant(spec, None)
+    ranks = run_ranks(2, tmp_path, train_tp, [(spec, (1, 2))], backend="gloo", device="cuda")
+    for r in (rk[0] for rk in ranks):
+        for i, ref in enumerate(single["steps"]):
+            torch.testing.assert_close(r["steps"][i]["logits"], ref["logits"], rtol=0, atol=0, msg=f"step {i}")
+            for name, b in ref["ranges"].items():
+                assert torch.equal(r["steps"][i]["ranges"][name], b), (i, name)
+        for name, g in single["grads"].items():
+            torch.testing.assert_close(r["grads"][name], g, rtol=0, atol=1e-5 * float(g.abs().max()), msg=name)
+
+
+def test_int_mm_on_a_dropped_graphs_stream_stays_exact(dev):
+    """The suspect of the sporadic QAT-forward mismatch (``ROADMAP.md``
+    §3): a cuBLAS(Lt) workspace handed out from a CUDA graph's private
+    pool and reused after the graph is dropped. A graph is captured on a
+    fresh side stream with no warm-up there (so whatever that stream's
+    first GEMM allocates, it allocates in the graph's pool), replayed and
+    dropped, the cache emptied and the freed memory refilled with noise;
+    then the same GEMMs run on that stream and on the default stream,
+    100 times each, exact against float64."""
+    import gc
+
+    from ivit_tpu_torch.ops.intmm import int8_matmul
+
+    rng = np.random.default_rng(11)
+    shapes = ((16, 192, 32), (17, 192, 32), (16, 32, 128), (256, 384, 1152))
+    operands = [(torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8)).to(dev),
+                 torch.from_numpy(rng.integers(-128, 128, (K, N)).astype(np.int8)).to(dev)) for M, K, N in shapes]
+    exact = [(x.to(torch.float64) @ w.to(torch.float64)).to(torch.int32) for x, w in operands]
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        outs = [int8_matmul(x, w) for x, w in operands]
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(outs, exact):
+        assert torch.equal(got, want)
+    del graph, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    for rep in range(100):
+        noise = [torch.randint(-128, 128, (int(n),), dtype=torch.int8, device=dev) for n in rng.integers(1, 1 << 22, 8)]
+        for on in (stream, torch.cuda.current_stream(dev)):
+            with torch.cuda.stream(on):
+                got = [int8_matmul(x, w) for x, w in operands]
+            on.synchronize()
+            for (M, K, N), g, want in zip(shapes, got, exact):
+                assert torch.equal(g, want), (rep, M, K, N, (g != want).nonzero().tolist()[:20])
+        del noise

@@ -44,7 +44,8 @@ def test_package_has_modules():
               "train/augment.py", "utils/checkpoint.py", "utils/metrics.py", "data/datasets.py",
               "data/transforms.py", "data/loader.py", "data/pil_ops.py", "quant_train.py", "evaluate_accuracy.py",
               "models/vit_float.py", "models/swin_float.py", "models/import_torch.py", "models/import_swin.py",
-              "nn/remat.py", "deploy/export.py", "parallel/mesh.py", "parallel/tp_infer.py", "parallel/data.py"):
+              "nn/remat.py", "deploy/export.py", "parallel/mesh.py", "parallel/tp_infer.py", "parallel/data.py",
+              "parallel/tensor.py"):
         assert f in files
 
 

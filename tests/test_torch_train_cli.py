@@ -205,23 +205,25 @@ def test_profile_steps_write_a_trace(tmp_path):
     assert trace.exists() and '"traceEvents"' in trace.read_text()
 
 
-# what each refused trainer flag's exit names: a ROADMAP item, or for
-# --distributed outside torchrun the environment it lacks. --zero1 runs
-# now; with a model axis (ZeRO-1 x TP) it still waits for item 8b.
-REFUSALS = {"--pretrained": r"ROADMAP\.md §1 item \d", "--mesh-model": r"ROADMAP\.md §1 item 8b",
-            "--seq-parallel": r"ROADMAP\.md §1 item 8b", "--pipe": r"ROADMAP\.md §1 item 8b",
-            "--zero1": r"ROADMAP\.md §1 item 8b", "--distributed": r"no torchrun environment \(RANK, WORLD_SIZE"}
+# what each refused trainer flag's exit names: a ROADMAP item (GPipe is
+# the one multi-GPU item left), or outside torchrun the environment it
+# lacks. The model-axis flags run under torchrun now
+# (tests/test_torch_parallel_cli.py); in a world of one a model axis of 2
+# exits naming WORLD_SIZE, as JAX's make_mesh raises on too few devices.
+REFUSALS = {"--pretrained": r"ROADMAP\.md §1 item \d", "--mesh-model": r"!= WORLD_SIZE 1 ranks",
+            "--seq-parallel": r"!= WORLD_SIZE 1 ranks", "--pipe": r"ROADMAP\.md §1 item 8b \(GPipe",
+            "--zero1": r"!= WORLD_SIZE 1 ranks", "--distributed": r"no torchrun environment \(RANK, WORLD_SIZE"}
 
 
-@pytest.mark.parametrize("flag", [["--pretrained", "auto"], ["--mesh-model", "2"], ["--seq-parallel"], ["--pipe", "2"],
-                                  ["--zero1", "--mesh-model", "2"], ["--distributed"]],
+@pytest.mark.parametrize("flag", [["--pretrained", "auto"], ["--mesh-model", "2"], ["--seq-parallel", "--mesh-model", "2"],
+                                  ["--pipe", "2"], ["--zero1", "--mesh-model", "2"], ["--distributed"]],
                          ids=lambda f: f[0])
 def test_unported_trainer_flags_exit_with_their_roadmap_item(flag, tmp_path, monkeypatch):
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(var, raising=False)
     with pytest.raises(SystemExit, match=REFUSALS[flag[0]]) as info:
         quant_train.main(BASE + flag + ["--output-dir", str(tmp_path)])
-    assert (flag[1] if flag[0] == "--zero1" else flag[0]) in str(info.value.code)
+    assert ("--mesh-model 2" if "--mesh-model" in flag else flag[0]) in str(info.value.code)
     assert not (tmp_path / "log.log").exists()
 
 

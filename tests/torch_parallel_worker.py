@@ -197,3 +197,107 @@ def as_numpy(tree):
     if isinstance(tree, list):
         return [as_numpy(v) for v in tree]
     return tree.numpy() if torch.is_tensor(tree) else np.asarray(tree)
+
+
+def _weight_scales(model) -> dict:
+    """Every ``QuantLinear``'s per-output-channel weight scale as its
+    forward forms it (a row-parallel kernel's range spans the model
+    group), a column-parallel layer's gathered whole."""
+    from ivit_tpu_torch.core.quantizers import per_channel_minmax, symmetric_scale
+    from ivit_tpu_torch.nn.quant import QuantLinear
+
+    tp, out = getattr(model, "tp", None), {}
+    for path, mod in model.named_modules():
+        if not isinstance(mod, QuantLinear):
+            continue
+        mn, mx = per_channel_minmax(mod.kernel.detach().T)
+        split = mod.split
+        if split is not None and split.rows:
+            mn, mx = split.axis.max(torch.stack([-mn, mx])).unbind(0)
+            mn = -mn
+        s = symmetric_scale(mn, mx, mod.weight_bits)
+        if split is not None and not split.rows:
+            _, pos = tp.slices[f"{path}.kernel"]
+            parts = tp.mesh.all_gather(s, "model", 0)
+            s = torch.empty_like(parts).index_copy_(0, torch.cat(pos).to(parts.device), parts)
+        out[path] = s.clone()
+    return out
+
+
+def tp_variant(spec: dict, mesh_shape) -> dict:
+    """The tensor(×data)-parallel step of ``spec`` on this rank (``mesh_shape``
+    ``(data, model)``; None: the single-process step on the global batch):
+    ``spec["seq"]`` sequence parallelism, ``spec["zero1"]`` ZeRO-1,
+    ``spec["remat"]`` recompute, on ``spec["device"]`` (the CPU by
+    default; a card shared over ``gloo``). Returns step 1's weight scales
+    and the first batch's gradient (whole), each step's logits (this data
+    rank's rows), ranges and metrics, and the final parameters, EMA and
+    moments gathered whole, with this rank's moment shapes, all on the
+    host."""
+    from ivit_tpu_torch.parallel import tensor_parallel
+
+    dev = torch.device(spec.get("device", "cpu"))
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = None if mesh_shape is None else make_mesh(*mesh_shape, device=dev)
+    model = create_model(spec["model"], device=dev, seed=0, remat=spec.get("remat", False), **spec["model_kw"])
+    if spec.get("variables") is not None:
+        load_flax_variables(model, spec["variables"])
+    state = create_train_state(model, AdamW(spec["lr"], weight_decay=spec["wd"]), ema_decay=spec["ema"],
+                               device=dev)
+    if mesh is not None and mesh.shape["model"] > 1:
+        tensor_parallel(state, mesh, seq_parallel=spec.get("seq", False))
+    if spec.get("zero1"):
+        state = shard_train_state(state, mesh)
+    tp = getattr(model, "tp", None)
+    names = [n for n, _ in model.named_parameters()]
+    out = {"scales": _weight_scales(model)}
+    rows = (lambda a: a) if mesh is None else (lambda a: mesh.block(a, "data"))
+    # the first batch's gradient, the ranges put back after the forward
+    images, targets, gen_seed = spec["batches"][0]
+    saved = {n: b.clone() for n, b in model.named_buffers()}
+    with data_shard(None if mesh is None else batch_shard(mesh)):
+        logits = model(rows(torch.from_numpy(images).to(dev)), train=True,
+                       generator=torch.Generator(device=dev).manual_seed(gen_seed))
+    loss = soft_target_cross_entropy(logits, rows(torch.from_numpy(targets).to(dev)))
+    grads = list(torch.autograd.grad(loss, list(model.parameters()), materialize_grads=True))
+    # the eval step on the ranges that forward set, before any update
+    from ivit_tpu_torch.models.model_utils import model_variables
+    from ivit_tpu_torch.train import make_eval_step
+
+    labels = torch.from_numpy(targets.argmax(-1)).to(dev)
+    _, out["eval_logits"] = make_eval_step(model, return_logits=True, mesh=mesh)(
+        model_variables(model), torch.from_numpy(images).to(dev), labels, len(labels))
+    out["eval_logits"] = out["eval_logits"].cpu()
+    with torch.no_grad():
+        for n, b in model.named_buffers():
+            b.copy_(saved[n])
+        if mesh is not None:
+            grads = data_mean(grads, mesh)
+        if tp is not None:
+            grads = [tp.join(g, n) for g, n in zip(tp.reduce_grads(grads, names), names)]
+    out["grads"] = dict(zip(names, [g.cpu().clone() for g in grads]))
+    step = make_train_step(model, ema_decay=spec["ema"], grad_clip=spec["clip"], mesh=mesh)
+    seen = []
+    hook = model.register_forward_hook(lambda mod, args, o: seen.append(o.detach().clone()))
+    out["steps"] = []
+    for images, targets, gen_seed in spec["batches"]:
+        _, met = step(state, torch.from_numpy(images).to(dev), torch.from_numpy(targets).to(dev),
+                      torch.Generator(device=dev).manual_seed(gen_seed))
+        out["steps"].append({"logits": seen[-1].cpu(), "ranges": {n: b.cpu().clone() for n, b in model.named_buffers()},
+                             "loss": float(met["loss"]), "acc1": float(met["acc1"])})
+    hook.remove()
+    out["scales"] = {n: s.cpu() for n, s in out["scales"].items()}
+    out["local_mu"] = {n: tuple(m.shape) for n, m in zip(names, state.opt_state.mu)}
+    whole = gather_train_state(state)
+    wnames = [n for n, _ in whole.model.named_parameters()]
+    out["params"] = {n: p.detach().cpu().clone() for n, p in whole.model.named_parameters()}
+    out["ema"] = {n: whole.ema_params[n].cpu().clone() for n in wnames} if whole.ema_params is not None else None
+    out["mu"] = dict(zip(wnames, [m.cpu().clone() for m in whole.opt_state.mu]))
+    out["nu"] = dict(zip(wnames, [m.cpu().clone() for m in whole.opt_state.nu]))
+    return out
+
+
+def train_tp(cases: list) -> list:
+    """``tp_variant`` of each ``(spec, mesh_shape)`` on this rank."""
+    return [tp_variant(spec, mesh_shape) for spec, mesh_shape in cases]
