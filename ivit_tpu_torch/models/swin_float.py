@@ -24,7 +24,7 @@ from torch import nn
 
 from ..nn.quant import trunc_normal_
 from .swin import _mask_on, gather_bias, stage_geometry, swin_config, token_mean, window_partition, window_reverse
-from .vit_float import Dense, LayerNorm, patchify
+from .vit_float import Dense, LayerNorm, gather_heads, head_logits, patchify
 
 
 class FloatSwinTransformer(nn.Module):
@@ -85,6 +85,9 @@ class FloatSwinTransformer(nn.Module):
         nf = D * 2 ** (len(depths) - 1)
         self.norm = LayerNorm(nf, 1e-5)
         self.head = Dense(nf, num_classes)
+        self.attn_heads = {f"layers_{i}_blocks_{j}_attn_qkv": num_heads[i]  # parallel.mesh.tp_groups
+                           for i, depth in enumerate(depths) for j in range(depth)}
+        self.tp = None  # the parallel.tensor.TensorParallel of a tensor-parallel model
 
     def forward(self, images: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -104,17 +107,20 @@ class FloatSwinTransformer(nn.Module):
                     g = torch.roll(g, (-shift, -shift), dims=(1, 2))
                 xw = window_partition(g, ws)  # (B·nW, N, dim)
                 Bw, N, _ = xw.shape
-                qkv = blk["attn_qkv"](xw).reshape(Bw, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+                qkv = blk["attn_qkv"](xw)
+                Hl = qkv.shape[-1] // (3 * hd)  # this rank's heads
+                h0 = 0 if Hl == H else blk["attn_qkv"].split.axis.rank * Hl
+                qkv = qkv.reshape(Bw, N, 3, Hl, hd).permute(2, 0, 3, 1, 4)
                 attn = torch.matmul(qkv[0], qkv[1].transpose(-1, -2)) * hd**-0.5
                 # by attribute, so that torch.func.functional_call's parameters take its place
                 table = getattr(self, f"layers_{i}_blocks_{j}_attn_relative_position_bias_table")
-                attn = attn + gather_bias(table, ws)[None]
+                attn = attn + gather_bias(table, ws)[None, h0:h0 + Hl]
                 mask = _mask_on(res, res, ws, shift, x.device)
                 if mask is not None:
                     nW = mask.shape[0]
-                    attn = (attn.reshape(Bw // nW, nW, H, N, N) + mask[None, :, None]).reshape(Bw, H, N, N)
-                ctx = torch.matmul(torch.softmax(attn, -1), qkv[2]).transpose(1, 2).reshape(Bw, N, dim)
-                g = window_reverse(blk["attn_proj"](ctx), ws, res, res)
+                    attn = (attn.reshape(Bw // nW, nW, Hl, N, N) + mask[None, :, None]).reshape(Bw, Hl, N, N)
+                ctx = torch.matmul(torch.softmax(attn, -1), qkv[2]).transpose(1, 2).reshape(Bw, N, Hl * hd)
+                g = window_reverse(blk["attn_proj"](gather_heads(blk["attn_qkv"], ctx)), ws, res, res)
                 if shift:
                     g = torch.roll(g, (shift, shift), dims=(1, 2))
                 x = x + g.reshape(B, res * res, dim)
@@ -125,7 +131,7 @@ class FloatSwinTransformer(nn.Module):
                 g = x.reshape(B, res, res, dim)
                 x = torch.cat([g[:, 0::2, 0::2], g[:, 1::2, 0::2], g[:, 0::2, 1::2], g[:, 1::2, 1::2]], -1)
                 x = merge["reduction"](merge["norm"](x.reshape(B, -1, 4 * dim)))
-        return self.head(token_mean(self.norm(x)))
+        return head_logits(self.head, token_mean(self.norm(x)))
 
 
 def swin_quant_params_to_float(params: dict) -> dict:

@@ -25,20 +25,37 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.quant import trunc_normal_
+from ..nn.quant import LinearSplit, trunc_normal_
 
 
 class Dense(nn.Module):
-    """flax's ``nn.Dense``: ``x @ kernel + bias``, the kernel (in, out)."""
+    """flax's ``nn.Dense``: ``x @ kernel + bias``, the kernel (in, out).
+    ``split`` (set by ``parallel.tensor``, a ``nn.quant.LinearSplit``)
+    makes it column-parallel (its input's gradient summed over the model
+    group) or row-parallel (the partial products summed, then the bias
+    added once)."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(trunc_normal_(torch.empty(in_features, features), 0.02))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.split: LinearSplit | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.kernel)
+        split = self.split
+        if split is None:
+            y = torch.matmul(x, self.kernel)
+        elif split.rows:
+            y = split.axis.reduce(torch.matmul(x, self.kernel))
+        else:
+            y = torch.matmul(split.axis.copy(x), self.kernel)
         return y if self.bias is None else y + self.bias
+
+
+def gather_heads(qkv: Dense, ctx: torch.Tensor) -> torch.Tensor:
+    """Attention's (..., local heads · hd) output, every head's where
+    ``qkv`` is split by heads (``parallel.tensor``)."""
+    return ctx if qkv.split is None else qkv.split.axis.gather_last(ctx)
 
 
 class LayerNorm(nn.Module):
@@ -56,6 +73,13 @@ class LayerNorm(nn.Module):
         y = x - mu
         var = (y * y).mean(-1, keepdim=True)
         return y * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+
+
+def head_logits(head: Dense, x: torch.Tensor) -> torch.Tensor:
+    """The logits of ``head`` on ``x``, gathered over the model axis where
+    it is split by classes (``parallel.tensor``)."""
+    logits = head(x)
+    return logits if head.split is None else head.split.axis.gather_last(logits)
 
 
 def patchify(images: torch.Tensor, p: int) -> torch.Tensor:
@@ -104,6 +128,8 @@ class FloatVisionTransformer(nn.Module):
             self.blocks.append(layers)
         self.norm = LayerNorm(D, 1e-6)
         self.head = Dense(D, num_classes)
+        self.attn_heads = {f"blocks_{i}_attn_qkv": num_heads for i in range(depth)}  # parallel.mesh.tp_groups
+        self.tp = None  # the parallel.tensor.TensorParallel of a tensor-parallel model
 
     def forward(self, images: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -113,13 +139,15 @@ class FloatVisionTransformer(nn.Module):
         x = self.patch_embed_proj(patchify(images.to(torch.float32), self.patch_size))
         x = torch.cat([self.cls_token.expand(B, 1, D), x], 1) + self.pos_embed
         for blk in self.blocks:
-            qkv = blk["attn_qkv"](blk["norm1"](x)).reshape(B, -1, 3, H, hd).permute(2, 0, 3, 1, 4)
+            qkv = blk["attn_qkv"](blk["norm1"](x))
+            Hl = qkv.shape[-1] // (3 * hd)  # this rank's heads
+            qkv = qkv.reshape(B, -1, 3, Hl, hd).permute(2, 0, 3, 1, 4)
             attn = torch.softmax(torch.matmul(qkv[0], qkv[1].transpose(-1, -2)) * hd**-0.5, -1)
-            ctx = torch.matmul(attn, qkv[2]).transpose(1, 2).reshape(B, -1, D)
-            x = x + blk["attn_proj"](ctx)
+            ctx = torch.matmul(attn, qkv[2]).transpose(1, 2).reshape(B, -1, Hl * hd)
+            x = x + blk["attn_proj"](gather_heads(blk["attn_qkv"], ctx))
             y = F.gelu(blk["mlp_fc1"](blk["norm2"](x)), approximate="none")
             x = x + blk["mlp_fc2"](y)
-        return self.head(self.norm(x)[:, 0])
+        return head_logits(self.head, self.norm(x)[:, 0])
 
 
 def quant_params_to_float(params: dict) -> dict:

@@ -343,7 +343,10 @@ def quant_matmul(a: QTensor, b: QTensor) -> QTensor:
 class QuantLinear(nn.Module):
     """Dense layer with per-out-channel symmetric int8 weights; the
     output is the int32-valued accumulator at the per-channel scale
-    ``w_scale · s_in`` (a ``QuantAct`` after it requantizes)."""
+    ``w_scale · s_in`` (a ``QuantAct`` after it requantizes).
+    ``w_scale`` keeps the last forward's per-channel weight scale
+    (detached; this rank's channels of a column-parallel layer), so a
+    check can read the scale the layer quantized with."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  weight_bits: int = 8, bias_bits: int = 32):
@@ -352,6 +355,7 @@ class QuantLinear(nn.Module):
         self.kernel = nn.Parameter(trunc_normal_(torch.empty(in_features, features), 0.02))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.split: LinearSplit | None = None  # set by parallel.tensor
+        self.w_scale: torch.Tensor | None = None
 
     def forward(self, x: QTensor) -> QTensor:
         split = self.split
@@ -368,6 +372,7 @@ class QuantLinear(nn.Module):
             else:
                 x = x.replace(q=split.axis.gather_tokens(x.q) if split.seq else split.axis.copy(x.q))
             w_scale = symmetric_scale(mn, mx, self.weight_bits)
+        self.w_scale = w_scale.detach()
         w_int = quantize(self.kernel, w_scale, self.weight_bits)
         out_scale = w_scale * x.scale.detach()
         b_int = None if self.bias is None else quantize(self.bias, out_scale, self.bias_bits)

@@ -21,9 +21,10 @@ tests) and the port calls the collectives itself:
 * ``ModelAxis`` holds the model group's collectives as a tensor-parallel
   model's layers call them (``parallel.tensor``), as
   ``torch.autograd.Function``s where a gradient crosses them: the
-  identity whose gradient is summed, the token gather and scatter of
-  sequence parallelism (ceil-sized blocks, ``Mesh.bounds``), the
-  last-dimension gather, the row max.
+  identity whose gradient is summed, the sum whose gradient is the
+  identity, the token gather and scatter of sequence parallelism
+  (ceil-sized blocks, ``Mesh.bounds``), the last-dimension gather, the
+  row max.
 
 **Backends and devices.** ``nccl`` when every rank has a card of its
 own (rank r runs on ``cuda:LOCAL_RANK``), ``gloo`` on the CPU. Several
@@ -258,6 +259,20 @@ class _Copy(torch.autograd.Function):
         return ctx.mesh.all_reduce(g.contiguous(), "model"), None
 
 
+class _Reduce(torch.autograd.Function):
+    """Forward the sum over the model group, backward the identity: the
+    output of a row-parallel float layer, each rank's partial product of
+    its input rows (Megatron's g)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh):
+        return mesh.all_reduce(t.contiguous(), "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 class _GatherLast(torch.autograd.Function):
     """Forward the model group's equal blocks concatenated along the last
     dimension, backward this rank's block of the gradient."""
@@ -347,6 +362,11 @@ class ModelAxis:
         """``t``; its gradient summed over the group (``_Copy``)."""
         return _Copy.apply(t, self.mesh)
 
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the group; its gradient passed as it is
+        (``_Reduce``)."""
+        return _Reduce.apply(t, self.mesh)
+
     def gather_last(self, t: torch.Tensor) -> torch.Tensor:
         """The group's equal blocks of the last dimension concatenated."""
         return _GatherLast.apply(t, self.mesh)
@@ -425,25 +445,58 @@ def _add_axis(shape: tuple, base: tuple, n: int, axis: str) -> tuple:
     return tuple(spec)
 
 
-def whole_layers(model: torch.nn.Module, n: int) -> list:
-    """The module paths of the layers a model axis of ``n`` ranks leaves
-    whole, as ``tp_infer`` serves them: an attention whose heads (a
-    module with ``qkv`` and ``num_heads``), an Mlp whose hidden width
-    (``hidden_features``) or a head whose classes ``n`` does not
-    divide."""
+def splits(count: int, n: int) -> bool:
+    """Whether a model axis of ``n`` ranks splits a layer of ``count``
+    heads (an attention: qkv, proj), hidden columns (an Mlp: fc1, fc2) or
+    classes (the head). One that it does not divide stays whole on every
+    rank, in training (``whole_layers``) as in serving
+    (``parallel.tp_infer``): DeiT-S's 6 heads at 4, Swin-T's 3 stage-1
+    heads at 2."""
+    return count % n == 0
+
+
+def split_positions(size: int, n: int, r: int, heads: int | None = None) -> np.ndarray:
+    """Rank ``r`` of ``n``'s positions along a split dimension ``size``
+    long: a contiguous block, or for ``qkv`` (``heads`` given) the q, k
+    and v columns of the rank's heads, in the (3, H, hd) order the
+    attention reads them."""
+    if heads is None:
+        b = size // n
+        return np.arange(r * b, (r + 1) * b)
+    C = size // 3
+    hd, hl = C // heads, heads // n
+    return (np.arange(3)[:, None, None] * C + (r * hl + np.arange(hl))[None, :, None] * hd
+            + np.arange(hd)[None, None, :]).reshape(-1)
+
+
+def tp_groups(model: torch.nn.Module) -> list:
+    """The layers a model axis may split, as ``(kind, path, count,
+    layers)``: ``"attn"`` (``count`` its heads; ``layers`` its qkv and
+    proj), ``"mlp"`` (its hidden width; fc1 and fc2) or ``"head"`` (the
+    classes), each layer by module name. The QAT models' attentions are
+    the modules with ``qkv`` and ``num_heads``, their Mlps those with
+    ``hidden_features``; a float model (flax's flat names) lists its
+    qkv layers' heads in ``attn_heads``, and JAX's rules, which name
+    ``attn/proj``, leave its proj whole."""
     out = []
     for path, mod in model.named_modules():
         if hasattr(mod, "qkv") and hasattr(mod, "num_heads"):
-            split = mod.num_heads % n == 0
+            out.append(("attn", path, mod.num_heads, (f"{path}.qkv", f"{path}.proj")))
         elif hasattr(mod, "hidden_features"):
-            split = mod.hidden_features % n == 0
-        elif path == "head":
-            split = model.config["num_classes"] % n == 0
-        else:
-            continue
-        if not split:
-            out.append(path)
+            out.append(("mlp", path, mod.hidden_features, (f"{path}.fc1", f"{path}.fc2")))
+    for qkv, heads in getattr(model, "attn_heads", {}).items():
+        pre = qkv[:-len("_attn_qkv")]
+        fc1, fc2 = f"{pre}_mlp_fc1", f"{pre}_mlp_fc2"
+        out.append(("attn", f"{pre}_attn", heads, (qkv,)))
+        out.append(("mlp", f"{pre}_mlp", model.get_submodule(fc1).kernel.shape[1], (fc1, fc2)))
+    out.append(("head", "head", model.head.kernel.shape[1], ("head",)))
     return out
+
+
+def whole_layers(model: torch.nn.Module, n: int) -> list:
+    """The module names of the layers a model axis of ``n`` ranks leaves
+    whole (``tp_groups`` whose count it does not divide, ``splits``)."""
+    return [name for _, _, count, layers in tp_groups(model) if not splits(count, n) for name in layers]
 
 
 def param_shardings(model: torch.nn.Module, mesh: Mesh) -> dict:
@@ -452,11 +505,12 @@ def param_shardings(model: torch.nn.Module, mesh: Mesh) -> dict:
     tensor-parallel rules above a wider model axis, except in a layer the
     axis leaves whole (``whole_layers``: Swin-T's 3 stage-1 heads at 2),
     which stays replicated. ``parallel.tensor.param_slices`` gives each
-    rank its slice of a split parameter (``qkv`` by heads)."""
+    rank its slice of a split parameter (``split_positions``: ``qkv`` by
+    heads)."""
     n = mesh.shape["model"]
-    whole = tuple(p + "." for p in whole_layers(model, n)) if n > 1 else ()
+    whole = set(whole_layers(model, n)) if n > 1 else set()
     # the rules match flax paths: a torch name with "/" for "."
-    return {name: (None,) * p.ndim if name.startswith(whole) else _spec_for(name.replace(".", "/"), p.ndim, n)
+    return {name: (None,) * p.ndim if name.rsplit(".", 1)[0] in whole else _spec_for(name.replace(".", "/"), p.ndim, n)
             for name, p in model.named_parameters()}
 
 

@@ -32,13 +32,20 @@ step's bit for bit. The gradients differ from it by the order of the
 backward's float32 sums (the all-reduces of ``ModelAxis.copy``).
 
 A layer whose heads, hidden width or classes the axis does not divide
-stays whole on every rank (``parallel.mesh.whole_layers``: Swin-T's
-3-head stage 1 at a model axis of 2), as do the LayerNorms,
-``PatchMerging`` and the embeddings. Swin's relative-position bias
+stays whole on every rank (``parallel.mesh.splits``, the rule serving
+follows too: Swin-T's 3-head stage 1 at a model axis of 2), as do the
+LayerNorms, ``PatchMerging`` and the embeddings. Swin's relative-position bias
 table stays whole and is quantized whole, then each rank cuts its heads,
 so its gradient is summed over the group.
 
-**Sequence parallelism** (``seq_parallel=True``, ViT only, every block
+**The float models** (``*_fp32``) split as JAX's rules split their
+flat names: qkv by heads, fc1 and fc2, the head; their proj, which the
+rules do not name, stays whole and takes the heads' outputs gathered.
+Their row-parallel fc2 sums float32 partial products over the group
+(``ModelAxis.reduce``), so their logits differ from the single-process
+step's by that order of summation.
+
+**Sequence parallelism** (``seq_parallel=True``, QAT ViT only, every block
 split): between the blocks' matmuls each rank holds a ceil-sized block
 of the token axis (197 tokens over 2 ranks: 99 and 98), so the
 LayerNorms, the requantizations and the 16-bit residual ``QuantAct``s run
@@ -52,40 +59,27 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 from torch import nn
 
 from ..nn.quant import LinearSplit
 from .data import slot_lists
-from .mesh import Mesh, ModelAxis, param_shardings, whole_layers
-
-
-def _positions(size: int, n: int, r: int, heads: int | None) -> np.ndarray:
-    """Rank ``r`` of ``n``'s positions along a split dimension ``size``
-    long: a contiguous block, or for ``qkv`` (``heads`` given) the q, k
-    and v columns of the rank's heads."""
-    if heads is None:
-        b = size // n
-        return np.arange(r * b, (r + 1) * b)
-    C = size // 3
-    hd, hl = C // heads, heads // n
-    return (np.arange(3)[:, None, None] * C + (r * hl + np.arange(hl))[None, :, None] * hd
-            + np.arange(hd)[None, None, :]).reshape(-1)
+from .mesh import Mesh, ModelAxis, param_shardings, split_positions, splits, tp_groups
 
 
 def param_slices(model: nn.Module, mesh: Mesh) -> dict:
     """Each split parameter of the whole ``model`` (``param_shardings``)
     by torch name: ``(dim, [positions of rank 0, 1, ...])`` along its
-    split dimension; replicated parameters are absent."""
+    split dimension (``split_positions``: ``qkv`` by heads); replicated
+    parameters are absent."""
     n = mesh.shape["model"]
-    heads = {path: mod.num_heads for path, mod in model.named_modules() if hasattr(mod, "qkv")}
+    heads = {g[3][0]: g[2] for g in tp_groups(model) if g[0] == "attn"}
     out = {}
     for (name, p), spec in zip(model.named_parameters(), param_shardings(model, mesh).values()):
         if "model" in spec:
             d = spec.index("model")
-            h = heads[name.rsplit(".", 2)[0]] if name.rsplit(".", 2)[-2] == "qkv" else None
-            out[name] = (d, [torch.from_numpy(_positions(p.shape[d], n, r, h)) for r in range(n)])
+            h = heads.get(name.rsplit(".", 1)[0])  # None but for qkv
+            out[name] = (d, [torch.from_numpy(split_positions(p.shape[d], n, r, h)) for r in range(n)])
     return out
 
 
@@ -145,58 +139,69 @@ class TensorParallel:
 
 
 def tensor_parallel(state, mesh: Mesh, seq_parallel: bool = False):
-    """Make ``state`` (a whole ``train.TrainState`` of a QAT ViT or Swin)
-    this rank's share of a tensor-parallel state on ``mesh``'s model
-    axis, in place: the split layers' parameters, optimizer moments and
-    EMA cut to the rank's slices, every split layer wired to the axis,
-    ``state.model.tp`` set. Every rank calls it on the same whole state;
-    ``parallel.shard_train_state`` may then add ZeRO-1 on the data axis.
-    ``seq_parallel`` adds sequence parallelism (ViT only: ``ValueError``
-    for a Swin, or where a block's heads or hidden width do not divide).
-    Returns ``state``."""
+    """Make ``state`` (a whole ``train.TrainState`` of a QAT or float ViT
+    or Swin) this rank's share of a tensor-parallel state on ``mesh``'s
+    model axis, in place: the split layers' parameters, optimizer moments
+    and EMA cut to the rank's slices, every split layer wired to the
+    axis, ``state.model.tp`` set. Every rank calls it on the same whole
+    state; ``parallel.shard_train_state`` may then add ZeRO-1 on the data
+    axis. ``seq_parallel`` adds sequence parallelism (the QAT ViT only:
+    ``ValueError`` for another model, or where a block's heads or hidden
+    width do not divide). Returns ``state``."""
     from ..models.swin import SwinTransformer
+    from ..models.swin_float import FloatSwinTransformer
     from ..models.vit import VisionTransformer
+    from ..models.vit_float import FloatVisionTransformer
 
     model = state.model
-    if not isinstance(model, (VisionTransformer, SwinTransformer)):
-        raise TypeError(f"tensor parallelism takes a QAT VisionTransformer or SwinTransformer, not "
+    if not isinstance(model, (VisionTransformer, SwinTransformer, FloatVisionTransformer, FloatSwinTransformer)):
+        raise TypeError(f"tensor parallelism takes a QAT or float VisionTransformer or SwinTransformer, not "
                         f"{type(model).__name__}")
     if model.tp is not None:
         raise ValueError("the model is tensor-parallel already")
     n, m = mesh.shape["model"], mesh.coords["model"]
-    whole = whole_layers(model, n)
+    groups = tp_groups(model)
     if seq_parallel:
-        if isinstance(model, SwinTransformer):
-            raise ValueError("sequence parallelism runs on the ViT family only (JAX's seq_constraint has no Swin "
-                             "form)")
-        if any(p != "head" for p in whole):
+        if not isinstance(model, VisionTransformer):
+            raise ValueError("sequence parallelism runs on the QAT ViT family only (JAX's seq_constraint has no "
+                             "Swin or float form)")
+        whole = [path for kind, path, count, _ in groups if kind != "head" and not splits(count, n)]
+        if whole:
             raise ValueError(f"sequence parallelism needs every block split over the model axis of {n}; whole: "
                              f"{whole}")
     axis = ModelAxis(mesh, model.pos_embed.shape[1] if seq_parallel else None)
     names = [name for name, _ in model.named_parameters()]
     slices = param_slices(model, mesh)
+    flat = hasattr(model, "attn_heads")  # a float model: its layers by flax's flat names
     partial = set()
-    for path, mod in model.named_modules():
-        if path in whole:
+    for kind, path, count, layers in groups:
+        if not splits(count, n):
             continue
-        if hasattr(mod, "qkv") and hasattr(mod, "num_heads"):
-            hl = mod.num_heads // n
-            mod.heads = (m * hl, (m + 1) * hl)
-            mod.qkv.split = LinearSplit(axis, rows=False, seq=seq_parallel)
-            mod.proj.split = LinearSplit(axis, rows=True, seq=seq_parallel)
-            if hasattr(mod, "relative_position_bias_table"):
-                partial.add(f"{path}.relative_position_bias_table")
-        elif hasattr(mod, "hidden_features"):
-            f = mod.hidden_features // n
-            mod.hidden = (m * f, (m + 1) * f)
-            mod.fc1.split = LinearSplit(axis, rows=False, seq=seq_parallel)
-            mod.fc2.split = LinearSplit(axis, rows=True, seq=seq_parallel)
-            if not mod.act.stable:
-                mod.act.row_max = axis.row_max
-        elif path == "head":
-            mod.split = LinearSplit(axis, rows=False)
-        elif seq_parallel and hasattr(mod, "norm1"):  # a block: its LayerNorms see this rank's tokens
-            partial.update(f"{path}.{leaf}" for leaf in ("norm1.scale", "norm1.bias", "norm2.scale", "norm2.bias"))
+        local = count // n
+        if kind == "attn":
+            model.get_submodule(layers[0]).split = LinearSplit(axis, rows=False, seq=seq_parallel)
+            if flat:  # its proj stays whole (tp_groups)
+                table = f"{path}_relative_position_bias_table"
+            else:
+                mod = model.get_submodule(path)
+                mod.heads = (m * local, (m + 1) * local)
+                mod.proj.split = LinearSplit(axis, rows=True, seq=seq_parallel)
+                table = f"{path}.relative_position_bias_table"
+            if table in names:  # quantized (QAT) whole, then cut by heads: every rank forms a part of its gradient
+                partial.add(table)
+        elif kind == "mlp":
+            fc1, fc2 = (model.get_submodule(name) for name in layers)
+            fc1.split = LinearSplit(axis, rows=False, seq=seq_parallel)
+            fc2.split = LinearSplit(axis, rows=True, seq=seq_parallel)
+            if not flat:
+                mod = model.get_submodule(path)
+                mod.hidden = (m * local, (m + 1) * local)
+                if not mod.act.stable:
+                    mod.act.row_max = axis.row_max
+        else:
+            model.head.split = LinearSplit(axis, rows=False)
+    if seq_parallel:  # the blocks' LayerNorms see this rank's tokens
+        partial.update(name for name in names if ".norm1." in name or ".norm2." in name)
     tp = TensorParallel(mesh, axis, slices, frozenset(partial))
     with torch.no_grad():
         for name in slices:
@@ -209,4 +214,3 @@ def tensor_parallel(state, mesh: Mesh, seq_parallel: bool = False):
             state.ema_params = {nm: tp.take(t, nm) for nm, t in state.ema_params.items()}
     model.tp = tp
     return state
-

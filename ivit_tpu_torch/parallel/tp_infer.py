@@ -33,12 +33,14 @@ collectives held in the shard's layers (``deploy.engine.int8_linear``):
 
 A layer whose heads (qkv, attention, proj), hidden width (fc1, fc2) or
 classes (the head) the model axis does not divide runs replicated on
-every rank: DeiT-S's 6 heads at ``model = 4``, Swin-T's 3 stage-1 heads
-at 2. The values are the same; JAX's shard shapes differ there, since
-JAX shards any evenly divisible dimension. Every cross-rank reduction is
-an integer sum, so the logits equal the single-process engine's bit for
-bit, and ``strict_dyadic`` works because its dyadic ratios are per
-channel. A ``data`` axis above 1 composes data parallelism: each data
+every rank (``parallel.mesh.splits``, the rule tensor-parallel training
+follows too): DeiT-S's 6 heads at ``model = 4``, Swin-T's 3 stage-1
+heads at 2. A rank's positions are ``parallel.mesh.split_positions``,
+as the trainer's ``param_slices`` are. The values are the same; JAX's
+shard shapes differ there, since JAX shards any evenly divisible
+dimension. Every cross-rank reduction is an integer sum, so the logits
+equal the single-process engine's bit for bit, and ``strict_dyadic``
+works because its dyadic ratios are per channel. A ``data`` axis above 1 composes data parallelism: each data
 row of the mesh serves its rows of the global batch.
 """
 
@@ -51,7 +53,7 @@ from ..deploy.artifact import validate_artifact
 from ..deploy.engine import build_vit_infer, engine_tensors, vit_forward
 from ..deploy.swin_artifact import swin_artifact_to_torch, validate_swin_artifact
 from ..deploy.swin_engine import build_swin_infer, select_swin_kernels, swin_forward
-from .mesh import Mesh
+from .mesh import Mesh, split_positions, splits
 
 # (path-suffix, spec) — first match wins; JAX's ``_TP_WEIGHT_RULES``
 _TP_WEIGHT_RULES = (
@@ -92,18 +94,22 @@ def tp_weight_shardings(artifact: dict, n_model: int) -> dict:
         out[path] = (spec, tuple(shape))
 
     for path, blk, heads in _blocks(artifact):
-        attn, mlp = heads % n_model == 0, blk["fc1"]["w"].shape[1] % n_model == 0
+        attn, mlp = splits(heads, n_model), splits(blk["fc1"]["w"].shape[1], n_model)
         for name, split in (("qkv", attn), ("proj", attn), ("fc1", mlp), ("fc2", mlp)):
             for leaf in ("w", "b") if name in ("qkv", "fc1") else ("w",):
                 put(f"{path}/{name}/{leaf}", np.asarray(blk[name][leaf]), split)
     head = artifact["head"]
     for leaf in ("w", "b"):
-        put(f"head/{leaf}", np.asarray(head[leaf]), head["w"].shape[1] % n_model == 0)
+        put(f"head/{leaf}", np.asarray(head[leaf]), splits(head["w"].shape[1], n_model))
     return out
 
 
 def _cols(arr, idx):
     return np.ascontiguousarray(np.take(np.asarray(arr), idx, axis=-1))
+
+
+def _rows(arr, idx):
+    return np.ascontiguousarray(np.take(np.asarray(arr), idx, axis=0))
 
 
 def _shard_block(blk: dict, heads: int, n: int, m: int, row_max_gelu: bool) -> tuple[dict, dict]:
@@ -113,25 +119,20 @@ def _shard_block(blk: dict, heads: int, n: int, m: int, row_max_gelu: bool) -> t
     Under the row-max GELU fc1 keeps its full ``out_scale`` (the chain
     runs on gathered rows) and fc2 multiplies its rows' columns."""
     out, info = dict(blk), {"heads": heads, "attn": False, "mlp": False, "cols": None}
-    if heads % n == 0:
+    if splits(heads, n):
         C = blk["qkv"]["w"].shape[0]
-        hd, hl = C // heads, heads // n
-        cols = (np.arange(3)[:, None, None] * C + (m * hl + np.arange(hl))[None, :, None] * hd
-                + np.arange(hd)[None, None, :]).reshape(-1)
-        out["qkv"] = {k: _cols(v, cols) for k, v in blk["qkv"].items()}
-        rows = slice(m * hl * hd, (m + 1) * hl * hd)
-        out["proj"] = dict(blk["proj"], w=np.ascontiguousarray(blk["proj"]["w"][rows]))
+        out["qkv"] = {k: _cols(v, split_positions(3 * C, n, m, heads)) for k, v in blk["qkv"].items()}
+        out["proj"] = dict(blk["proj"], w=_rows(blk["proj"]["w"], split_positions(C, n, m)))
         if "bias_req" in blk:
-            out["bias_req"] = np.ascontiguousarray(blk["bias_req"][m * hl:(m + 1) * hl])
-        info.update(heads=hl, attn=True)
+            out["bias_req"] = _rows(blk["bias_req"], split_positions(heads, n, m))
+        info.update(heads=heads // n, attn=True)
     hidden = blk["fc1"]["w"].shape[1]
-    if hidden % n == 0:
-        f = hidden // n
-        cols = np.arange(m * f, (m + 1) * f)
+    if splits(hidden, n):
+        cols = split_positions(hidden, n, m)
         keep = ("w", "b") if row_max_gelu else ("w", "b", "out_scale")
         out["fc1"] = {k: _cols(v, cols) if k in keep else v for k, v in blk["fc1"].items()}
-        out["fc2"] = dict(blk["fc2"], w=np.ascontiguousarray(blk["fc2"]["w"][m * f:(m + 1) * f]))
-        info.update(mlp=True, cols=(m * f, (m + 1) * f) if row_max_gelu else None)
+        out["fc2"] = dict(blk["fc2"], w=_rows(blk["fc2"]["w"], cols))
+        info.update(mlp=True, cols=(int(cols[0]), int(cols[-1]) + 1) if row_max_gelu else None)
     return out, info
 
 
@@ -160,10 +161,9 @@ def shard_artifact(artifact: dict, n: int, m: int) -> tuple[dict, list, bool]:
             infos.append(info)
         shard["blocks"] = blocks
     head = artifact["head"]
-    split_head = head["w"].shape[1] % n == 0
+    split_head = splits(head["w"].shape[1], n)
     if split_head:
-        c = head["w"].shape[1] // n
-        cols = np.arange(m * c, (m + 1) * c)
+        cols = split_positions(head["w"].shape[1], n, m)
         shard["head"] = dict(head, w=_cols(head["w"], cols), b=_cols(head["b"], cols))
     return shard, infos, split_head
 

@@ -50,10 +50,11 @@ so a run resumes under either.
 ``--mesh-model N`` adds a model axis: tensor parallelism on a ``(data,
 model)`` mesh of ``WORLD_SIZE / N`` by ``N`` ranks
 (``parallel.tensor_parallel``: attention by heads, the Mlp by hidden
-columns, the head by classes), exiting where N does not divide the
-world; ``--seq-parallel`` splits the tokens between the blocks' matmuls
-over that axis (ignored with a warning without a model axis or for a
-Swin, as JAX's CLI does); ``--zero1`` slices the moments and the EMA of
+columns, the head by classes; the QAT and the ``*_fp32`` models),
+exiting where N does not divide the world; ``--seq-parallel`` splits the
+tokens between the blocks' matmuls over that axis (ignored with a
+warning without a model axis, for a Swin or for a float model, as JAX's
+CLI does); ``--zero1`` slices the moments and the EMA of
 each rank's tensor-parallel share over the data axis. Checkpoints hold
 the whole state either way, and ``--resume`` under a model axis slices
 it back.
@@ -299,7 +300,7 @@ def _run(args, joined=None):
                      joined.world_size, joined.backend, device, world, args.mesh_model,
                      ", ZeRO-1" if args.zero1 else "")
     seq_parallel = args.seq_parallel
-    if seq_parallel and (args.mesh_model == 1 or args.model.startswith("swin")):
+    if seq_parallel and (args.mesh_model == 1 or args.model.startswith("swin") or args.model.endswith("_fp32")):
         logging.warning("--seq-parallel ignored (needs --mesh-model > 1 and a ViT-family model)")
         seq_parallel = False
     np.random.seed(args.seed)

@@ -32,6 +32,11 @@ cpu``), against the single-process runs in this process.
   variables written by a single-process state. A model axis that does
   not divide the world exits naming WORLD_SIZE; ``--pipe 2`` exits
   naming GPipe's ROADMAP item.
+* ``quant_train --distributed --mesh-model 2 --seq-parallel`` on the
+  float DeiT-S (``deit_small_fp32``) and on a Swin-T: both train
+  tensor-parallel with ``--seq-parallel`` ignored and JAX's warning
+  logged; the float run's checkpoint within the same bounds of its
+  single-process run's.
 """
 
 import os
@@ -246,6 +251,37 @@ def test_convert_reads_a_tensor_parallel_checkpoint(tp_runs, tmp_path):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=path)
 
     equal(*arts, "artifact")
+
+
+FLOAT = [a if a != "deit_tiny" else "deit_small_fp32" for a in BASE]
+SEQ_IGNORED = "--seq-parallel ignored (needs --mesh-model > 1 and a ViT-family model)"
+
+
+@pytest.fixture(scope="module")
+def float_runs(tmp_path_factory):
+    """The float DeiT-S: the single-process run, and the tensor-parallel
+    run on two ranks with ``--seq-parallel`` (ignored)."""
+    single, tp = (tmp_path_factory.mktemp(k) for k in ("fp32_single", "fp32_tp"))
+    _single_run(FLOAT + ["--output-dir", str(single)])
+    _torchrun("ivit_tpu_torch.quant_train", FLOAT + ["--distributed", "--mesh-model", "2", "--seq-parallel",
+                                                     "--output-dir", str(tp)])
+    return single, tp
+
+
+def test_float_model_tensor_parallel_checkpoint_equals_single_process(float_runs):
+    single, tp = float_runs
+    log = (tp / "log.log").read_text()
+    assert SEQ_IGNORED in log and "tensor parallelism: deit_small_fp32 over the 2-way model axis\n" in log
+    _assert_checkpoints_agree(tp / "checkpoint.pkl", single / "checkpoint.pkl", TP_PARAM_ATOL)
+
+
+def test_seq_parallel_is_ignored_for_a_swin(tmp_path):
+    swin = [a if a != "deit_tiny" else "swin_tiny" for a in BASE] + ["--window-size", "2"]
+    _torchrun("ivit_tpu_torch.quant_train", swin + ["--distributed", "--mesh-model", "2", "--seq-parallel",
+                                                    "--output-dir", str(tmp_path)])
+    log = (tmp_path / "log.log").read_text()
+    assert SEQ_IGNORED in log and "tensor parallelism: swin_tiny over the 2-way model axis\n" in log
+    assert (tmp_path / "checkpoint.pkl").exists()
 
 
 def test_model_axis_not_dividing_the_world_exits(tmp_path):

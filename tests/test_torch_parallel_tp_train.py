@@ -12,6 +12,8 @@ mixup/cutmix, dropout, attention dropout and drop path 0.1) of:
   parallel (17 tokens over 2 ranks: 9 and 8), then each with ``remat``;
 * the dryrun's Swin (heads (2, 4)) and one with heads (3, 6), whose
   3-head stage-1 attention the axis of 2 leaves whole;
+* the float models (``deit_tiny_fp32`` at the DeiT's size,
+  ``swin_tiny_fp32`` with heads (3, 6)), tensor-parallel;
 * the DeiT from JAX's init variables, one step with drop path 0 and no
   mixup, tensor- and sequence-parallel, against JAX's jitted
   ``make_train_step`` on ``make_mesh(data=1, model=2)`` (with and without
@@ -34,6 +36,9 @@ Sequence parallelism sums the LayerNorms' gradients over the ranks'
 tokens in parts, so it equals the tensor-parallel step bit for bit in
 the forward and within GRAD_RTOL in the gradient. ZeRO-1 and ``remat``
 change no arithmetic: tolerance 0 against the step without them.
+A float model's row-parallel fc2 sums float32 partial products over the
+group, so its logits are held, as the gradients are, within
+GRAD_RTOL of the largest entry.
 """
 
 import jax
@@ -52,7 +57,7 @@ from ivit_tpu.parallel import zero1_shardings as jax_zero1_shardings
 from ivit_tpu.train import create_train_state as jax_create_train_state
 from ivit_tpu.train import make_train_step as jax_make_train_step
 from ivit_tpu_torch.models import create_model
-from ivit_tpu_torch.parallel import Mesh, param_slices, shard_artifact, zero1_shardings
+from ivit_tpu_torch.parallel import Mesh, param_shardings, param_slices, shard_artifact, zero1_shardings
 from ivit_tpu_torch.train import MixupConfig, mixup_cutmix
 from ivit_tpu_torch.train.augment import one_hot_smooth
 
@@ -95,6 +100,8 @@ VIT_CASES = {f"sm{bits}-{'stable' if stable else 'rowmax'}": _spec("deit_tiny", 
 SWIN_CASES = {"swin-dryrun": _spec("swin_tiny", SWIN),
               "swin-heads36": _spec("swin_tiny", dict(SWIN, embed_dim=24, num_heads=(3, 6)))}
 CASES = {**VIT_CASES, **SWIN_CASES}
+FLOAT_CASES = {"fp32-vit": _spec("deit_tiny_fp32", VIT),
+               "fp32-swin-heads36": _spec("swin_tiny_fp32", dict(SWIN, embed_dim=24, num_heads=(3, 6)))}
 
 
 def _jax_state(seq_mesh=None):
@@ -113,7 +120,7 @@ def runs(tmp_path_factory):
     _, jstate = _jax_state()
     variables = jax.tree.map(np.asarray, {"params": jstate.params, "quant_stats": jstate.quant_stats})
     jax_specs = {"jax-tp": _jax_spec(variables), "jax-sp": _jax_spec(variables, seq=True)}
-    two = {name: spec for name, spec in CASES.items()}
+    two = {name: spec for name, spec in {**CASES, **FLOAT_CASES}.items()}
     two.update({f"{name}-sp": dict(spec, seq=True) for name, spec in VIT_CASES.items()})
     two.update({"remat-tp": dict(VIT_CASES["sm16-rowmax"], remat=True),
                 "remat-sp": dict(VIT_CASES["sm16-rowmax"], remat=True, seq=True)})
@@ -122,7 +129,7 @@ def runs(tmp_path_factory):
             "2x2-sp-zero1-remat": dict(VIT_CASES["sm16-rowmax"], zero1=True, seq=True, remat=True)}
     r2 = run_ranks(2, tmp_path_factory.mktemp("tp2"), train_tp, [(s, (1, 2)) for s in two.values()])
     r4 = run_ranks(4, tmp_path_factory.mktemp("tp4"), train_tp, [(s, (2, 2)) for s in four.values()])
-    single = {name: tp_variant(spec, None) for name, spec in CASES.items()}
+    single = {name: tp_variant(spec, None) for name, spec in {**CASES, **FLOAT_CASES}.items()}
     return {"two": {name: [r[i] for r in r2] for i, name in enumerate(two)},
             "four": {name: [r[i] for r in r4] for i, name in enumerate(four)},
             "single": single, "jax_specs": jax_specs}
@@ -191,6 +198,57 @@ def test_tp_gradients_and_parameters_within_bounds(runs, case):
     _assert_within_bounds(ranks[0], runs["single"][case])
     for name, p in ranks[0]["params"].items():
         assert torch.equal(ranks[1]["params"][name], p), name
+
+
+@pytest.mark.parametrize("case", list(FLOAT_CASES))
+def test_float_tp_step_within_bounds(runs, case):
+    """A float model on a model axis of 2 (qkv by heads, its proj whole,
+    fc1, fc2 and the head split; Swin's 3-head stage 1 whole): both
+    steps' logits and the eval step's within GRAD_RTOL of their largest
+    entry, the gradient, loss and parameters within the bounds, the
+    ranks' gathered parameters equal."""
+    ref, ranks = runs["single"][case], runs["two"][case]
+    for i in range(2):
+        want = ref["steps"][i]["logits"]
+        torch.testing.assert_close(_logits(ranks, i), want, rtol=0, atol=GRAD_RTOL * float(want.abs().max()))
+    for r in ranks:
+        want = ref["eval_logits"]
+        torch.testing.assert_close(r["eval_logits"], want, rtol=0, atol=GRAD_RTOL * float(want.abs().max()))
+    _assert_within_bounds(ranks[0], ref)
+    for name, p in ranks[0]["params"].items():
+        assert torch.equal(ranks[1]["params"][name], p), name
+
+
+@pytest.mark.parametrize("name", ["deit_tiny_fp32", "swin_tiny_fp32"])
+def test_float_param_shardings_follow_jax(name):
+    """A float model's specs equal JAX's ``param_shardings`` on the same
+    flat tree at ``make_mesh(data=1, model=2)`` wherever the axis divides
+    the heads (its proj, which JAX's rules do not name, whole); a qkv
+    whose 3 heads it does not divide stays whole, where JAX cuts its
+    columns."""
+    kw = VIT if name.startswith("deit") else dict(SWIN, embed_dim=24, num_heads=(3, 6))
+    model = create_model(name, device="cpu", **kw)
+    tree = {}  # flax's tree of the float model: flat module names, then the leaf
+    for n, p in model.named_parameters():
+        mod, _, leaf = n.rpartition(".")
+        if mod:
+            tree.setdefault(mod, {})[leaf] = np.zeros(p.shape, np.float32)
+        else:
+            tree[n] = np.zeros(p.shape, np.float32)
+    theirs = jax_param_shardings(tree, jax_make_mesh(1, 2, devices=jax.devices()[:2]))
+    ours = param_shardings(model, Mesh(1, 2, 0, "cpu", {}))
+    whole = 0
+    for n, p in model.named_parameters():
+        mod, _, leaf = n.rpartition(".")
+        spec = (theirs[mod][leaf] if mod else theirs[n]).spec
+        spec = tuple(spec) + (None,) * (p.ndim - len(spec))
+        if "qkv" in n and n.startswith("layers_0_"):  # 3 heads at 2
+            assert ours[n] == (None,) * p.ndim and "model" in spec, n
+            whole += 1
+        else:
+            assert ours[n] == spec, n
+    assert any("model" in spec for spec in ours.values())
+    assert whole == (4 if name.startswith("swin") else 0)
 
 
 @pytest.mark.parametrize("case", list(VIT_CASES))

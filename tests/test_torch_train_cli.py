@@ -327,6 +327,17 @@ def test_float_model_trains(tmp_path):
     assert "blocks_0_attn_qkv" in state["params"] and len(_epoch0_losses(tmp_path)) == 2
 
 
+def test_seq_parallel_without_a_model_axis_is_ignored(tmp_path, monkeypatch):
+    """``--seq-parallel`` alone, in a world of one: ignored with JAX's
+    warning, the run trains as without it."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    quant_train.main(_one_epoch(1) + ["--seq-parallel", "--output-dir", str(tmp_path)])
+    log = (tmp_path / "log.log").read_text()
+    assert "--seq-parallel ignored (needs --mesh-model > 1 and a ViT-family model)" in log
+    assert "tensor parallelism" not in log and (tmp_path / "checkpoint.pkl").exists()
+
+
 def test_fast_matmul_trains(tmp_path):
     """Two steps with ``--fast-matmul``: the first loss equals the float32
     run's (the forward is integer-exact either way); the switch is off

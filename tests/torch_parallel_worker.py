@@ -200,23 +200,17 @@ def as_numpy(tree):
 
 
 def _weight_scales(model) -> dict:
-    """Every ``QuantLinear``'s per-output-channel weight scale as its
-    forward forms it (a row-parallel kernel's range spans the model
-    group), a column-parallel layer's gathered whole."""
-    from ivit_tpu_torch.core.quantizers import per_channel_minmax, symmetric_scale
+    """Every ``QuantLinear``'s per-output-channel weight scale as its last
+    forward quantized with (``QuantLinear.w_scale``), a column-parallel
+    layer's gathered whole."""
     from ivit_tpu_torch.nn.quant import QuantLinear
 
     tp, out = getattr(model, "tp", None), {}
     for path, mod in model.named_modules():
         if not isinstance(mod, QuantLinear):
             continue
-        mn, mx = per_channel_minmax(mod.kernel.detach().T)
-        split = mod.split
-        if split is not None and split.rows:
-            mn, mx = split.axis.max(torch.stack([-mn, mx])).unbind(0)
-            mn = -mn
-        s = symmetric_scale(mn, mx, mod.weight_bits)
-        if split is not None and not split.rows:
+        s = mod.w_scale
+        if mod.split is not None and not mod.split.rows:
             _, pos = tp.slices[f"{path}.kernel"]
             parts = tp.mesh.all_gather(s, "model", 0)
             s = torch.empty_like(parts).index_copy_(0, torch.cat(pos).to(parts.device), parts)
@@ -240,7 +234,8 @@ def tp_variant(spec: dict, mesh_shape) -> dict:
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
     mesh = None if mesh_shape is None else make_mesh(*mesh_shape, device=dev)
-    model = create_model(spec["model"], device=dev, seed=0, remat=spec.get("remat", False), **spec["model_kw"])
+    remat = {"remat": True} if spec.get("remat") else {}  # a float model takes no remat
+    model = create_model(spec["model"], device=dev, seed=0, **remat, **spec["model_kw"])
     if spec.get("variables") is not None:
         load_flax_variables(model, spec["variables"])
     state = create_train_state(model, AdamW(spec["lr"], weight_decay=spec["wd"]), ema_decay=spec["ema"],
@@ -251,7 +246,7 @@ def tp_variant(spec: dict, mesh_shape) -> dict:
         state = shard_train_state(state, mesh)
     tp = getattr(model, "tp", None)
     names = [n for n, _ in model.named_parameters()]
-    out = {"scales": _weight_scales(model)}
+    out = {}
     rows = (lambda a: a) if mesh is None else (lambda a: mesh.block(a, "data"))
     # the first batch's gradient, the ranges put back after the forward
     images, targets, gen_seed = spec["batches"][0]
@@ -259,6 +254,7 @@ def tp_variant(spec: dict, mesh_shape) -> dict:
     with data_shard(None if mesh is None else batch_shard(mesh)):
         logits = model(rows(torch.from_numpy(images).to(dev)), train=True,
                        generator=torch.Generator(device=dev).manual_seed(gen_seed))
+    out["scales"] = _weight_scales(model)  # as step 1's forward quantizes: the same weights
     loss = soft_target_cross_entropy(logits, rows(torch.from_numpy(targets).to(dev)))
     grads = list(torch.autograd.grad(loss, list(model.parameters()), materialize_grads=True))
     # the eval step on the ranges that forward set, before any update
