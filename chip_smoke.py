@@ -17,7 +17,8 @@ with per-block recompute and serves every path from a serialized engine
 reloaded in a fresh process (phase 11), serves and trains over
 ``torch.distributed`` meshes on the one card (phase 12), and trains
 DeiT-S and Swin-T tensor-parallel, sequence-parallel and with ZeRO-1 on a
-model axis, then serves the frozen results tensor-parallel (phase 13):
+model axis, then serves the frozen results tensor-parallel (phase 13),
+and trains DeiT-S pipelined over two stages, then serves it (phase 14):
 
 * the main path: softmax_bits=8, stable ShiftGELU, K1 attention + K3
   LayerNorm (the default kernels);
@@ -265,7 +266,21 @@ Phases:
    rank's logits equal to the single-process engine's, 12 K1 + 25 K3
    and 12 K7 + 28 K3 a forward, and K3, K1 and K7 (each stage) against
    their plain versions on each rank's inputs (timed on rank 0: the
-   ``tp2_trained`` entries of the kernels line).
+   ``tp2_trained`` entries of the kernels line);
+14. the GPipe pipeline on the one card (``parallel.pipeline``), two
+   ranks sharing cuda:0 over gloo, a stage each: DeiT-S (sm8, stable
+   GELU) at full width and depth, calibrated by one batch, on a ``(data,
+   pipe) = (1, 2)`` mesh, 6 blocks a stage, a global batch of PP_BATCH
+   in PP_MICRO microbatches: the pipelined frozen logits bit-equal to the
+   single-process forward on the card; step 1 against the single-stage
+   step (pipe = 1): the loss within MESH_LOSS_ULPS, the gradient within
+   TPQ_GRAD_RTOL of each leaf's largest entry, the parameters within
+   phase 12's bounds; each rank's ms a step and optimizer-state bytes,
+   which must be PP_OPT_BYTES. The pipe-trained model is gathered whole,
+   frozen and served by ``build_vit_infer`` at PP_SERVE_BATCH: 12 K1 +
+   25 K3 a forward, its logits equal to ``kernels=()``'s, K1 and K3
+   against their plain versions on this model's inputs (the
+   ``pipe_trained`` entries of the kernels line).
 
 Any failed check raises and exits nonzero before the result lines. The
 second-to-last line is the kernels' JSON record, the last line
@@ -1937,7 +1952,8 @@ def rank_kernel(kernels: dict, rank: int, name: str, shape: str, fn, ref, args: 
     """One kernel of a rank against its plain version on the rank's own
     inputs (``kernels[name]``: the largest difference, and on rank 0,
     while the other ranks wait, its time beside the plain version's and
-    its bound). Every rank of the default group calls it in turn."""
+    its bound). Every rank of the default group calls it in turn; with
+    ``rank`` None one process calls it alone."""
     import torch
     import torch.distributed as dist
 
@@ -1945,19 +1961,21 @@ def rank_kernel(kernels: dict, rank: int, name: str, shape: str, fn, ref, args: 
     pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]  # K6: (hi, lo)
     err = max(max_abs_err(a, b) for a, b in pairs)
     torch.cuda.synchronize()
-    dist.barrier()
+    if rank is not None:
+        dist.barrier()
     k_ms = p_ms = q_ms = None
-    if rank == 0:
+    if not rank:  # rank 0, or a caller alone (rank None)
         k_ms, p_ms, q_ms = paired_ms(lambda: fn(*args), lambda: ref(*args), 10)
-    dist.barrier()
+    if rank is not None:
+        dist.barrier()
     kernels[name] = {"shape": shape, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "queued_ms": q_ms,
                      "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def tp_vit_kernels(kernels: dict, rank: int, infer, images, suffix: str = "") -> None:
     """K3 on block 0's full rows and K1 (sm8) on this rank's heads of a
-    tensor-parallel ViT engine (``shard_infer_tp``), each by
-    ``rank_kernel``."""
+    tensor-parallel ViT engine (``shard_infer_tp``), or on every head of a
+    single-process one, each by ``rank_kernel``."""
     from ivit_tpu_torch.deploy.engine import attention_inputs, embed
     from ivit_tpu_torch.kernels import (
         fused_int8_attention,
@@ -1975,9 +1993,10 @@ def tp_vit_kernels(kernels: dict, rank: int, infer, images, suffix: str = "") ->
     rank_kernel(kernels, rank, "K3" + suffix, f"({M}, {D}) full rows", fused_layernorm_requant,
                 fused_layernorm_requant_reference, (rows, blk["norm1"]["bias_int"], blk["norm1"]["ratio"]),
                 bound_ms(M * D * 3 + 8 * D, elementwise=per_element(M * D, LAYERNORM_OPS)))
-    q, k, v = attention_inputs(x, blk, blk["heads"])
+    heads = blk.get("heads", cfg["num_heads"])
+    q, k, v = attention_inputs(x, blk, heads)
     a, (G, _, hd) = blk["attn"], q.shape
-    rank_kernel(kernels, rank, "K1" + suffix, f"({G}, {N}, {hd}) sm8, {blk['heads']} of {cfg['num_heads']} heads",
+    rank_kernel(kernels, rank, "K1" + suffix, f"({G}, {N}, {hd}) sm8, {heads} of {cfg['num_heads']} heads",
                 fused_int8_attention, fused_int8_attention_reference, (q, k, v, a["r1"], a["scale"], a["r_out"], 8),
                 bound_ms(4 * G * N * hd, int8_ops=2 * G * N * N * hd * 2,
                          elementwise=per_element(G * N * N, ATTN_TABLE_OPS)))
@@ -2549,6 +2568,258 @@ def tpq_phase(smi: str) -> dict:
                         kernels[kname] = dict(kr, model=name, launches=sum(v for k, v in sv["launches"].items()
                                                                            if kname.startswith(k)))
     print(f"tensor-parallel QAT phase: {time.perf_counter() - t0:.3f} s")
+    return kernels
+
+
+# 14. the GPipe pipeline on the one card: two ranks over gloo, a stage each
+PP_LABEL = "2 ranks on one H100, gloo (activations through the host); not a scaling figure"
+PP_MODEL = ("deit_small", {"softmax_bits": 8, "gelu_stable": True})  # the main path's model, full depth
+PP_SIZE = 224
+PP_BATCH = 8  # global; PP_MICRO microbatches of 2 rows
+PP_MICRO = 4
+PP_STEPS = 2
+PP_SERVE_BATCH = 32
+# AdamW's two moments and the EMA, float32, of a stage's parameters: the
+# prologue and epilogue (patch embed, cls, pos embed, norm, head) and 6 of
+# the 12 blocks
+PP_STAGE_PARAMS = 757_096 + 6 * 1_774_464
+PP_OPT_BYTES = 3 * 4 * PP_STAGE_PARAMS
+
+
+def pp_train(model, dev, mesh, batches: list) -> dict:
+    """One pipelined QAT run of phase 14 on ``mesh`` (a ``Mesh`` of one
+    rank without a process group: the single-stage step): the frozen
+    logits of the first batch (the global batch's), its whole gradient,
+    then PP_STEPS steps' losses and ms (host clock), the whole parameters
+    after step 1, this rank's optimizer-state bytes and the whole EMA
+    variables after the last step, all on the host."""
+    import torch
+
+    from ivit_tpu_torch.models.model_utils import eval_variables
+    from ivit_tpu_torch.parallel import (
+        data_mean,
+        from_pp_state,
+        from_pp_variables,
+        make_pp_train_step,
+        pipeline_vit_forward,
+        pp_gather,
+        pp_rows,
+        to_pp_state,
+    )
+    from ivit_tpu_torch.parallel.pipeline import pp_reduce_grads
+    from ivit_tpu_torch.train import AdamW, create_train_state, soft_target_cross_entropy
+
+    state = to_pp_state(create_train_state(model, AdamW(MESH_LR, weight_decay=MESH_WD), ema_decay=MESH_EMA,
+                                           device=dev), mesh)
+    x, t = batches[0]
+    with torch.no_grad():
+        logits = pp_gather(pipeline_vit_forward(model, x, mesh, PP_MICRO), mesh, PP_MICRO)
+    names, params = zip(*model.named_parameters())
+    loss = soft_target_cross_entropy(pipeline_vit_forward(model, x, mesh, PP_MICRO), pp_rows(t, mesh, PP_MICRO))
+    grads = list(torch.autograd.grad(loss, params, materialize_grads=True))
+    model.pp.wait()
+    grads = data_mean(pp_reduce_grads(grads, list(names), mesh), mesh)
+    grads = from_pp_variables({"params": dict(zip(names, grads))}, model.pp.depth, mesh)["params"]
+    rec = {"logits": logits.cpu(), "grads": {n: g.cpu() for n, g in grads.items()}, "loss": [], "ms": []}
+    del grads, loss
+    step = make_pp_train_step(model, mesh, PP_MICRO, grad_clip=MESH_CLIP, ema_decay=MESH_EMA)
+    for i, (x, t) in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, met = step(state, x, t)
+        rec["loss"].append(float(met["loss"]))
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            rec["params1"] = {n: p.cpu().clone() for n, p in from_pp_state(state).model.named_parameters()}
+    local = list(state.opt_state.mu) + list(state.opt_state.nu) + list(state.ema_params.values())
+    rec["opt_bytes"] = sum(t.numel() * t.element_size() for t in local)
+    variables = eval_variables(from_pp_state(state))
+    rec["variables"] = {col: {n: v.cpu().clone() for n, v in tree.items()} for col, tree in variables.items()}
+    return rec
+
+
+def pp_compare(got: dict, ref: dict) -> dict:
+    """A pipelined phase-14 run against the single-stage one: the frozen
+    logits, the first gradient's largest difference as a share of its
+    leaf's largest entry, the step-1 loss in ulps, and the parameters
+    after step 1 (largest difference, entries outside phase 12's
+    bounds)."""
+    import numpy as np
+    import torch
+
+    outside = 0
+    for n, p in ref["params1"].items():
+        g = ref["grads"][n].abs()
+        atol = torch.where(g >= MESH_SMALL_GRAD * g.max(), MESH_PARAM_ATOL, MESH_ADAM_ATOL)
+        outside += int(((got["params1"][n] - p).abs() > atol + 2.0**-22 * p.abs()).sum())
+    return {
+        "logits_max_abs_err": float((got["logits"] - ref["logits"]).abs().max()),
+        "grad_rel_err": max(float((got["grads"][n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                            for n, g in ref["grads"].items()),
+        "loss_ulps": float(abs(np.float32(got["loss"][0]) - np.float32(ref["loss"][0]))
+                           / np.spacing(np.abs(np.float32(ref["loss"][0])))),
+        "param1_max_abs_err": max(float((got["params1"][n] - p).abs().max()) for n, p in ref["params1"].items()),
+        "params1_outside": outside,
+    }
+
+
+def pp_serve(rec: dict, images, dev) -> dict:
+    """The pipe-trained model gathered whole (its EMA weights), frozen by
+    ``freeze_vit`` and served by ``build_vit_infer`` with its default
+    kernels (K1 + K3) at PP_SERVE_BATCH: the logits against the plain
+    engine's, the launches of one forward (every count set to 0 just
+    before it and read just after), and K1 and K3 on this model's inputs
+    against their plain versions."""
+    import torch
+
+    from ivit_tpu_torch.deploy import build_vit_infer, freeze_vit
+    from ivit_tpu_torch.kernels import WRAPPERS
+    from ivit_tpu_torch.models import create_model
+
+    name, kw = PP_MODEL
+    variables = {col: {n: v.to(dev) for n, v in tree.items()} for col, tree in rec["variables"].items()}
+    art = freeze_vit(create_model(name, dev, seed=SEED, **kw), variables, dev)
+    infer = build_vit_infer(art, dev)
+    kernels: dict = {}
+    with torch.inference_mode():
+        infer(images[:1])  # loads the kernels in this process
+        torch.cuda.synchronize()
+        for w in WRAPPERS.values():
+            w.launches = 0
+        logits = infer(images)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in WRAPPERS.items() if w.launches}
+        plain = build_vit_infer(art, dev, kernels=())(images)
+        tp_vit_kernels(kernels, None, infer, images)
+    return {"equal": torch.equal(logits, plain), "max_abs_err": float((logits - plain).abs().max()),
+            "launches": launches, "kernels": sorted(infer.kernels), "kernel_checks": kernels}
+
+
+def pp_rank(rank: int, world: int, init_file: str, work: str) -> None:
+    """Phase 14, one of two ranks on the card over gloo: rank 0 runs the
+    single-process frozen forward and the single-stage step (the other
+    rank waits), then both run the pipeline on a ``(1, 2)`` mesh, a stage
+    of 6 blocks each; rank 0 compares them and serves the pipe-trained
+    model. Writes ``work/rank<r>.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from ivit_tpu_torch.models import create_model
+    from ivit_tpu_torch.parallel import Mesh, init_distributed, make_pp_mesh
+
+    with open(os.path.join(work, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    joined = init_distributed(backend="gloo", device=inp["device"], init_method=f"file://{init_file}", rank=rank,
+                              world_size=world)
+    dev = joined.device
+    name, kw = PP_MODEL
+    batches = [(torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)) for x, t in inp["batches"]]
+
+    def calibrated():  # one train-mode forward sets every range; the pipeline keeps them frozen
+        model = create_model(name, dev, seed=SEED, **kw)
+        with torch.no_grad():
+            model(torch.from_numpy(inp["calib"]).to(dev), train=True)
+        return model
+
+    res = {"device": str(dev), "backend": joined.backend}
+    if rank == 0:
+        model = calibrated()
+        with torch.no_grad():
+            seq = model(batches[0][0], train=False).cpu()
+        single = pp_train(model, dev, Mesh(1, 1, 0, dev, {}, axis="pipe"), batches)
+        del model
+        torch.cuda.empty_cache()
+    dist.barrier()
+    rec = pp_train(calibrated(), dev, make_pp_mesh(1, 2, device=dev), batches)
+    res["run"] = {k: rec[k] for k in ("ms", "opt_bytes", "loss")}
+    if rank == 0:
+        res["forward_max_abs_err"] = float((rec["logits"] - seq).abs().max())
+        res["vs_single"] = pp_compare(rec, single)
+        res["single"] = {k: single[k] for k in ("ms", "opt_bytes", "loss")}
+        del single
+        torch.cuda.empty_cache()
+        res["serve"] = pp_serve(rec, torch.from_numpy(inp["serve_images"]).to(dev), dev)
+    dist.barrier()
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+    dist.destroy_process_group()
+
+
+def pp_phase(smi: str, device: str = "cuda") -> dict:
+    """Phase 14 (``pp_rank`` on two ranks on ``device``): prints and
+    checks each rank's results; returns rank 0's kernel entries of the
+    served model."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from ivit_tpu_torch.train import MixupConfig, mixup_cutmix
+
+    t0 = time.perf_counter()
+    batches = []
+    for i in range(PP_STEPS):
+        rng = np.random.default_rng((SEED, 14, i))
+        x = torch.from_numpy(rng.standard_normal((PP_BATCH, PP_SIZE, PP_SIZE, 3), dtype=np.float32))
+        labels = torch.from_numpy(rng.integers(0, 1000, PP_BATCH))
+        x, t = mixup_cutmix(x, labels, MixupConfig(), np.random.default_rng((SEED, 14, i, 1)), device="cpu")
+        batches.append((x.numpy(), t.numpy()))
+    rng = np.random.default_rng((SEED, 14))
+    calib = rng.standard_normal((PP_BATCH, PP_SIZE, PP_SIZE, 3), dtype=np.float32)
+    serve_images = rng.standard_normal((PP_SERVE_BATCH, PP_SIZE, PP_SIZE, 3), dtype=np.float32)
+    world = 2
+    with tempfile.TemporaryDirectory() as work:
+        with open(os.path.join(work, "inputs.pkl"), "wb") as f:
+            pickle.dump({"device": device, "batches": batches, "calib": calib, "serve_images": serve_images}, f)
+        mp.start_processes(pp_rank, args=(world, os.path.join(work, "rendezvous"), work), nprocs=world, join=True,
+                           start_method="spawn")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    label = f"{PP_LABEL}; mesh (data, pipe) = (1, 2), {PP_MICRO} microbatches of a global batch of {PP_BATCH}"
+    print(f"phase 14 GPipe pipeline: {label}; {smi}")
+    for r, res in enumerate(ranks):
+        check(res["backend"] == "gloo" and res["device"] == "cuda:0", f"rank {r}: {res['device']}")
+        run = res["run"]
+        print(f"rank {r} pipelined: ms a step {run['ms']}, optimizer-state bytes {run['opt_bytes']} (predicted "
+              f"{PP_OPT_BYTES}), loss {run['loss']} ({label})")
+        check(run["opt_bytes"] == PP_OPT_BYTES, f"rank {r}: optimizer-state bytes {run['opt_bytes']}, expected "
+                                                f"{PP_OPT_BYTES}")
+    res = ranks[0]
+    single, c = res["single"], res["vs_single"]
+    print(f"single-stage step (pipe = 1, one process): ms a step {single['ms']}, optimizer-state bytes "
+          f"{single['opt_bytes']}, loss {single['loss']}")
+    print(f"pipelined vs the single-process frozen forward: logits max_abs_err {res['forward_max_abs_err']} "
+          f"(tolerance 0); vs the single-stage step: logits max_abs_err {c['logits_max_abs_err']}, first gradient "
+          f"max err {c['grad_rel_err']} of its leaf's largest (bound {TPQ_GRAD_RTOL}), step-1 loss "
+          f"{c['loss_ulps']} ulps (bound {MESH_LOSS_ULPS}), parameters after step 1 max_abs_err "
+          f"{c['param1_max_abs_err']}, {c['params1_outside']} entries outside the bounds ({MESH_PARAM_ATOL} where "
+          f"the first gradient is not small, {MESH_ADAM_ATOL} where it is)")
+    check(res["forward_max_abs_err"] == 0 and c["logits_max_abs_err"] == 0,
+          "the pipelined forward differs from the single-process one")
+    check(c["grad_rel_err"] <= TPQ_GRAD_RTOL, f"pipelined gradient off by {c['grad_rel_err']}")
+    check(c["loss_ulps"] <= MESH_LOSS_ULPS, f"pipelined loss off by {c['loss_ulps']} ulps")
+    check(c["params1_outside"] == 0, f"{c['params1_outside']} parameters outside the bounds after step 1")
+    sv = res["serve"]
+    expect = {"K1": 12, "K3": 25}
+    print(f"pipe-trained DeiT-S gathered whole, frozen, served by build_vit_infer {sv['kernels']} at batch "
+          f"{PP_SERVE_BATCH}: logits vs kernels=() max_abs_err {sv['max_abs_err']} (tolerance 0); launches "
+          f"{sv['launches']}")
+    check(sv["equal"], "pipe-trained: the kernel engine differs from the plain engine")
+    check(sv["launches"] == expect, f"pipe-trained: launches {sv['launches']}, expected {expect}")
+    kernels = {}
+    for kname, kr in sv["kernel_checks"].items():
+        print(f"pipe-trained {kname} on this model's inputs {kr['shape']}: max_abs_err {kr['max_abs_err']} "
+              f"(tolerance 0); kernel {kr['ms']} ms (queued {kr['queued_ms']} ms), plain {kr['plain_ms']} ms, bound "
+              f"{kr['bound_ms']} ms ({kr['bound_by']})")
+        check(kr["max_abs_err"] == 0, f"pipe-trained {kname}: differs from its plain version")
+        kernels[kname] = dict(kr, launches=sv["launches"].get(kname))
+    print(f"pipeline phase: {time.perf_counter() - t0:.3f} s")
     return kernels
 
 
@@ -3450,6 +3721,11 @@ def main() -> int:
     tpq_kernels = tpq_phase(smi)
     print(f"chip_smoke so far {time.perf_counter() - t_main:.3f} s")
 
+    # 14. the GPipe pipeline on the one card
+    torch.cuda.empty_cache()
+    pp_kernels = pp_phase(smi)
+    print(f"chip_smoke so far {time.perf_counter() - t_main:.3f} s")
+
     big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",
            "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",
            "K5": f"({BATCH * N}, {hidden})", "K6": f"({BATCH * H * N}, {N})",
@@ -3483,6 +3759,9 @@ def main() -> int:
             # phase 13: the kernel on rank 0's inputs of the frozen TP-trained
             # model served at TP=2, its launches a forward there
             "tp2_trained": [dict(kr, stage=k) for k, kr in tpq_kernels.items() if k.split()[0] == name] or None,
+            # phase 14: the kernel on the pipe-trained model's inputs, served
+            # whole on one process, its launches a forward there
+            "pipe_trained": pp_kernels.get(name),
         })
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

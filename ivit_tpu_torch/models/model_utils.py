@@ -21,10 +21,16 @@ def model_variables(model: torch.nn.Module) -> dict:
 
 def eval_variables(state, use_ema: bool = True) -> dict:
     """Variables for frozen-range evaluation: the EMA weights when the
-    state carries them, else the live parameters, with the live ranges."""
+    state carries them, else the live parameters, with the live ranges.
+    A ZeRO-1 state's EMA slices are gathered over the data axis (every
+    rank calls it), in the model's own shapes (a tensor-parallel rank's
+    slices)."""
     variables = model_variables(state.model)
     if use_ema and state.ema_params is not None:
-        variables["params"] = dict(state.ema_params)
+        ema = state.ema_params
+        if state.zero1 is not None:
+            ema = {n: state.zero1.join(ema[n], i) for i, n in enumerate(variables["params"])}
+        variables["params"] = dict(ema)
     return variables
 
 

@@ -9,7 +9,9 @@ the five factories at the end give it for each registered width;
 input ``QuantAct`` → patch embed → cls concat at the patch scale →
 pos-embed quantized on its own and merged in a 16-bit ``QuantAct`` →
 pre-norm blocks → I-LayerNorm → CLS token → ``QuantAct`` → quantized
-head, whose output is the only dequantization.
+head, whose output is the only dequantization. ``prologue``, ``trunk``
+and ``epilogue`` are those three parts; ``forward`` chains them, and
+``parallel.pipeline`` runs the same three on its stages.
 
 ``remat=True`` recomputes each block's activations in the backward
 instead of keeping them (``nn.remat``: the re-run holds the
@@ -111,9 +113,12 @@ class VisionTransformer(nn.Module):
         self.qact2 = QuantAct(8)
         self.head = QuantLinear(embed_dim, num_classes)
         self.tp = None  # the parallel.tensor.TensorParallel of a tensor-parallel model
+        self.pp = None  # the parallel.pipeline.Pipeline of a pipeline stage
 
-    def forward(self, images: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def prologue(self, images: torch.Tensor, train: bool = False) -> QTensor:
+        """The trunk's input: input ``QuantAct`` → patch embed → cls concat
+        → pos-embed merge (JAX's ``vit_prologue``; ``parallel.pipeline``
+        runs it on the first stage)."""
         B = images.shape[0]
         D = self.config["embed_dim"]
         x = self.qact_input(images, update_stats=train)
@@ -128,8 +133,10 @@ class VisionTransformer(nn.Module):
 
         # the pos-embed at its own scale, merged by the dual-scale requant
         pos = self.qact_pos(self.pos_embed, update_stats=train)
-        x = self.qact1(x, identity=pos.replace(q=pos.q.expand(x.q.shape)), update_stats=train)
+        return self.qact1(x, identity=pos.replace(q=pos.q.expand(x.q.shape)), update_stats=train)
 
+    def trunk(self, x: QTensor, train: bool = False, generator: torch.Generator | None = None) -> QTensor:
+        """The blocks (a pipeline stage's own, ``parallel.pipeline``)."""
         # sequence parallelism: each rank holds its tokens between the
         # blocks (JAX's act_constraint sits at these boundaries)
         seq = None if self.tp is None else self.tp.seq_axis
@@ -139,10 +146,18 @@ class VisionTransformer(nn.Module):
             x = remat_block(blk, x, train, generator) if self.remat else blk(x, train, generator)
         if seq is not None:
             x = x.replace(q=seq.gather_tokens(x.q, grad_sum=False))  # the rest runs whole on every rank
+        return x
 
+    def epilogue(self, x: QTensor, train: bool = False) -> torch.Tensor:
+        """I-LayerNorm → CLS token → ``QuantAct`` → head: the float logits
+        (JAX's ``vit_epilogue``; the last pipeline stage runs it)."""
         x = self.norm(x)
         x = self.qact2(x.replace(q=x.q[:, 0]), update_stats=train)  # CLS token
         return head_logits(self.head, x)
+
+    def forward(self, images: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.epilogue(self.trunk(self.prologue(images, train), train, generator), train)
 
 
 deit_tiny_patch16_224 = partial(vit_config, embed_dim=192, depth=12, num_heads=3)

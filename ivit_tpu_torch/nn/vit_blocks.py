@@ -77,6 +77,22 @@ def token_split(layer) -> tuple:
     return ((1, split.axis.tokens, split.axis.token_bounds()[0]),)
 
 
+def whole_tokens(seq, x: QTensor) -> QTensor:
+    """The input of a layer that a sequence-parallel model's axis ``seq``
+    leaves whole (``parallel.tensor``): every rank's tokens gathered, as
+    the trunk's exit gathers them. Each rank then runs the layer on all
+    of them and forms its whole gradient (``own_tokens`` gathers it), so
+    the gather's backward keeps this rank's block unsummed. None: ``x``."""
+    return x if seq is None else x.replace(q=seq.gather_tokens(x.q, grad_sum=False))
+
+
+def own_tokens(seq, x: QTensor) -> QTensor:
+    """This rank's token block of a whole layer's output (the inverse of
+    ``whole_tokens``, as the trunk's entry scatters them; the backward
+    gathers every rank's block of the gradient). None: ``x``."""
+    return x if seq is None else x.replace(q=seq.scatter_tokens(x.q))
+
+
 class Mlp(nn.Module):
     """fc1 → qact → ShiftGELU → qact → fc2 → qact(16 bits)."""
 
@@ -85,6 +101,7 @@ class Mlp(nn.Module):
         super().__init__()
         self.drop, self.hidden_features = drop, hidden_features
         self.hidden = (0, hidden_features)  # this rank's [start, stop) of the hidden columns (parallel.tensor)
+        self.seq = None  # the model axis of a sequence-parallel model that leaves this Mlp whole (parallel.tensor)
         self.fc1 = QuantLinear(in_features, hidden_features)
         self.qact_gelu = QuantAct(8)
         self.act = IntGELU(out_bits=8, stable=gelu_stable)
@@ -93,6 +110,7 @@ class Mlp(nn.Module):
         self.qact2 = QuantAct(16)
 
     def forward(self, x: QTensor, train: bool = False, generator: torch.Generator | None = None) -> QTensor:
+        x = whole_tokens(self.seq, x)
         x = self.qact_gelu(self.fc1(x), update_stats=train)
         x = self.qact1(self.act(x), update_stats=train)
         if train and self.drop > 0.0:
@@ -100,7 +118,7 @@ class Mlp(nn.Module):
         x = self.qact2(self.fc2(x), update_stats=train)
         if train and self.drop > 0.0:
             x = quant_dropout(x, self.drop, generator, token_split(self.fc2))
-        return x
+        return own_tokens(self.seq, x)
 
 
 class Attention(nn.Module):
@@ -114,6 +132,7 @@ class Attention(nn.Module):
         self.num_heads, self.attn_drop, self.proj_drop = num_heads, attn_drop, proj_drop
         self.head_dim = dim // num_heads
         self.heads = (0, num_heads)  # this rank's [start, stop) of the heads (parallel.tensor)
+        self.seq = None  # the model axis of a sequence-parallel model that leaves this attention whole
         self.qkv = QuantLinear(dim, 3 * dim, use_bias=qkv_bias)
         self.qact1 = QuantAct(8)
         self.qact_attn1 = QuantAct(8)
@@ -124,6 +143,7 @@ class Attention(nn.Module):
 
     def forward(self, x: QTensor, train: bool = False, generator: torch.Generator | None = None) -> QTensor:
         H, D = self.heads[1] - self.heads[0], self.head_dim
+        x = whole_tokens(self.seq, x)
         qkv = self.qact1(self.qkv(x), update_stats=train)  # under sequence parallelism qkv gathers the tokens
         B, N = qkv.shape[:2]
         parts = qkv.q.reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)  # 3 × (B, H, N, D)
@@ -142,7 +162,7 @@ class Attention(nn.Module):
         out = self.qact3(self.proj(self.qact2(out, update_stats=train)), update_stats=train)
         if train and self.proj_drop > 0.0:
             out = quant_dropout(out, self.proj_drop, generator, token_split(self.proj))
-        return out
+        return own_tokens(self.seq, out)
 
 
 class Block(nn.Module):

@@ -127,12 +127,16 @@ class GatheredModel:
 
 
 def gather_train_state(state):
-    """A whole copy of a ZeRO-1 or tensor-parallel ``state``, in the
-    single-process layout a checkpoint holds: the moments and the EMA
-    gathered over the data axis, then every split leaf (the parameters
-    too) over the model axis, where the model becomes a
-    ``GatheredModel`` of the whole variables. Every rank
-    calls it; a state with neither comes back as it is."""
+    """A whole copy of a ZeRO-1, tensor-parallel or pipelined ``state``,
+    in the single-process layout a checkpoint holds: the moments and the
+    EMA gathered over the data axis, then every split leaf (the
+    parameters too) over the model axis, or every stage's blocks over the
+    pipe axis (``parallel.pipeline.from_pp_state``), where the model
+    becomes a ``GatheredModel`` of the whole variables. Every rank calls
+    it; a state with none of them comes back as it is."""
+    pp = getattr(state.model, "pp", None)
+    if pp is not None:
+        return pp.gather(state)
     layout, tp = state.zero1, getattr(state.model, "tp", None)
     if layout is None and tp is None:
         return state

@@ -11,7 +11,10 @@ tests) and the port calls the collectives itself:
 * ``make_mesh`` lays the ranks out row-major as
   ``np.asarray(devices).reshape(data, model)`` does: at ``(2, 2)`` the
   model groups are ranks {0, 1} and {2, 3}, the data groups {0, 2} and
-  {1, 3};
+  {1, 3}; ``grid_mesh`` under it also lays ``parallel.pipeline``'s
+  ``(data, pipe)`` mesh, whose stages talk by point-to-point messages
+  (``Mesh.isend``, ``recv``, ``broadcast``). Its device is this rank's
+  card unless the caller names the CPU: without a card it raises;
 * ``shard_infer`` is data-parallel serving: each data rank runs the
   unchanged engine on its rows of the global batch and the logits are
   all-gathered, so they equal the single-process engine's bit for bit;
@@ -130,21 +133,28 @@ def init_distributed(backend: str | None = None, device="cuda", init_method: str
 
 
 class Mesh:
-    """A ``(data, model)`` grid of ranks with a process group per row and
-    column. ``shape`` and ``coords`` are dicts by axis name; ``device``
-    is this rank's device. The collectives take an axis name (``"data"``,
-    ``"model"``, or ``"world"`` for every rank); on an axis of one rank
+    """A ``(data, model)`` grid of ranks, or a ``(data, pipe)`` one
+    (``axis``: the second axis' name; ``parallel.pipeline``), with a
+    process group per row and column. ``shape`` and ``coords`` are dicts
+    by axis name; ``rank`` is this rank's position in the grid, ``ranks``
+    the world rank at each position; ``device`` is this rank's device.
+    The collectives take an axis name (``"data"``, the second axis, or
+    ``"world"`` for every rank of the grid); on an axis of one rank
     without a process group they return their input."""
 
-    def __init__(self, data: int, model: int, rank: int, device, groups: dict):
-        self.shape = {"data": data, "model": model}
+    def __init__(self, data: int, model: int, rank: int, device, groups: dict, axis: str = "model",
+                 ranks=None):
+        self.axis = axis
+        self.shape = {"data": data, axis: model}
         self.rank = rank
-        self.coords = {"data": rank // model, "model": rank % model}
+        self.coords = {"data": rank // model, axis: rank % model}
         self.device = torch.device(device)
         self.groups = groups
+        self.ranks = list(range(data * model)) if ranks is None else [int(r) for r in ranks]
 
     def __repr__(self) -> str:
-        return f"Mesh(data={self.shape['data']}, model={self.shape['model']}, rank={self.rank}, device={self.device})"
+        return (f"Mesh(data={self.shape['data']}, {self.axis}={self.shape[self.axis]}, rank={self.rank}, "
+                f"device={self.device})")
 
     def _staged(self, t: torch.Tensor, group) -> torch.Tensor:
         """A copy of ``t`` where the group's backend can reduce it: the
@@ -152,6 +162,48 @@ class Mesh:
         if t.is_cuda and dist.get_backend(group) == "gloo":
             return t.detach().to("cpu", copy=True)
         return t.detach().clone()
+
+    def peer(self, axis: str, offset: int) -> int:
+        """The world rank ``offset`` positions from this one along ``axis``."""
+        n, i = self.shape[axis], self.coords[axis]
+        if not 0 <= i + offset < n:
+            raise ValueError(f"no rank {offset:+d} from coordinate {i} of the {axis} axis of {n} ranks")
+        step = 1 if axis == self.axis else self.shape[self.axis]
+        return self.ranks[self.rank + offset * step]
+
+    def isend(self, t: torch.Tensor, axis: str, offset: int, tag: int):
+        """Start sending ``t`` to the rank ``offset`` along ``axis`` (a
+        point-to-point message on that axis' group, ``tag`` telling it
+        from the others in flight); returns the pending work, whose
+        ``wait()`` the caller owes before the group is destroyed (it
+        holds the host copy a ``gloo`` group sends from)."""
+        group = self.groups[axis]
+        return dist.isend(self._staged(t, group).contiguous(), self.peer(axis, offset), group=group, tag=tag)
+
+    def recv(self, shape, axis: str, offset: int, tag: int, dtype=torch.float32) -> torch.Tensor:
+        """The tensor of ``shape`` the rank ``offset`` along ``axis`` sent
+        with ``tag`` (``isend``), on this rank's device."""
+        group = self.groups[axis]
+        staged = self.device.type == "cuda" and dist.get_backend(group) == "gloo"
+        buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else self.device)
+        dist.recv(buf, self.peer(axis, offset), group=group, tag=tag)
+        return buf.to(self.device)
+
+    def broadcast(self, t: torch.Tensor | None, axis: str, src: int, shape=None, dtype=torch.float32) -> torch.Tensor:
+        """The tensor of the rank at coordinate ``src`` of ``axis``, on
+        every rank of its group: that rank passes it, the others pass None
+        and its ``shape``."""
+        group = self.groups.get(axis)
+        if group is None:
+            return t
+        if self.coords[axis] == src:
+            buf = self._staged(t, group).contiguous()
+        else:
+            staged = self.device.type == "cuda" and dist.get_backend(group) == "gloo"
+            buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else self.device)
+        step = 1 if axis == self.axis else self.shape[self.axis]
+        dist.broadcast(buf, self.ranks[self.rank + (src - self.coords[axis]) * step], group=group)
+        return buf.to(self.device)
 
     def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
         """``t`` reduced over ``axis``'s group (``op``: sum, min or max)."""
@@ -212,36 +264,55 @@ class Mesh:
         return x[tuple(index)]
 
 
-def make_mesh(data: int | None = None, model: int = 1, backend: str | None = None, device=None) -> Mesh:
-    """A ``(data, model)`` mesh over the ranks of the default process
-    group (``data`` defaults to world / model), laid out row-major:
-    rank = data index · model + model index. Every rank must call it,
-    with the same arguments: it creates a group for each row (model),
-    each column (data) and one of all the ranks (world), on ``backend``
-    (the default group's when None). Without a process group it is a
-    mesh of one, whose collectives return their input; ``device`` is the
-    mesh's device (the current card, or the CPU without one, when None).
+def grid_mesh(data: int | None, second: int, axis: str, backend: str | None = None, device=None,
+              ranks=None) -> Mesh | None:
+    """A ``(data, axis)`` grid over ``ranks`` (the default group's world
+    when None), laid out row-major: position = data index · second + index
+    on ``axis``. Every rank of the world calls it, with the same
+    arguments: it creates a group for each row (``axis``), each column
+    (data) and one of all the grid's ranks (world), on ``backend`` (the
+    default group's when None); a rank outside ``ranks`` gets None.
+    Without a process group it is a grid of one, whose collectives
+    return their input. ``device`` is the grid's device: when None, the
+    card this process was bound to (``init_distributed`` binds a CUDA
+    rank); without CUDA the caller must name ``"cpu"`` (``RuntimeError``).
     """
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
     else:
         world, rank = 1, 0
+    members = list(range(world)) if ranks is None else [int(r) for r in ranks]
     if data is None:
-        data = world // model
-    if data * model != world:
-        raise ValueError(f"mesh {data}x{model} != WORLD_SIZE {world} ranks")
+        data = len(members) // second
+    if data * second != len(members):
+        where = f"WORLD_SIZE {world} ranks" if ranks is None else f"the {len(members)} ranks {members}"
+        raise ValueError(f"mesh {data}x{second} != {where}")
     if device is None:
-        device = torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() else "cpu"
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_mesh: no CUDA device; pass device='cpu' to lay the mesh on the CPU")
+        device = torch.device("cuda", torch.cuda.current_device())
     groups: dict = {}
+    grid = np.asarray(members).reshape(data, second)
     if dist.is_initialized():
         backend = backend or dist.get_backend()
-        grid = np.arange(world).reshape(data, model)
-        for axis, lines in (("model", grid), ("data", grid.T), ("world", grid.reshape(1, -1))):
+        for name, lines in ((axis, grid), ("data", grid.T), ("world", grid.reshape(1, -1))):
             for line in lines:
                 g = dist.new_group([int(r) for r in line], backend=backend)
                 if rank in line:
-                    groups[axis] = g
-    return Mesh(data, model, rank, device, groups)
+                    groups[name] = g
+    if rank not in members:
+        return None
+    return Mesh(data, second, members.index(rank), device, groups, axis=axis, ranks=members)
+
+
+def make_mesh(data: int | None = None, model: int = 1, backend: str | None = None, device=None) -> Mesh:
+    """A ``(data, model)`` mesh over the ranks of the default process
+    group (``grid_mesh``; ``data`` defaults to world / model), laid out
+    row-major as ``np.asarray(devices).reshape(data, model)`` lays JAX's:
+    rank = data index · model + model index. ``device`` defaults to this
+    rank's card and raises without one unless the caller names
+    ``"cpu"``."""
+    return grid_mesh(data, model, "model", backend, device)
 
 
 class _Copy(torch.autograd.Function):

@@ -45,14 +45,20 @@ Their row-parallel fc2 sums float32 partial products over the group
 (``ModelAxis.reduce``), so their logits differ from the single-process
 step's by that order of summation.
 
-**Sequence parallelism** (``seq_parallel=True``, QAT ViT only, every block
-split): between the blocks' matmuls each rank holds a ceil-sized block
-of the token axis (197 tokens over 2 ranks: 99 and 98), so the
-LayerNorms, the requantizations and the 16-bit residual ``QuantAct``s run
-on 1/n of the tokens. A column layer gathers the tokens and a row layer
-keeps its tokens of the sum; the LayerNorms' gradients are then summed
-over the group. Every op between the matmuls is per token, so the
-values equal the plain tensor-parallel step's bit for bit.
+**Sequence parallelism** (``seq_parallel=True``, QAT ViT only): between
+the blocks' matmuls each rank holds a ceil-sized block of the token axis
+(197 tokens over 2 ranks: 99 and 98), so the LayerNorms, the
+requantizations and the 16-bit residual ``QuantAct``s run on 1/n of the
+tokens. A column layer gathers the tokens and a row layer keeps its
+tokens of the sum; the LayerNorms' gradients are then summed over the
+group. An attention or Mlp the axis leaves whole (3 heads at 2, DeiT-S's
+6 at 4) gathers every rank's tokens before it, runs whole on every rank
+and keeps this rank's block after it (``nn.vit_blocks.whole_tokens`` and
+``own_tokens``), as the trunk's entry and exit do: the block's backward
+gathers the gradient of its output whole on every rank, so each rank
+forms the layer's whole gradient and its parameters stay out of
+``partial``. Every op between the matmuls is per token, so the values
+equal the plain tensor-parallel step's bit for bit.
 """
 
 from __future__ import annotations
@@ -146,8 +152,7 @@ def tensor_parallel(state, mesh: Mesh, seq_parallel: bool = False):
     axis, ``state.model.tp`` set. Every rank calls it on the same whole
     state; ``parallel.shard_train_state`` may then add ZeRO-1 on the data
     axis. ``seq_parallel`` adds sequence parallelism (the QAT ViT only:
-    ``ValueError`` for another model, or where a block's heads or hidden
-    width do not divide). Returns ``state``."""
+    ``ValueError`` for another model). Returns ``state``."""
     from ..models.swin import SwinTransformer
     from ..models.swin_float import FloatSwinTransformer
     from ..models.vit import VisionTransformer
@@ -165,10 +170,6 @@ def tensor_parallel(state, mesh: Mesh, seq_parallel: bool = False):
         if not isinstance(model, VisionTransformer):
             raise ValueError("sequence parallelism runs on the QAT ViT family only (JAX's seq_constraint has no "
                              "Swin or float form)")
-        whole = [path for kind, path, count, _ in groups if kind != "head" and not splits(count, n)]
-        if whole:
-            raise ValueError(f"sequence parallelism needs every block split over the model axis of {n}; whole: "
-                             f"{whole}")
     axis = ModelAxis(mesh, model.pos_embed.shape[1] if seq_parallel else None)
     names = [name for name, _ in model.named_parameters()]
     slices = param_slices(model, mesh)
@@ -176,6 +177,8 @@ def tensor_parallel(state, mesh: Mesh, seq_parallel: bool = False):
     partial = set()
     for kind, path, count, layers in groups:
         if not splits(count, n):
+            if seq_parallel and kind != "head":  # whole on every rank: all the tokens in, this rank's out
+                model.get_submodule(path).seq = axis
             continue
         local = count // n
         if kind == "attn":

@@ -62,9 +62,24 @@ it back.
     python -m torch.distributed.run --standalone --nproc-per-node 4 \
         -m ivit_tpu_torch.quant_train --distributed --mesh-model 2 --seq-parallel --zero1 ...
 
+``--pipe N`` trains GPipe over a ``(WORLD_SIZE / N, N)`` ``(data,
+pipe)`` mesh (``parallel.pipeline``: each rank holds the blocks of its
+stage, the prologue and the epilogue whole) with JAX's frozen-range
+finetune semantics: the ranges do not move and the step draws no
+dropout or drop-path mask, so they must come from ``--calib-batches`` or
+``--resume``; the optimizer state starts fresh; ``--pipe-microbatches``
+(0: the largest M ≤ 2N that splits the batch into multiples of the data
+axis) microbatches a step. JAX's guards exit first, in JAX's order and
+words: a Swin, ``--mesh-model``/``--seq-parallel``/``--zero1``, a depth
+N does not divide, no range source; then a world N does not divide.
+Validation runs pipelined; checkpoints hold the whole state, with
+``"pipe"`` in their record, and load into any run:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m ivit_tpu_torch.quant_train --distributed --pipe 2 --calib-batches 4 ...
+
 ``--pretrained auto`` (a download) and ``--pretrained`` with a
-``*_fp32`` name exit, each saying why; so do ``--pipe`` > 1, naming the
-``ROADMAP.md`` item that ports it, and ``--distributed`` without
+``*_fp32`` name exit, each saying why; so does ``--distributed`` without
 torchrun's environment.
 """
 
@@ -75,10 +90,6 @@ import logging
 import os
 import signal
 import time
-
-# the ROADMAP.md §1 item that ports what this CLI refuses
-_PIPE_ITEM = "ROADMAP.md §1 item 8b (GPipe, parallel/pipeline.py, and the dryrun_multichip counterpart)"
-
 
 def build_parser():
     p = argparse.ArgumentParser("I-ViT QAT (PyTorch)")
@@ -143,8 +154,17 @@ def build_parser():
     p.add_argument("--seq-parallel", action="store_true",
                    help="sequence parallelism: the token axis split over the model axis between the blocks' matmuls "
                         "(needs --mesh-model > 1 and a ViT-family model)")
-    p.add_argument("--pipe", type=int, default=1, help=f"pipeline stages; > 1 comes with {_PIPE_ITEM}")
-    p.add_argument("--pipe-microbatches", type=int, default=0, help="GPipe microbatches per step (with --pipe)")
+    p.add_argument("--pipe", type=int, default=1,
+                   help="pipeline-parallel stages (with --distributed): the block trunk over a (WORLD_SIZE / N, N) "
+                        "(data, pipe) mesh, GPipe schedule (parallel/pipeline.py; the forward bit-identical to "
+                        "the sequential one). FROZEN-RANGE finetune semantics: activation ranges do not EMA-update "
+                        "and the step graph is deterministic (no dropout/drop-path), so populate ranges first via "
+                        "--calib-batches or --resume. ViT family; depth must divide by the stage count; exclusive "
+                        "with --mesh-model/--seq-parallel/--zero1; optimizer state restarts fresh (not carried "
+                        "from --resume)")
+    p.add_argument("--pipe-microbatches", type=int, default=0,
+                   help="GPipe microbatches per step (0 = auto: the largest M <= 2*pipe dividing the batch evenly "
+                        "over the data axis)")
     p.add_argument("--zero1", action="store_true",
                    help="ZeRO-1: slice the AdamW moments and the EMA over the data-parallel ranks (the update is "
                         "unchanged)")
@@ -215,9 +235,45 @@ def refuse_unported(args) -> None:
                          "pos_embed at their random init (ROADMAP.md §3 item 9). Load a float model by the library "
                          "path: torch_vit_to_params (or torch_swin_to_params) -> quant_params_to_float (or "
                          "swin_quant_params_to_float) -> merge_params -> nn.load_flax_variables")
-    if args.pipe > 1:
-        raise SystemExit(f"--pipe > 1 is not ported to ivit_tpu_torch yet: GPipe comes with {_PIPE_ITEM}; "
-                         "the JAX package's quant_train.py runs it")
+
+
+def pipe_layout(args, world: int) -> tuple:
+    """``--pipe``'s ``(data, n_micro)`` on a world of ``world`` ranks, or
+    exit: JAX's four guards first, in its order and words (a Swin, the
+    other mesh flags, the depth, the range source), then a world the
+    stages do not divide, then the microbatch count."""
+    from .models.registry import create_config
+
+    if args.model.startswith("swin"):
+        raise SystemExit("--pipe supports the ViT family only: the Swin trunk is stage-heterogeneous (resolutions "
+                         "halve and dims double at each PatchMerging), so its blocks do not stack into one "
+                         "shardable depth axis")
+    if args.mesh_model > 1 or args.seq_parallel or args.zero1:
+        raise SystemExit("--pipe is exclusive with --mesh-model/--seq-parallel/--zero1: the pipeline manages its "
+                         "own (data, pipe) mesh")
+    depth = create_config(args.model.removesuffix("_fp32"))["depth"]
+    if depth % args.pipe:
+        raise SystemExit(f"--pipe {args.pipe} does not divide {args.model}'s depth {depth}")
+    if not args.eval and not (args.resume or args.calib_batches > 0):
+        raise SystemExit("--pipe runs frozen-range finetune semantics (EMA range updates are sequential-batch "
+                         "semantics; see parallel/pipeline.py): populate activation ranges first with "
+                         "--calib-batches N or --resume a trained checkpoint")
+    if args.model.endswith("_fp32"):
+        raise SystemExit(f"--pipe runs the QAT ViT family (its stages run the QAT model's prologue, blocks and "
+                         f"epilogue); {args.model} is a float model")
+    if world % args.pipe:
+        raise SystemExit(f"--pipe {args.pipe} does not divide the {world}-rank world (WORLD_SIZE; launch with "
+                         "--distributed under torchrun)")
+    data, B, n_micro = world // args.pipe, args.batch_size, args.pipe_microbatches
+    if n_micro == 0:
+        for cand in range(min(2 * args.pipe, B), 0, -1):
+            if B % cand == 0 and (B // cand) % data == 0:
+                n_micro = cand
+                break
+    if n_micro == 0 or B % n_micro or (B // n_micro) % data:
+        raise SystemExit(f"no valid microbatch count: batch {B} must split into M microbatches of a multiple of "
+                         f"data={data} rows (got --pipe-microbatches {args.pipe_microbatches})")
+    return data, n_micro
 
 
 def step_generators(seed: int, epoch: int, step: int, device):
@@ -271,16 +327,21 @@ def _run(args, joined=None):
     from .models import create_model
     from .models.model_utils import model_variables
     from .nn.quant import data_shard
-    from .parallel import batch_shard, gather_train_state, make_mesh, shard_train_state, tensor_parallel
+    from .parallel import batch_shard, gather_train_state, make_mesh, make_pp_mesh, shard_train_state
+    from .parallel import tensor_parallel
     from .train import SGD, AdamW, MixupConfig, cosine_schedule, create_train_state, make_eval_step
     from .train import make_train_step, mixup_cutmix
     from .train.augment import one_hot_smooth
     from .utils import AverageMeter, MetricLogger, load_checkpoint, save_checkpoint
 
     device = target_device(args.device if joined is None else joined.device)
-    # the (data, model) mesh of the run: torchrun's world, or one rank
+    # the (data, model) mesh of the run: torchrun's world, or one rank;
+    # under --pipe the (data, pipe) mesh
     mesh = None
-    if joined is not None or args.zero1 or args.mesh_model > 1:
+    if args.pipe > 1:
+        pp_data, n_micro = pipe_layout(args, 1 if joined is None else joined.world_size)
+        mesh = make_pp_mesh(pp_data, args.pipe, device=device)
+    elif joined is not None or args.zero1 or args.mesh_model > 1:
         try:
             mesh = make_mesh(model=args.mesh_model, device=device)
         except ValueError as e:  # as JAX's make_mesh raises
@@ -296,8 +357,8 @@ def _run(args, joined=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s", handlers=handlers, force=True)
     logging.info(str(args))
     if joined is not None:
-        logging.info("distributed: %d ranks over %s, rank 0 on %s; a (data=%d, model=%d) mesh%s",
-                     joined.world_size, joined.backend, device, world, args.mesh_model,
+        logging.info("distributed: %d ranks over %s, rank 0 on %s; a (data=%d, %s=%d) mesh%s",
+                     joined.world_size, joined.backend, device, world, mesh.axis, mesh.shape[mesh.axis],
                      ", ZeRO-1" if args.zero1 else "")
     seq_parallel = args.seq_parallel
     if seq_parallel and (args.mesh_model == 1 or args.model.startswith("swin") or args.model.endswith("_fp32")):
@@ -357,7 +418,7 @@ def _run(args, joined=None):
         start_epoch = extra.get("epoch", 0) + 1
         best_acc1 = extra.get("best_acc1", 0.0)
         logging.info("resumed from %s at epoch %d", args.resume, start_epoch)
-    if mesh is not None and mesh.shape["model"] > 1:
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
         try:
             tensor_parallel(state, mesh, seq_parallel=seq_parallel)
         except (TypeError, ValueError) as e:
@@ -443,6 +504,9 @@ def _run(args, joined=None):
     use_mixup = args.mixup > 0 or args.cutmix > 0
     profiler = None
     try:
+        if args.pipe > 1:
+            return _train_pipe(args, state, mesh, n_micro, train_loader, val_loader, mix_cfg, ckpt_meta, save,
+                               start_epoch, best_acc1, preempt_sig)
         for epoch in range(start_epoch, args.epochs):
             train_loader.set_epoch(epoch)
             logger = MetricLogger(len(train_loader), prefix=f"epoch {epoch} ", print_freq=args.print_freq)
@@ -497,6 +561,97 @@ def _run(args, joined=None):
     finally:
         if prev_term is not None:
             signal.signal(signal.SIGTERM, prev_term)
+
+
+def _train_pipe(args, state, mesh, n_micro, train_loader, val_loader, mix_cfg, ckpt_meta, save, start_epoch,
+                best_acc1, preempt_sig):
+    """The pipeline-parallel training loop (``--pipe N``; JAX's
+    ``quant_train.py:535-720``): GPipe over ``mesh``'s ``(data, pipe)``
+    grid, with JAX's documented subset of the standard loop (frozen
+    ranges, a deterministic step, a fresh optimizer state) and its
+    mixup targets, EMA, metrics, pipelined validation, preemption and
+    whole checkpoints recording ``"pipe"``."""
+    import numpy as np
+    import torch
+
+    from .parallel import make_pp_train_step, pipeline_vit_forward, pp_gather, to_pp_state
+    from .train import mixup_cutmix
+    from .train.augment import one_hot_smooth
+    from .utils import AverageMeter, MetricLogger
+
+    device, B = mesh.device, args.batch_size
+    logging.info("pipeline parallelism: (data=%d, pipe=%d) mesh, %d microbatches/step", mesh.shape["data"],
+                 args.pipe, n_micro)
+    to_pp_state(state, mesh)
+    model = state.model
+    state.opt_state = state.tx.init([p for _, p in model.named_parameters()])
+    ema_decay = args.model_ema_decay if args.model_ema else 0.0
+    pp_step = make_pp_train_step(model, mesh, n_micro, grad_clip=args.clip_grad, ema_decay=ema_decay)
+    pad_mult = n_micro * mesh.shape["data"]
+    ckpt_path = os.path.join(args.output_dir, "checkpoint.pkl")
+    use_mixup = args.mixup > 0 or args.cutmix > 0
+
+    def pp_validate(epoch):
+        acc1, acc5 = AverageMeter("acc1"), AverageMeter("acc5")
+        for images, labels in val_loader:
+            n = images.shape[0]
+            pad = -n % pad_mult
+            if pad:
+                images = np.concatenate([images, images[np.arange(pad) % n]])
+            with torch.no_grad():
+                x = torch.from_numpy(images).to(device)
+                logits = pp_gather(pipeline_vit_forward(model, x, mesh, n_micro), mesh, n_micro)
+            order = np.argsort(logits[:n].cpu().numpy(), -1)
+            labels = np.asarray(labels)
+            acc1.update(100.0 * float(np.mean(order[:, -1] == labels)), n)
+            acc5.update(100.0 * float(np.mean((order[:, -5:] == labels[:, None]).any(-1))), n)
+        logging.info("epoch %d  val acc@1 %.3f  acc@5 %.3f", epoch, acc1.avg, acc5.avg)
+        return acc1.avg
+
+    for epoch in range(start_epoch, args.epochs):
+        train_loader.set_epoch(epoch)
+        logger = MetricLogger(len(train_loader), prefix=f"epoch {epoch} ", print_freq=args.print_freq)
+        t0 = time.time()
+        losses = []
+        for i, (images, labels) in enumerate(train_loader):
+            if args.max_steps_per_epoch and i >= args.max_steps_per_epoch:
+                break
+            if images.shape[0] != B:
+                continue  # GPipe needs the full batch
+            mix_rng, _ = step_generators(args.seed, epoch, i, device)
+            images, labels = torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device)
+            if use_mixup:
+                images, targets = mixup_cutmix(images, labels, mix_cfg, mix_rng, device=device)
+            else:
+                targets = one_hot_smooth(labels, args.nb_classes, args.smoothing)
+            state, metrics = pp_step(state, images, targets)
+            losses.append(float(metrics["loss"]))
+            logger.update(loss=losses[-1], acc1=float(metrics["acc1"]))
+            logger.log(i)
+            # a signal to any rank stops them all at this step
+            flag = torch.tensor([float(preempt_sig[0]) if preempt_sig else 0.0], device=device)
+            signum = int(mesh.all_reduce(flag, "world", op="max").item())
+            if signum and not preempt_sig:
+                preempt_sig.append(signum)
+            if preempt_sig:
+                save(ckpt_path, {"epoch": epoch - 1, "best_acc1": best_acc1, "preempted_step": i,
+                                 "pipe": args.pipe, **ckpt_meta})
+                logging.info("preempted (signal %d) at epoch %d step %d — rolling checkpoint saved; rerun with "
+                             "--resume %s", preempt_sig[0], epoch, i, ckpt_path)
+                return best_acc1
+        if not losses:
+            raise RuntimeError(f"epoch {epoch} ran ZERO steps — the train loader yielded nothing (or no full "
+                               "batch for GPipe)")
+        logging.info("epoch %d done in %.1fs (%d steps)", epoch, time.time() - t0, len(losses))
+        logging.info("epoch %d losses %s", epoch, losses)
+        acc1 = pp_validate(epoch)
+        if acc1 > best_acc1:
+            best_acc1 = acc1
+            save(os.path.join(args.output_dir, "best.pkl"),
+                 {"epoch": epoch, "best_acc1": best_acc1, "pipe": args.pipe, **ckpt_meta})
+        save(ckpt_path, {"epoch": epoch, "best_acc1": best_acc1, "pipe": args.pipe, **ckpt_meta})
+        logging.info("best acc@1: %.3f", best_acc1)
+    return best_acc1
 
 
 def _start_profile(device):

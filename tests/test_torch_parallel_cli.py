@@ -30,8 +30,9 @@ cpu``), against the single-process runs in this process.
   order). ``convert_model --checkpoint`` reads the tensor-parallel
   checkpoint as any other: its artifact equals the one of the same
   variables written by a single-process state. A model axis that does
-  not divide the world exits naming WORLD_SIZE; ``--pipe 2`` exits
-  naming GPipe's ROADMAP item.
+  not divide the world exits naming WORLD_SIZE; ``--pipe 2`` with a
+  model axis exits as JAX's guard does (the pipeline itself:
+  ``tests/test_torch_pipe_cli.py``).
 * ``quant_train --distributed --mesh-model 2 --seq-parallel`` on the
   float DeiT-S (``deit_small_fp32``) and on a Swin-T: both train
   tensor-parallel with ``--seq-parallel`` ignored and JAX's warning
@@ -291,5 +292,10 @@ def test_model_axis_not_dividing_the_world_exits(tmp_path):
 
 
 def test_pipe_exits_naming_gpipe(tmp_path):
-    with pytest.raises(SystemExit, match=r"--pipe > 1 .* GPipe comes with ROADMAP\.md §1 item 8b"):
-        quant_train.main(TP + ["--pipe", "2", "--output-dir", str(tmp_path)])
+    """``--pipe`` with a model axis exits as JAX's CLI does: the pipeline
+    manages its own (data, pipe) mesh."""
+    with pytest.raises(SystemExit, match=r"--pipe is exclusive with --mesh-model/--seq-parallel/--zero1: the "
+                                         r"pipeline manages its own \(data, pipe\) mesh"):
+        quant_train.main(TP + ["--pipe", "2", "--mesh-model", "2", "--calib-batches", "1",
+                               "--output-dir", str(tmp_path)])
+    assert not (tmp_path / "log.log").exists()

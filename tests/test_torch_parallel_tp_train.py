@@ -17,7 +17,12 @@ mixup/cutmix, dropout, attention dropout and drop path 0.1) of:
 * the DeiT from JAX's init variables, one step with drop path 0 and no
   mixup, tensor- and sequence-parallel, against JAX's jitted
   ``make_train_step`` on ``make_mesh(data=1, model=2)`` (with and without
-  ``seq_constraint``).
+  ``seq_constraint``);
+* sequence parallelism over layers the axis leaves whole: a 3-head DeiT
+  (dim 48: its attention whole, its Mlp split) and one whose Mlp is
+  whole too (hidden 51), each tensor- and sequence-parallel, and the
+  3-head one from JAX's init variables against JAX's ``seq_constraint``
+  step.
 
 One spawn of four ranks runs the sm16 DeiT on a ``(2, 2)`` mesh: tensor-
 parallel, with ZeRO-1, and sequence-parallel with ZeRO-1 and ``remat``.
@@ -97,31 +102,40 @@ def _spec(model, kw, **flags):
 VIT_CASES = {f"sm{bits}-{'stable' if stable else 'rowmax'}": _spec("deit_tiny", dict(VIT, softmax_bits=bits,
                                                                                       gelu_stable=stable))
              for bits in (16, 8) for stable in (False, True)}
+# sequence parallelism where the model axis of 2 leaves layers whole: 3 heads
+WHOLE = {"heads3": dict(VIT, embed_dim=48, num_heads=3), "heads3-mlp51": dict(VIT, embed_dim=48, num_heads=3,
+                                                                              mlp_ratio=51 / 48)}
+WHOLE_CASES = {name: _spec("deit_tiny", kw) for name, kw in WHOLE.items()}
 SWIN_CASES = {"swin-dryrun": _spec("swin_tiny", SWIN),
               "swin-heads36": _spec("swin_tiny", dict(SWIN, embed_dim=24, num_heads=(3, 6)))}
-CASES = {**VIT_CASES, **SWIN_CASES}
+CASES = {**VIT_CASES, **SWIN_CASES, **WHOLE_CASES}
 FLOAT_CASES = {"fp32-vit": _spec("deit_tiny_fp32", VIT),
                "fp32-swin-heads36": _spec("swin_tiny_fp32", dict(SWIN, embed_dim=24, num_heads=(3, 6)))}
 
 
-def _jax_state(seq_mesh=None):
-    jm = JaxViT(**VIT) if seq_mesh is None else JaxViT(**VIT, act_constraint=jax_seq_constraint(seq_mesh))
+def _jax_state(seq_mesh=None, kw=VIT):
+    jm = JaxViT(**kw) if seq_mesh is None else JaxViT(**kw, act_constraint=jax_seq_constraint(seq_mesh))
     images = jnp.asarray(next(_batches(1, 8, mixup=False))[0])
     return jm, jax_create_train_state(jm, jax.random.PRNGKey(0), images[:1], optax.adamw(LR), ema_decay=0.99)
 
 
-def _jax_spec(variables, **flags):
-    return {"model": "deit_tiny", "model_kw": dict(VIT), "variables": variables, "lr": LR, "wd": 1e-4, "ema": 0.99,
+def _jax_spec(variables, kw=VIT, **flags):
+    return {"model": "deit_tiny", "model_kw": dict(kw), "variables": variables, "lr": LR, "wd": 1e-4, "ema": 0.99,
             "clip": None, "batches": list(_batches(1, 8, mixup=False)), **flags}
+
+
+def _jax_variables(kw=VIT):
+    _, jstate = _jax_state(kw=kw)
+    return jax.tree.map(np.asarray, {"params": jstate.params, "quant_stats": jstate.quant_stats})
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    _, jstate = _jax_state()
-    variables = jax.tree.map(np.asarray, {"params": jstate.params, "quant_stats": jstate.quant_stats})
-    jax_specs = {"jax-tp": _jax_spec(variables), "jax-sp": _jax_spec(variables, seq=True)}
+    variables = _jax_variables()
+    jax_specs = {"jax-tp": _jax_spec(variables), "jax-sp": _jax_spec(variables, seq=True),
+                 "jax-sp-heads3": _jax_spec(_jax_variables(WHOLE["heads3"]), WHOLE["heads3"], seq=True)}
     two = {name: spec for name, spec in {**CASES, **FLOAT_CASES}.items()}
-    two.update({f"{name}-sp": dict(spec, seq=True) for name, spec in VIT_CASES.items()})
+    two.update({f"{name}-sp": dict(spec, seq=True) for name, spec in {**VIT_CASES, **WHOLE_CASES}.items()})
     two.update({"remat-tp": dict(VIT_CASES["sm16-rowmax"], remat=True),
                 "remat-sp": dict(VIT_CASES["sm16-rowmax"], remat=True, seq=True)})
     two.update(jax_specs)
@@ -263,6 +277,23 @@ def test_sequence_parallel_equals_tensor_parallel(runs, case):
     _assert_within_bounds(sp[0], runs["single"][case])
 
 
+@pytest.mark.parametrize("case", list(WHOLE_CASES))
+def test_sequence_parallel_runs_layers_the_axis_leaves_whole(runs, case):
+    """3 heads at a model axis of 2 (and with it a 51-wide Mlp): each
+    whole layer gathers the tokens before it, runs whole on both ranks and
+    keeps the rank's tokens after it. Both steps' logits, ranges and
+    losses equal the tensor-parallel step's, step 1's the single-process
+    step's, tolerance 0; the gradient and parameters within the
+    single-process bounds."""
+    sp, tp = runs["two"][f"{case}-sp"], runs["two"][case]
+    _assert_forward_equal(sp, tp[0], steps=(0, 1))
+    _assert_forward_equal(sp, runs["single"][case])
+    assert [s["loss"] for s in sp[0]["steps"]] == [s["loss"] for s in tp[0]["steps"]]
+    _assert_within_bounds(sp[0], runs["single"][case])
+    for name, p in sp[0]["params"].items():
+        assert torch.equal(sp[1]["params"][name], p), name
+
+
 @pytest.mark.parametrize("case", ["remat-tp", "remat-sp"])
 def test_remat_composes_with_tensor_and_sequence_parallelism(runs, case):
     """``remat`` re-runs each block's collectives in the backward, its
@@ -332,24 +363,26 @@ def test_zero1_with_tensor_parallelism_follows_jax_spec(runs):
     assert both > 0
 
 
-@pytest.mark.parametrize("seq", [False, True], ids=["tp", "sp"])
-def test_tp_step_matches_jax_sharded_step(runs, seq):
+@pytest.mark.parametrize("case", ["jax-tp", "jax-sp", "jax-sp-heads3"], ids=["tp", "sp", "sp-heads3"])
+def test_tp_step_matches_jax_sharded_step(runs, case):
     """The port's step on a model axis of 2 from JAX's init variables
     (drop path 0, no mixup) against JAX's jitted ``make_train_step`` with
     ``param_shardings`` on ``make_mesh(data=1, model=2)``, with
-    ``seq_constraint`` for the sequence-parallel one: parameters and EMA
-    within JAX's own bounds for its sharded step, rtol 1e-4 and atol 2e-5
-    (``tests/test_zero1.py``). XLA's compiled rounding differs from the
-    SIM ops run one by one (``ROADMAP.md`` §3 item 5), which these bounds
-    cover."""
+    ``seq_constraint`` for the sequence-parallel ones (the 3-head DeiT's
+    attention whole on both ranks of the port, its qkv columns split by
+    JAX's rules): parameters and EMA within JAX's own bounds for its
+    sharded step, rtol 1e-4 and atol 2e-5 (``tests/test_zero1.py``). XLA's
+    compiled rounding differs from the SIM ops run one by one
+    (``ROADMAP.md`` §3 item 5), which these bounds cover."""
     mesh = jax_make_mesh(1, 2, devices=jax.devices()[:2])
-    jm, jstate = _jax_state(mesh if seq else None)
-    images, targets, _ = runs["jax_specs"]["jax-tp"]["batches"][0]
+    spec = runs["jax_specs"][case]
+    jm, jstate = _jax_state(mesh if spec.get("seq") else None, spec["model_kw"])
+    images, targets, _ = spec["batches"][0]
     step = jax.jit(jax_make_train_step(jm, ema_decay=0.99))
     js, _ = step(jax.device_put(jstate, jax_param_shardings(jstate, mesh)),
                  jax.device_put(jnp.asarray(images), jax_data_sharding(mesh)),
                  jax.device_put(jnp.asarray(targets), jax_data_sharding(mesh)), jax.random.PRNGKey(7))
-    ours = runs["two"]["jax-sp" if seq else "jax-tp"][0]
+    ours = runs["two"][case][0]
     for tree, key in ((js.params, "params"), (js.ema_params, "ema")):
         for path, a in jax.tree_util.tree_leaves_with_path(tree):
             name = jax.tree_util.keystr(path)[2:-2].replace("']['", ".")

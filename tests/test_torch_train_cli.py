@@ -205,18 +205,20 @@ def test_profile_steps_write_a_trace(tmp_path):
     assert trace.exists() and '"traceEvents"' in trace.read_text()
 
 
-# what each refused trainer flag's exit names: a ROADMAP item (GPipe is
-# the one multi-GPU item left), or outside torchrun the environment it
-# lacks. The model-axis flags run under torchrun now
-# (tests/test_torch_parallel_cli.py); in a world of one a model axis of 2
-# exits naming WORLD_SIZE, as JAX's make_mesh raises on too few devices.
+# what each refused trainer flag's exit names: a ROADMAP item, or
+# outside torchrun the environment it lacks. The multi-GPU flags run
+# under torchrun now (tests/test_torch_parallel_cli.py,
+# tests/test_torch_pipe_cli.py); in a world of one a model axis of 2
+# exits naming WORLD_SIZE, as JAX's make_mesh raises on too few devices,
+# and 2 pipeline stages exit naming the world, as JAX's n_dev % pipe.
 REFUSALS = {"--pretrained": r"ROADMAP\.md §1 item \d", "--mesh-model": r"!= WORLD_SIZE 1 ranks",
-            "--seq-parallel": r"!= WORLD_SIZE 1 ranks", "--pipe": r"ROADMAP\.md §1 item 8b \(GPipe",
+            "--seq-parallel": r"!= WORLD_SIZE 1 ranks", "--pipe": r"--pipe 2 does not divide the 1-rank world",
             "--zero1": r"!= WORLD_SIZE 1 ranks", "--distributed": r"no torchrun environment \(RANK, WORLD_SIZE"}
 
 
 @pytest.mark.parametrize("flag", [["--pretrained", "auto"], ["--mesh-model", "2"], ["--seq-parallel", "--mesh-model", "2"],
-                                  ["--pipe", "2"], ["--zero1", "--mesh-model", "2"], ["--distributed"]],
+                                  ["--pipe", "2", "--calib-batches", "1"], ["--zero1", "--mesh-model", "2"],
+                                  ["--distributed"]],
                          ids=lambda f: f[0])
 def test_unported_trainer_flags_exit_with_their_roadmap_item(flag, tmp_path, monkeypatch):
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):

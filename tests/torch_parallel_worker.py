@@ -35,16 +35,27 @@ from ivit_tpu_torch.parallel import (
 from ivit_tpu_torch.train import AdamW, create_train_state, make_train_step, soft_target_cross_entropy
 
 
-def run_ranks(world: int, tmp_path, task, *args, backend: str = "gloo", device: str = "cpu") -> list:
+def run_ranks(world: int, tmp_path, task, *args, backend: str = "gloo", device: str = "cpu",
+              timeout: float = 600.0) -> list:
     """Each rank's ``task(*args)`` over a group of ``world`` processes on
     ``backend`` and ``device`` (``parallel.init_distributed``'s rule:
-    ranks share a card only over ``gloo``)."""
+    ranks share a card only over ``gloo``). Ranks still running after
+    ``timeout`` seconds (a collective that never completes) are killed
+    and ``TimeoutError`` raised."""
+    import time
+
     import torch.multiprocessing as mp
 
     out = os.path.join(str(tmp_path), f"ranks_{task.__name__}_{backend}")
     os.makedirs(out, exist_ok=True)
-    mp.start_processes(_entry, args=(world, os.path.join(out, "rendezvous"), task.__name__, args, out, backend,
-                                     device), nprocs=world, join=True, start_method="spawn")
+    ctx = mp.start_processes(_entry, args=(world, os.path.join(out, "rendezvous"), task.__name__, args, out,
+                                           backend, device), nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{task.__name__}: {world} ranks still running after {timeout} s")
     results = []
     for r in range(world):
         with open(os.path.join(out, f"{r}.pkl"), "rb") as f:
@@ -297,3 +308,105 @@ def tp_variant(spec: dict, mesh_shape) -> dict:
 def train_tp(cases: list) -> list:
     """``tp_variant`` of each ``(spec, mesh_shape)`` on this rank."""
     return [tp_variant(spec, mesh_shape) for spec, mesh_shape in cases]
+
+
+def _pp_state(spec: dict, lr: float = 1e-3, depth: int | None = None):
+    """A whole train state of ``spec``'s tiny ViT on the CPU with JAX's
+    variables (or, at another ``depth``, its seeded init), AdamW and an
+    EMA."""
+    if depth is None:
+        model = create_model("deit_tiny", device="cpu", seed=0, **spec["model_kw"])
+        load_flax_variables(model, spec["variables"])
+    else:
+        model = create_model("deit_tiny", device="cpu", seed=0, **dict(spec["model_kw"], depth=depth))
+    return create_train_state(model, AdamW(lr), ema_decay=0.9, device="cpu")
+
+
+def _whole_tensors(state) -> dict:
+    names = [n for n, _ in state.model.named_parameters()]
+    out = {"params": {n: p.detach().clone() for n, p in state.model.named_parameters()},
+           "buffers": {n: b.clone() for n, b in state.model.named_buffers()},
+           "ema": {n: state.ema_params[n].clone() for n in names}}
+    for slot in ("mu", "nu"):
+        out[slot] = dict(zip(names, [t.clone() for t in getattr(state.opt_state, slot)]))
+    return out
+
+
+def pipeline_run(spec: dict) -> dict:
+    """The pipeline of ``parallel.pipeline`` on this rank, for each
+    ``(data, pipe, n_micro)`` of ``spec["cases"]`` on the first data·pipe
+    ranks (the others idle): the global batch's frozen logits
+    (``pp_gather``), the whole gradient of the mean soft-target loss
+    (the replicated leaves summed over pipe, everything averaged over
+    data), and whether the stage round trip of the whole state is exact;
+    then ``spec["train"]``'s steps (the losses, this rank's parameter,
+    moment and EMA names after the first, the whole parameters after the
+    last) and the errors ``spec["errors"]``' cases raise."""
+    from ivit_tpu_torch.parallel import (
+        from_pp_state,
+        from_pp_variables,
+        make_pp_mesh,
+        make_pp_train_step,
+        pipeline_vit_forward,
+        pp_gather,
+        pp_rows,
+        to_pp_state,
+    )
+    from ivit_tpu_torch.parallel.pipeline import pp_reduce_grads
+
+    images, targets = torch.from_numpy(spec["images"]), torch.from_numpy(spec["targets"])
+    rank = dist.get_rank()
+    out = {"cases": {}, "errors": {}}
+    for data, pipe, n_micro in spec["cases"]:
+        mesh = make_pp_mesh(data, pipe, device="cpu", ranks=range(data * pipe))
+        if mesh is None:
+            continue
+        state = _pp_state(spec)
+        whole = _whole_tensors(state)
+        to_pp_state(state, mesh)
+        model = state.model
+        back = _whole_tensors(from_pp_state(state))
+        same = all(torch.equal(back[k][n], t) for k in whole for n, t in whole[k].items()) and all(
+            list(back[k]) == list(whole[k]) for k in whole)
+        with torch.no_grad():
+            logits = pp_gather(pipeline_vit_forward(model, images, mesh, n_micro), mesh, n_micro)
+        names, params = zip(*model.named_parameters())
+        rows = pipeline_vit_forward(model, images, mesh, n_micro)
+        loss = soft_target_cross_entropy(rows, pp_rows(targets, mesh, n_micro))
+        grads = list(torch.autograd.grad(loss, params, materialize_grads=True))
+        model.pp.wait()
+        grads = data_mean(pp_reduce_grads(grads, list(names), mesh), mesh)
+        grads = from_pp_variables({"params": dict(zip(names, grads))}, model.pp.depth, mesh)["params"]
+        out["cases"][(data, pipe, n_micro)] = {"logits": logits, "grads": grads, "round_trip": same,
+                                               "params": list(names)}
+    train = spec.get("train")
+    if train is not None:
+        mesh = make_pp_mesh(*train["mesh"], device="cpu", ranks=range(train["mesh"][0] * train["mesh"][1]))
+        if mesh is not None:
+            state = _pp_state(spec, lr=train["lr"])
+            to_pp_state(state, mesh)
+            step = make_pp_train_step(state.model, mesh, train["n_micro"], grad_clip=1.0, ema_decay=0.9)
+            losses, held = [], None
+            for i in range(train["steps"]):
+                _, met = step(state, images, targets)
+                losses.append((float(met["loss"]), float(met["acc1"])))
+                if i == 0:
+                    held = {"params": [n for n, _ in state.model.named_parameters()],
+                            "mu": len(state.opt_state.mu), "nu": len(state.opt_state.nu),
+                            "ema": list(state.ema_params)}
+            out["train"] = {"losses": losses, "held": held, "step": state.step,
+                            "params": {n: p.detach().clone() for n, p in
+                                       from_pp_state(state).model.named_parameters()}}
+    for key, (data, pipe, n_micro, depth) in spec.get("errors", {}).items():
+        mesh = make_pp_mesh(data, pipe, device="cpu", ranks=range(data * pipe))
+        if mesh is None:
+            continue
+        try:
+            state = _pp_state(spec, depth=None if depth == spec["model_kw"]["depth"] else depth)
+            to_pp_state(state, mesh)
+            pipeline_vit_forward(state.model, images, mesh, n_micro)
+            out["errors"][key] = None
+        except ValueError as e:
+            out["errors"][key] = str(e)
+    out["rank"] = rank
+    return out
