@@ -2748,8 +2748,8 @@ def pp_rank(rank: int, world: int, init_file: str, work: str) -> None:
     dist.destroy_process_group()
 
 
-def pp_phase(smi: str, device: str = "cuda") -> dict:
-    """Phase 14 (``pp_rank`` on two ranks on ``device``): prints and
+def pp_phase(smi: str) -> dict:
+    """Phase 14 (``pp_rank`` on two ranks on the card): prints and
     checks each rank's results; returns rank 0's kernel entries of the
     served model."""
     import pickle
@@ -2774,7 +2774,7 @@ def pp_phase(smi: str, device: str = "cuda") -> dict:
     world = 2
     with tempfile.TemporaryDirectory() as work:
         with open(os.path.join(work, "inputs.pkl"), "wb") as f:
-            pickle.dump({"device": device, "batches": batches, "calib": calib, "serve_images": serve_images}, f)
+            pickle.dump({"device": "cuda", "batches": batches, "calib": calib, "serve_images": serve_images}, f)
         mp.start_processes(pp_rank, args=(world, os.path.join(work, "rendezvous"), work), nprocs=world, join=True,
                            start_method="spawn")
         ranks = []

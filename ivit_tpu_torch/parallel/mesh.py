@@ -156,12 +156,19 @@ class Mesh:
         return (f"Mesh(data={self.shape['data']}, {self.axis}={self.shape[self.axis]}, rank={self.rank}, "
                 f"device={self.device})")
 
+    @staticmethod
+    def _staging(group, device) -> torch.device:
+        """Where the group's backend takes a tensor of ``device``: the
+        host for ``gloo`` and a CUDA tensor, else ``device`` itself."""
+        device = torch.device(device)
+        if device.type == "cuda" and dist.get_backend(group) == "gloo":
+            return torch.device("cpu")
+        return device
+
     def _staged(self, t: torch.Tensor, group) -> torch.Tensor:
-        """A copy of ``t`` where the group's backend can reduce it: the
-        host for ``gloo`` and a CUDA tensor."""
-        if t.is_cuda and dist.get_backend(group) == "gloo":
-            return t.detach().to("cpu", copy=True)
-        return t.detach().clone()
+        """A copy of ``t`` where the group's backend can take it
+        (``_staging``)."""
+        return t.detach().to(self._staging(group, t.device), copy=True)
 
     def peer(self, axis: str, offset: int) -> int:
         """The world rank ``offset`` positions from this one along ``axis``."""
@@ -184,8 +191,7 @@ class Mesh:
         """The tensor of ``shape`` the rank ``offset`` along ``axis`` sent
         with ``tag`` (``isend``), on this rank's device."""
         group = self.groups[axis]
-        staged = self.device.type == "cuda" and dist.get_backend(group) == "gloo"
-        buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else self.device)
+        buf = torch.empty(shape, dtype=dtype, device=self._staging(group, self.device))
         dist.recv(buf, self.peer(axis, offset), group=group, tag=tag)
         return buf.to(self.device)
 
@@ -199,8 +205,7 @@ class Mesh:
         if self.coords[axis] == src:
             buf = self._staged(t, group).contiguous()
         else:
-            staged = self.device.type == "cuda" and dist.get_backend(group) == "gloo"
-            buf = torch.empty(shape, dtype=dtype, device="cpu" if staged else self.device)
+            buf = torch.empty(shape, dtype=dtype, device=self._staging(group, self.device))
         step = 1 if axis == self.axis else self.shape[self.axis]
         dist.broadcast(buf, self.ranks[self.rank + (src - self.coords[axis]) * step], group=group)
         return buf.to(self.device)
@@ -271,7 +276,10 @@ def grid_mesh(data: int | None, second: int, axis: str, backend: str | None = No
     on ``axis``. Every rank of the world calls it, with the same
     arguments: it creates a group for each row (``axis``), each column
     (data) and one of all the grid's ranks (world), on ``backend`` (the
-    default group's when None); a rank outside ``ranks`` gets None.
+    default group's when None); a rank outside ``ranks`` gets None. The
+    port's entry points lay their grid over the whole world; ``ranks``
+    lets one spawn of test ranks hold several grids side by side (each
+    subset of the world its own mesh) instead of a spawn for each.
     Without a process group it is a grid of one, whose collectives
     return their input. ``device`` is the grid's device: when None, the
     card this process was bound to (``init_distributed`` binds a CUDA

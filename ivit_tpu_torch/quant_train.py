@@ -488,6 +488,13 @@ def _run(args, joined=None):
     if args.eval:
         return validate(start_epoch)
 
+    # the step, the validation and what the checkpoints record: GPipe's
+    # under --pipe, the standard ones otherwise
+    step, full_batch = train_step, 0
+    if args.pipe > 1:
+        step, validate, pipe_meta = _pipe_loop_parts(args, state, mesh, n_micro, val_loader)
+        ckpt_meta, full_batch = {**ckpt_meta, **pipe_meta}, args.batch_size
+
     # graceful preemption: on SIGTERM let the step finish, write the
     # rolling checkpoint and exit, so --resume restarts the epoch
     preempt_sig: list = []
@@ -504,9 +511,6 @@ def _run(args, joined=None):
     use_mixup = args.mixup > 0 or args.cutmix > 0
     profiler = None
     try:
-        if args.pipe > 1:
-            return _train_pipe(args, state, mesh, n_micro, train_loader, val_loader, mix_cfg, ckpt_meta, save,
-                               start_epoch, best_acc1, preempt_sig)
         for epoch in range(start_epoch, args.epochs):
             train_loader.set_epoch(epoch)
             logger = MetricLogger(len(train_loader), prefix=f"epoch {epoch} ", print_freq=args.print_freq)
@@ -515,6 +519,8 @@ def _run(args, joined=None):
             for i, (images, labels) in enumerate(train_loader):
                 if args.max_steps_per_epoch and i >= args.max_steps_per_epoch:
                     break
+                if full_batch and images.shape[0] != full_batch:
+                    continue  # GPipe needs the full batch
                 if args.profile_steps and epoch == 0 and i == 10:
                     profiler = _start_profile(device)
                 if profiler is not None and epoch == 0 and i == 10 + args.profile_steps:
@@ -526,13 +532,13 @@ def _run(args, joined=None):
                     images, targets = mixup_cutmix(images, labels, mix_cfg, mix_rng, device=device)
                 else:
                     targets = one_hot_smooth(labels, args.nb_classes, args.smoothing)
-                state, metrics = train_step(state, images, targets, drop_gen)
+                state, metrics = step(state, images, targets, drop_gen)
                 losses.append(float(metrics["loss"]))
                 logger.update(loss=losses[-1], acc1=float(metrics["acc1"]))
                 logger.log(i)
                 if mesh is not None:  # a signal to any rank stops them all at this step
                     flag = torch.tensor([float(preempt_sig[0]) if preempt_sig else 0.0], device=device)
-                    signum = int(mesh.all_reduce(flag, "data", op="max").item())
+                    signum = int(mesh.all_reduce(flag, "world", op="max").item())
                     if signum and not preempt_sig:
                         preempt_sig.append(signum)
                 if preempt_sig:
@@ -545,7 +551,7 @@ def _run(args, joined=None):
                 profiler = None
             if not losses:
                 raise RuntimeError(f"epoch {epoch} ran ZERO steps — the train loader yielded nothing (empty dataset "
-                                   "or a loader failure)")
+                                   "or a loader failure)" + (", or no full batch for GPipe" if full_batch else ""))
             logging.info("epoch %d done in %.1fs (%d steps)", epoch, time.time() - t0, len(losses))
             logging.info("epoch %d losses %s", epoch, losses)
 
@@ -563,23 +569,21 @@ def _run(args, joined=None):
             signal.signal(signal.SIGTERM, prev_term)
 
 
-def _train_pipe(args, state, mesh, n_micro, train_loader, val_loader, mix_cfg, ckpt_meta, save, start_epoch,
-                best_acc1, preempt_sig):
-    """The pipeline-parallel training loop (``--pipe N``; JAX's
+def _pipe_loop_parts(args, state, mesh, n_micro, val_loader):
+    """What the training loop runs under ``--pipe N`` (JAX's
     ``quant_train.py:535-720``): GPipe over ``mesh``'s ``(data, pipe)``
     grid, with JAX's documented subset of the standard loop (frozen
-    ranges, a deterministic step, a fresh optimizer state) and its
-    mixup targets, EMA, metrics, pipelined validation, preemption and
-    whole checkpoints recording ``"pipe"``."""
+    ranges, a deterministic step, a fresh optimizer state). Puts ``state``
+    in the stage layout and returns the step (same call as the standard
+    one; it draws nothing from the drop generator), the pipelined
+    validation (padded to ``n_micro · data`` rows) and what the
+    checkpoints record besides."""
     import numpy as np
     import torch
 
     from .parallel import make_pp_train_step, pipeline_vit_forward, pp_gather, to_pp_state
-    from .train import mixup_cutmix
-    from .train.augment import one_hot_smooth
-    from .utils import AverageMeter, MetricLogger
+    from .utils import AverageMeter
 
-    device, B = mesh.device, args.batch_size
     logging.info("pipeline parallelism: (data=%d, pipe=%d) mesh, %d microbatches/step", mesh.shape["data"],
                  args.pipe, n_micro)
     to_pp_state(state, mesh)
@@ -588,8 +592,9 @@ def _train_pipe(args, state, mesh, n_micro, train_loader, val_loader, mix_cfg, c
     ema_decay = args.model_ema_decay if args.model_ema else 0.0
     pp_step = make_pp_train_step(model, mesh, n_micro, grad_clip=args.clip_grad, ema_decay=ema_decay)
     pad_mult = n_micro * mesh.shape["data"]
-    ckpt_path = os.path.join(args.output_dir, "checkpoint.pkl")
-    use_mixup = args.mixup > 0 or args.cutmix > 0
+
+    def step(state, images, targets, drop_gen):
+        return pp_step(state, images, targets)
 
     def pp_validate(epoch):
         acc1, acc5 = AverageMeter("acc1"), AverageMeter("acc5")
@@ -599,7 +604,7 @@ def _train_pipe(args, state, mesh, n_micro, train_loader, val_loader, mix_cfg, c
             if pad:
                 images = np.concatenate([images, images[np.arange(pad) % n]])
             with torch.no_grad():
-                x = torch.from_numpy(images).to(device)
+                x = torch.from_numpy(images).to(mesh.device)
                 logits = pp_gather(pipeline_vit_forward(model, x, mesh, n_micro), mesh, n_micro)
             order = np.argsort(logits[:n].cpu().numpy(), -1)
             labels = np.asarray(labels)
@@ -608,50 +613,7 @@ def _train_pipe(args, state, mesh, n_micro, train_loader, val_loader, mix_cfg, c
         logging.info("epoch %d  val acc@1 %.3f  acc@5 %.3f", epoch, acc1.avg, acc5.avg)
         return acc1.avg
 
-    for epoch in range(start_epoch, args.epochs):
-        train_loader.set_epoch(epoch)
-        logger = MetricLogger(len(train_loader), prefix=f"epoch {epoch} ", print_freq=args.print_freq)
-        t0 = time.time()
-        losses = []
-        for i, (images, labels) in enumerate(train_loader):
-            if args.max_steps_per_epoch and i >= args.max_steps_per_epoch:
-                break
-            if images.shape[0] != B:
-                continue  # GPipe needs the full batch
-            mix_rng, _ = step_generators(args.seed, epoch, i, device)
-            images, labels = torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device)
-            if use_mixup:
-                images, targets = mixup_cutmix(images, labels, mix_cfg, mix_rng, device=device)
-            else:
-                targets = one_hot_smooth(labels, args.nb_classes, args.smoothing)
-            state, metrics = pp_step(state, images, targets)
-            losses.append(float(metrics["loss"]))
-            logger.update(loss=losses[-1], acc1=float(metrics["acc1"]))
-            logger.log(i)
-            # a signal to any rank stops them all at this step
-            flag = torch.tensor([float(preempt_sig[0]) if preempt_sig else 0.0], device=device)
-            signum = int(mesh.all_reduce(flag, "world", op="max").item())
-            if signum and not preempt_sig:
-                preempt_sig.append(signum)
-            if preempt_sig:
-                save(ckpt_path, {"epoch": epoch - 1, "best_acc1": best_acc1, "preempted_step": i,
-                                 "pipe": args.pipe, **ckpt_meta})
-                logging.info("preempted (signal %d) at epoch %d step %d — rolling checkpoint saved; rerun with "
-                             "--resume %s", preempt_sig[0], epoch, i, ckpt_path)
-                return best_acc1
-        if not losses:
-            raise RuntimeError(f"epoch {epoch} ran ZERO steps — the train loader yielded nothing (or no full "
-                               "batch for GPipe)")
-        logging.info("epoch %d done in %.1fs (%d steps)", epoch, time.time() - t0, len(losses))
-        logging.info("epoch %d losses %s", epoch, losses)
-        acc1 = pp_validate(epoch)
-        if acc1 > best_acc1:
-            best_acc1 = acc1
-            save(os.path.join(args.output_dir, "best.pkl"),
-                 {"epoch": epoch, "best_acc1": best_acc1, "pipe": args.pipe, **ckpt_meta})
-        save(ckpt_path, {"epoch": epoch, "best_acc1": best_acc1, "pipe": args.pipe, **ckpt_meta})
-        logging.info("best acc@1: %.3f", best_acc1)
-    return best_acc1
+    return step, pp_validate, {"pipe": args.pipe}
 
 
 def _start_profile(device):

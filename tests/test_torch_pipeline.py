@@ -20,6 +20,9 @@ leaf's largest entry against JAX's jitted ``jax.grad`` through its
 sequential gradient. The stage round trip is exact.
 """
 
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,9 +55,12 @@ def _name(keystr: str) -> str:
 
 @pytest.fixture(scope="module")
 def jax_setup():
+    """JAX's model, its calibrated variables (``test_pipeline.calibrated``
+    under ``jit``: a third of the eager time, and both packages take the
+    variables as given), the images and the one-hot targets."""
     model = small_model()
     images = jax.random.normal(jax.random.PRNGKey(1), (8, 16, 16, 3))
-    variables = jax.tree.map(np.asarray, calibrated(model, jax.random.PRNGKey(0), images))
+    variables = jax.tree.map(np.asarray, jax.jit(partial(calibrated, model))(jax.random.PRNGKey(0), images))
     targets = np.array(jax.nn.one_hot(jax.random.randint(jax.random.PRNGKey(2), (8,), 0, 8), 8), np.float32)
     return model, variables, np.array(images), targets
 
@@ -93,28 +99,40 @@ def _jax_grads(jax_setup, data, pipe, n_micro):
     return {_name(jax.tree_util.keystr(k)): np.asarray(g) for k, g in jax.tree_util.tree_leaves_with_path(grads)}
 
 
+def _jax_logits(jax_setup):
+    """JAX's eager frozen ``apply``."""
+    model, variables, images, _ = jax_setup
+    return np.asarray(model.apply(variables, jnp.asarray(images), train=False))
+
+
 @pytest.fixture(scope="module")
 def runs(jax_setup, tmp_path_factory):
-    ranks = run_ranks(4, tmp_path_factory.mktemp("pp4"), pipeline_run, _spec(jax_setup, CASES, TRAIN, ERRORS))
-    return {"ranks": ranks, "sequential": _sequential(jax_setup)}
+    """The four ranks' results, the port's sequential forward and
+    gradient, and JAX's logits and pipelined gradients for each case:
+    the ranks and JAX's pipelined gradients (a compile for each mesh)
+    run side by side while JAX's eager logits compile op by op."""
+    with ThreadPoolExecutor(len(CASES) + 1) as pool:
+        ranks = pool.submit(run_ranks, 4, tmp_path_factory.mktemp("pp4"), pipeline_run,
+                            _spec(jax_setup, CASES, TRAIN, ERRORS))
+        jax_grads = {case: pool.submit(_jax_grads, jax_setup, *case) for case in CASES}
+        jax_logits, sequential = _jax_logits(jax_setup), _sequential(jax_setup)
+        return {"ranks": ranks.result(), "sequential": sequential, "jax_logits": jax_logits,
+                "jax_grads": {case: g.result() for case, g in jax_grads.items()}}
 
 
 def _case_ranks(ranks, case):
     return [r["cases"][case] for r in ranks if case in r["cases"]]
 
 
-def _assert_forward(ranks, case, jax_setup, sequential):
-    model, variables, images, _ = jax_setup
-    want = np.asarray(model.apply(variables, jnp.asarray(images), train=False))
-    np.testing.assert_array_equal(sequential[0].numpy(), want)
+def _assert_forward(ranks, case, jax_logits, sequential):
+    np.testing.assert_array_equal(sequential[0].numpy(), jax_logits)
     got = _case_ranks(ranks, case)
     assert len(got) == case[0] * case[1]
     for r in got:
         torch.testing.assert_close(r["logits"], sequential[0], rtol=0, atol=0)
 
 
-def _assert_gradients(ranks, case, jax_setup, sequential):
-    theirs = _jax_grads(jax_setup, *case)
+def _assert_gradients(ranks, case, theirs, sequential):
     seq = sequential[1]
     for r in _case_ranks(ranks, case):
         assert list(r["grads"]) == list(seq)
@@ -127,20 +145,20 @@ def _assert_gradients(ranks, case, jax_setup, sequential):
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
-def test_pipelined_forward_equals_sequential_and_jax(runs, jax_setup, case):
+def test_pipelined_forward_equals_sequential_and_jax(runs, case):
     """Every rank of the mesh holds the global batch's logits, equal to
     the port's sequential frozen forward and to JAX's eager ``apply``,
     tolerance 0."""
-    _assert_forward(runs["ranks"], case, jax_setup, runs["sequential"])
+    _assert_forward(runs["ranks"], case, runs["jax_logits"], runs["sequential"])
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
-def test_pipelined_gradients_match_jax_and_sequential(runs, jax_setup, case):
+def test_pipelined_gradients_match_jax_and_sequential(runs, case):
     """The whole gradient (the replicated leaves summed over the pipe
     group, everything averaged over the data group) within 1e-5 of each
     leaf's largest entry against JAX's pipelined ``jax.grad``, and within
     rtol 2e-5 / atol 1e-6 of the sequential gradient."""
-    _assert_gradients(runs["ranks"], case, jax_setup, runs["sequential"])
+    _assert_gradients(runs["ranks"], case, runs["jax_grads"][case], runs["sequential"])
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
@@ -226,5 +244,5 @@ def test_eight_ranks_forward_and_gradients(jax_setup, tmp_path, case):
     the gradients within the bounds above."""
     ranks = run_ranks(8, tmp_path, pipeline_run, _spec(jax_setup, [case]))
     sequential = _sequential(jax_setup)
-    _assert_forward(ranks, case, jax_setup, sequential)
-    _assert_gradients(ranks, case, jax_setup, sequential)
+    _assert_forward(ranks, case, _jax_logits(jax_setup), sequential)
+    _assert_gradients(ranks, case, _jax_grads(jax_setup, *case), sequential)
