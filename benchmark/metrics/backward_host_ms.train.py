@@ -1,0 +1,8 @@
+"""Host ms a training step spends inside its ``train.backward`` span
+(``train/steps.py``), mean over the traced window's steps."""
+
+from benchmark import port_spans
+
+
+def read(view):
+    return port_spans.phase_ms("train.backward", device=False)

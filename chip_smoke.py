@@ -95,7 +95,8 @@ Phases:
    (main, A, B, the sm16 K1 route, Swin-T and ``kernels=()``) captured as
    a CUDA graph at batch 128 and 1, with every launch count set to 0
    just before the capture and read just after (the warm-up forwards and
-   the capture; ``replay.launches`` the capture's alone, one forward's),
+   both captures, the plain and the marked; ``replay.launches`` the plain
+   capture's alone, one forward's),
    replay logits bit-equal to the eager ones of phase 4, a replay adding
    no launch; batch-128 images/s graphed; batch-1 ms/image eager and
    graphed (host clock) and the idle share of one batch-1 forward each
@@ -1042,7 +1043,7 @@ def serve_checkpoint(label: str, ckpt: str, train_args: list, out_dir: str, dev)
     import torch
 
     from ivit_tpu_torch import convert_model, evaluate_accuracy, quant_train
-    from ivit_tpu_torch.deploy.graphs import WARMUP
+    from ivit_tpu_torch.deploy.graphs import FORWARDS
     from ivit_tpu_torch.kernels import WRAPPERS
     from ivit_tpu_torch.utils import load_artifact
 
@@ -1071,9 +1072,9 @@ def serve_checkpoint(label: str, ckpt: str, train_args: list, out_dir: str, dev)
     else:
         per_forward = {"K1": cfg["depth"], "K3": 2 * cfg["depth"] + 1}
     print(f"{label} evaluate_accuracy: top1 {100 * top1 / seen} top5 {100 * top5 / seen} over {seen}; "
-          f"launches {counts} through {WARMUP} warm-up forwards and the capture, {per_forward} a forward "
+          f"launches {counts} through the capture's {FORWARDS} forwards, {per_forward} a forward "
           f"expected; {time.perf_counter() - t1:.3f} s")
-    check(counts == {k: (WARMUP + 1) * n for k, n in per_forward.items()}, f"{label} evaluate_accuracy: launches {counts}")
+    check(counts == {k: FORWARDS * n for k, n in per_forward.items()}, f"{label} evaluate_accuracy: launches {counts}")
     engine_vs_sim(label, sim, eng, art)
     return art
 
@@ -2840,7 +2841,7 @@ def main() -> int:
     from ivit_tpu_torch import bench as port_bench
     from ivit_tpu_torch import convert_model
     from ivit_tpu_torch.deploy.engine import attention_half, attention_inputs, build_vit_infer, embed, int8_linear
-    from ivit_tpu_torch.deploy.graphs import WARMUP, capture_infer
+    from ivit_tpu_torch.deploy.graphs import FORWARDS, capture_infer
     from ivit_tpu_torch.deploy.swin_engine import (
         build_swin_infer,
         merge_gather,
@@ -3529,7 +3530,7 @@ def main() -> int:
 
     # 6. the serving entry points. Graphs: each path captured at batch 128
     # and 1 (deploy.graphs.capture_infer), its launches counted from 0
-    # through the warm-up and the capture, its replay bit-equal to the eager
+    # through the warm-up and both captures, its replay bit-equal to the eager
     # logits above; at batch 1, eager against graphed ms/image and idle
     graph_paths = {
         "main": (infer, logits, {"K1": depth, "K3": layernorms}),
@@ -3562,10 +3563,10 @@ def main() -> int:
             out = graphed(images_dev[:batch])
             torch.cuda.synchronize()
             replay_counts = {k: w.launches for k, w in WRAPPERS.items()}
-            print(f"graph {name} batch {batch}: captured in {capture_s:.3f} s; launches through {WARMUP} warm-up "
-                  f"forwards and the capture {counts}, in the capture {graphed.launches}")
+            print(f"graph {name} batch {batch}: captured in {capture_s:.3f} s; launches through the capture's "
+                  f"{FORWARDS} forwards {counts}, in the plain capture {graphed.launches}")
             check(graphed.launches == per_forward, f"graph {name} batch {batch}: {graphed.launches} launches a forward")
-            check(all(counts[k] == (WARMUP + 1) * per_forward.get(k, 0) for k in WRAPPERS),
+            check(all(counts[k] == FORWARDS * per_forward.get(k, 0) for k in WRAPPERS),
                   f"graph {name} batch {batch}: launches {counts}")
             check(replay_counts == counts, f"graph {name} batch {batch}: a replay counted launches")
             e_graph = float((out - eager128[:batch]).abs().max())

@@ -81,11 +81,14 @@ from ..kernels.attention_fused_v2 import scale_gate
 from ..ops import INT8, INT16, requant, shiftgelu, shiftmax
 from ..ops.interp import div, f32
 from ..ops.intmm import int8_matmul
+from ..utils.spans import Span
 from .artifact import artifact_to_torch
 
 KERNEL_NAMES = ("attention", "attention2", "softmax", "gelu", "linear_gelu", "layernorm")
 DEFAULT_KERNELS = ("attention", "layernorm")
 _ATTENTION_KERNELS = {"attention", "attention2", "softmax"}
+# the stages of a forward (utils/spans.py), shared with deploy/swin_engine.py
+EMBED, ATTENTION, MLP, HEAD = (Span(f"engine.{stage}") for stage in ("embed", "attention", "mlp", "head"))
 
 def select_kernels(cfg: dict, kernels=DEFAULT_KERNELS) -> frozenset:
     """The kernels a model of config ``cfg`` runs when ``kernels`` are
@@ -310,16 +313,22 @@ def engine_tensors(artifact: dict, device, kernels=DEFAULT_KERNELS, strict_dyadi
 
 def vit_forward(images: torch.Tensor, t: dict, kernels: frozenset) -> torch.Tensor:
     """The engine's forward on carried tensors ``t``: float32 NHWC images
-    on ``t``'s device → logits."""
+    on ``t``'s device → logits, in the spans ``engine.embed``, then
+    ``engine.attention`` and ``engine.mlp`` a block, then ``engine.head``."""
     cfg = t["config"]
-    x = embed(images, t)
+    with EMBED:
+        x = embed(images, t)
     for blk in t["blocks"]:
-        x = vit_block(x, blk, cfg, kernels)
-    # final norm on the CLS rows only (row-wise: the other rows'
-    # values never reach the head)
-    y = _layernorm(x[:, 0].contiguous(), t["norm"], kernels)
-    head = t["head"]
-    return int8_linear(y, head).to(torch.float32) * head["out_scale"]
+        with ATTENTION:
+            h = attention_half(x, blk, cfg, kernels)
+        with MLP:
+            x = mlp_half(h, blk, cfg, kernels).reshape(x.shape)
+    with HEAD:
+        # final norm on the CLS rows only (row-wise: the other rows'
+        # values never reach the head)
+        y = _layernorm(x[:, 0].contiguous(), t["norm"], kernels)
+        head = t["head"]
+        return int8_linear(y, head).to(torch.float32) * head["out_scale"]
 
 
 def build_vit_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS, strict_dyadic: bool = False):

@@ -59,12 +59,14 @@ from ..models.swin import (
 )
 from ..ops import INT8, INT16, int_layernorm, requant
 from ..ops.interp import div
+from ..utils.spans import Span
 from .convert import TrainedVariables, _np, scalar
-from .engine import _layernorm, _residual, int8_linear, mlp_half, qkv_heads
+from .engine import ATTENTION, EMBED, HEAD, MLP, _layernorm, _residual, int8_linear, mlp_half, qkv_heads
 from .swin_artifact import swin_artifact_to_torch, validate_swin_artifact
 
 KERNEL_NAMES = ("attention", "layernorm")
 DEFAULT_KERNELS = KERNEL_NAMES
+MERGE = Span("engine.merge")  # a patch merging; the other stages are deploy/engine.py's
 
 
 def window_bias(table: torch.Tensor, s_table: torch.Tensor, s_bias: torch.Tensor, ws: int) -> torch.Tensor:
@@ -220,8 +222,11 @@ def window_attention_inputs(x: torch.Tensor, blk: dict, kernels=DEFAULT_KERNELS)
     return qkv_heads(xw.reshape(-1, C), blk["qkv"], xw.shape[0], blk["heads"])
 
 
-def swin_block(x: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNELS) -> torch.Tensor:
-    """One shifted-window block on the int16 stream (B, L, C)."""
+def window_attention_half(x: torch.Tensor, blk: dict, kernels=DEFAULT_KERNELS) -> torch.Tensor:
+    """The attention half of a shifted-window block on the int16 stream
+    (B, L, C): qkv, the window attention, proj, window reverse and the
+    reverse shift; returns the (B·L, C) int16 stream after the first
+    residual (``deploy/engine.py:attention_half``'s counterpart)."""
     B, L, C = x.shape
     res, ws, shift, H = blk["res"], blk["ws"], blk["shift"], blk["heads"]
     q, k, v = window_attention_inputs(x, blk, kernels)
@@ -236,8 +241,12 @@ def swin_block(x: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNELS) -
     g = window_reverse(branch.view(-1, N, C), ws, res, res)
     if shift:
         g = torch.roll(g, (shift, shift), dims=(1, 2))
-    h = _residual(g.reshape(B * L, C).to(torch.float32), x.reshape(B * L, C), blk["res1"])
-    return mlp_half(h, blk, cfg, kernels).view(B, L, C)
+    return _residual(g.reshape(B * L, C).to(torch.float32), x.reshape(B * L, C), blk["res1"])
+
+
+def swin_block(x: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNELS) -> torch.Tensor:
+    """One shifted-window block on the int16 stream (B, L, C)."""
+    return mlp_half(window_attention_half(x, blk, kernels), blk, cfg, kernels).view(x.shape)
 
 
 def patch_merging(x: torch.Tensor, ds: dict, kernels=DEFAULT_KERNELS) -> torch.Tensor:
@@ -260,30 +269,40 @@ def merge_gather(x: torch.Tensor, res: int) -> torch.Tensor:
 
 
 def swin_trunk(x: torch.Tensor, t: dict, kernels=DEFAULT_KERNELS, on_layer=None) -> torch.Tensor:
-    """Run every stage's blocks and patch merging on the token stream;
-    ``on_layer(layer, x)`` sees the input stream of each block and each
-    patch merging (``layer`` is its carried dict) before it runs."""
+    """Run every stage's blocks and patch merging on the token stream, a
+    block in the spans ``engine.attention`` and ``engine.mlp``, a patch
+    merging in ``engine.merge``; ``on_layer(layer, x)`` sees the input
+    stream of each block and each patch merging (``layer`` is its
+    carried dict) before it runs."""
     for stage in t["stages"]:
         layers = stage["blocks"] + ([stage["downsample"]] if "downsample" in stage else [])
         for layer in layers:
             if on_layer is not None:
                 on_layer(layer, x)
             if "attn" in layer:
-                x = swin_block(x, layer, t["config"], kernels)
+                with ATTENTION:
+                    h = window_attention_half(x, layer, kernels)
+                with MLP:
+                    x = mlp_half(h, layer, t["config"], kernels).view(x.shape)
             else:
-                x = patch_merging(x, layer, kernels)
+                with MERGE:
+                    x = patch_merging(x, layer, kernels)
     return x
 
 
 def swin_forward(images: torch.Tensor, t: dict, kernels: frozenset) -> torch.Tensor:
     """The engine's forward on carried tensors ``t``: float32 NHWC images
-    on ``t``'s device → logits."""
-    x = swin_trunk(patch_embed(images, t), t, kernels)
-    B, L, C = x.shape
-    y = _layernorm(x.reshape(B * L, C), t["norm"], kernels).view(B, L, C)
-    y8 = requant(token_mean(y, t["inv_tokens"]), t["pool_ratio"], *INT8).to(torch.int8)
-    head = t["head"]
-    return int8_linear(y8, head).to(torch.float32) * head["out_scale"]
+    on ``t``'s device → logits, in the spans ``engine.embed``, the
+    trunk's (``swin_trunk``), then ``engine.head``."""
+    with EMBED:
+        x = patch_embed(images, t)
+    x = swin_trunk(x, t, kernels)
+    with HEAD:
+        B, L, C = x.shape
+        y = _layernorm(x.reshape(B * L, C), t["norm"], kernels).view(B, L, C)
+        y8 = requant(token_mean(y, t["inv_tokens"]), t["pool_ratio"], *INT8).to(torch.int8)
+        head = t["head"]
+        return int8_linear(y8, head).to(torch.float32) * head["out_scale"]
 
 
 def build_swin_infer(artifact: dict, device="cuda", kernels=DEFAULT_KERNELS):

@@ -172,7 +172,8 @@ def build_parser():
                    help="path to a torch (.pth, .pth.tar) or augreg (.npz) float checkpoint to import into the QAT "
                         "model (pass --calib-batches too: imported ranges start at zero)")
     p.add_argument("--profile-steps", type=int, default=0,
-                   help="capture a torch.profiler trace of steps [10, 10+N) of epoch 0 into <output-dir>/profile")
+                   help="capture a torch.profiler trace of steps [10, 10+N) of epoch 0 into <output-dir>/profile; "
+                        "it holds each step's train.forward, train.backward and train.optimizer spans")
     p.add_argument("--max-steps-per-epoch", type=int, default=0, help="truncate each epoch after N steps (smoke tests)")
     p.add_argument("--eval", action="store_true", help="evaluate only (with --resume or --pretrained); no training")
     p.add_argument("--dump-logits", default="",

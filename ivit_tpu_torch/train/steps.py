@@ -12,8 +12,12 @@ import torch
 from ..nn.quant import data_shard
 from ..parallel.data import batch_shard, data_mean, zero1_update
 from ..ops.interp import div
+from ..utils.spans import Span
 from .losses import soft_target_cross_entropy, topk_accuracy, topk_hits
 from .state import TrainState
+
+# the phases of a train step (utils/spans.py)
+FORWARD, BACKWARD, OPTIMIZER = (Span(f"train.{phase}") for phase in ("forward", "backward", "optimizer"))
 
 
 def make_train_step(model: torch.nn.Module, ema_decay: float = 0.0, grad_clip: float | None = None,
@@ -35,7 +39,11 @@ def make_train_step(model: torch.nn.Module, ema_decay: float = 0.0, grad_clip: f
     update. A tensor-parallel model (``parallel.tensor_parallel``, on
     the mesh's ``model`` axis) also sums over the model group the
     gradients each rank forms in part, and clips by the norm of the
-    whole model."""
+    whole model.
+
+    The step runs in the spans ``train.forward`` (the forward and the
+    loss), ``train.backward`` (the gradients) and ``train.optimizer``
+    (the reductions, the clip, the update, the EMA and the metrics)."""
     shard = None if mesh is None else batch_shard(mesh)
     tp = getattr(model, "tp", None)
     if tp is not None and mesh is None:
@@ -44,13 +52,15 @@ def make_train_step(model: torch.nn.Module, ema_decay: float = 0.0, grad_clip: f
     def train_step(state: TrainState, images: torch.Tensor, targets: torch.Tensor,
                    generator: torch.Generator | None = None):
         names, params = zip(*model.named_parameters())
-        if mesh is not None:
-            images, targets = mesh.block(images, "data"), mesh.block(targets, "data")
-        with data_shard(shard):
-            logits = model(images, train=True, generator=generator)
-        loss = soft_target_cross_entropy(logits, targets)
-        grads = list(torch.autograd.grad(loss, params, materialize_grads=True))  # β gets none
-        with torch.no_grad():
+        with FORWARD:
+            if mesh is not None:
+                images, targets = mesh.block(images, "data"), mesh.block(targets, "data")
+            with data_shard(shard):
+                logits = model(images, train=True, generator=generator)
+            loss = soft_target_cross_entropy(logits, targets)
+        with BACKWARD:
+            grads = list(torch.autograd.grad(loss, params, materialize_grads=True))  # β gets none
+        with OPTIMIZER, torch.no_grad():
             if mesh is not None:
                 grads = data_mean(grads, mesh)
             if tp is not None:

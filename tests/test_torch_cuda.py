@@ -46,6 +46,7 @@ from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
 from ivit_tpu_torch.models import create_model
 from ivit_tpu_torch.models.swin import sw_attn_mask
 from ivit_tpu_torch.train import AdamW, create_train_state, make_train_step, soft_target_cross_entropy
+from ivit_tpu_torch.utils import spans
 
 pytestmark = pytest.mark.cuda
 
@@ -600,6 +601,66 @@ def test_graph_replay_is_bit_equal_to_eager(dev, path, batch):
     torch.cuda.synchronize()
     assert {name: fn.launches for name, fn in WRAPPERS.items()} == before
     torch.testing.assert_close(logits, eager, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("path", ["main", "swin"])
+def test_marked_graph_times_each_stage_and_equals_the_plain_graph(dev, path):
+    """While the profiler records, a replay runs the marked graph (the
+    same forward with a timing event at each span's start and end): its
+    logits equal the plain graph's bit for bit, and each replay gives one
+    sample of positive stage times, one a span of the eager forward.
+    With the profiler off the plain graph replays and nothing is
+    recorded; ``replay.launches`` counts the plain capture alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    infer, size, counts = _graph_engine(dev, path)
+    images = torch.from_numpy(np.random.default_rng(7).standard_normal((2, size, size, 3)).astype(np.float32)).to(dev)
+    spans.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        infer(images)
+    stages = [r.name for r in spans.take().spans]
+    before = spans.SETUP_S.get("capture_infer", 0.0)
+    graphed = capture_infer(infer, 2, size, dev)
+    assert graphed.launches == counts
+    assert spans.SETUP_S["capture_infer"] > before
+    plain = graphed(images)
+    torch.cuda.synchronize()
+    assert spans.take().samples == []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        first = graphed(images)
+        torch.cuda.synchronize()
+        second = graphed(images)  # the first has finished: marked again
+        torch.cuda.synchronize()
+    samples = spans.take().samples
+    assert len(samples) == 2
+    for sample in samples:
+        assert [name for name, _ in sample] == stages
+        assert all(ms > 0 for _, ms in sample)
+    for out in (first, second):
+        torch.testing.assert_close(out, plain, rtol=0, atol=0)
+    torch.testing.assert_close(graphed(images), plain, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    assert spans.take().samples == []
+
+
+def test_eager_spans_time_the_device(dev):
+    """On the card an eager span's device time comes from its timing
+    events; a train step's three phases each read a positive time."""
+    model = create_model("deit_tiny", device=dev, img_size=16, patch_size=8, num_classes=8, embed_dim=32, depth=2,
+                         num_heads=4)
+    state = create_train_state(model, AdamW(1e-3), device=dev)
+    step = make_train_step(model)
+    images = torch.randn((4, 16, 16, 3), device=dev)
+    targets = torch.nn.functional.one_hot(torch.arange(4, device=dev) % 8, 8).to(torch.float32)
+    state, _ = step(state, images, targets)
+    spans.take()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        step(state, images, targets)
+    records = spans.take().spans
+    assert [r.name for r in records] == ["train.forward", "train.backward", "train.optimizer"]
+    assert all(r.device_ms > 0 and r.host_ms > 0 for r in records)
 
 
 def test_graph_logits_do_not_change_at_the_next_call(dev):

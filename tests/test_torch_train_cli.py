@@ -197,12 +197,15 @@ def test_sgd_calibration_and_sigterm_save(tmp_path, monkeypatch):
 
 def test_profile_steps_write_a_trace(tmp_path):
     """``--profile-steps 1``: step 10 of epoch 0 under torch.profiler, its
-    trace in ``<output-dir>/profile``."""
+    trace in ``<output-dir>/profile`` holding the step's three spans."""
     argv = BASE[: BASE.index("--batch-size")] + ["--batch-size", "4", "--max-steps-per-epoch", "11"]
     argv += BASE[BASE.index("--aa"):]
     quant_train.main(argv + ["--epochs", "1", "--profile-steps", "1", "--output-dir", str(tmp_path)])
     trace = tmp_path / "profile" / "trace.json"
-    assert trace.exists() and '"traceEvents"' in trace.read_text()
+    text = trace.read_text()
+    assert '"traceEvents"' in text
+    for phase in ("train.forward", "train.backward", "train.optimizer"):
+        assert f'"{phase}"' in text
 
 
 # what each refused trainer flag's exit names: a ROADMAP item, or
