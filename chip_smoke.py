@@ -21,7 +21,9 @@ model axis, then serves the frozen results tensor-parallel (phase 13),
 and trains DeiT-S pipelined over two stages, then serves it (phase 14):
 
 * the main path: softmax_bits=8, stable ShiftGELU, K1 attention + K3
-  LayerNorm (the default kernels);
+  LayerNorm (the default kernels), and K9 for the fc1 epilogue (bias,
+  requant, stable ShiftGELU, requant), which runs with any kernel on a
+  stable-GELU model;
 * the reference-spec path: softmax_bits=16, row-max ShiftGELU, by three
   routes: A = K2 attention + K4 fc1-GEMM-with-GELU + K3; B = K6 Shiftmax
   into the base-256 split for the exact @V + K5 GELU + K3; and the K1 + K3 route as the
@@ -51,7 +53,12 @@ Phases:
    tables on the card against their torch twin; K5 (25216, 1536) /
    (197, 1536), also on edge rows (all negative, at the int8 clip edges,
    tied at their max) at (25216, 1536), (33, 256), (5, 100) and (100,
-   2048); K6 (151296, 197) / (1182, 197), also as a row-slice view
+   2048); K9 (25216, 1536) / (197, 1536) on the main path's block-0 fc1
+   accumulators (also against the plain chain) and on random ones, and on
+   edge inputs (|x + b| above 2^24, a wrapping bias add, rows clipping at
+   both ends) at those shapes, (25211, 1536), (37, 1540) and (5, 99) from
+   aligned and offset bases, and the 12 tables the engine filled on the
+   card against the CPU's; K6 (151296, 197) / (1182, 197), also as a row-slice view
    (151295, 197) whose base lies 4 bytes past a 16-byte boundary, and on
    edge rows (uniform, all at -128, one-hot at 2^30) at N in K6_N with
    n_valid below and at N, M = 7 and 1182, out_bits 8 and 16, a spread
@@ -72,7 +79,7 @@ Phases:
    just before it and read just after: logits bit-equal to the plain ops
    on the card, to the plain engine on the CPU (first two images), batch
    1 equal to row 0 of batch 128, and the launches per forward stated
-   (12 K1 + 25 K3; A: 12 K2 + 12 K4 + 25 K3; B: 12 K6 + 12 K5 + 25 K3;
+   (12 K1 + 25 K3 + 12 K9; A: 12 K2 + 12 K4 + 25 K3; B: 12 K6 + 12 K5 + 25 K3;
    Swin-T: 12 K7 + 28 K3); at sm16, routes A, B and K1 give equal logits;
    the nonzero share of the 8-bit attention probabilities per block;
 5. times (CUDA events after warm-up): each path's images/s at batch 128
@@ -105,7 +112,7 @@ Phases:
    batch 2 (FP32_RTOL; TF32 on must miss it), ``strict_dyadic`` at full
    DeiT-S width bit-equal to the CPU, a reference-style DeiT-S checkpoint
    through ``convert_model`` then the default kernels on the card
-   bit-equal to the plain engine on the CPU (12 K1 + 25 K3); and
+   bit-equal to the plain engine on the CPU (12 K1 + 25 K3 + 12 K9); and
    ``python -m ivit_tpu_torch.bench`` (one JSON line with ``bench.py``'s
    keys) and ``python -m ivit_tpu_torch.evaluate_latency`` at batch 1
    (the main path, and ``--model swin_tiny``) run as a user runs them,
@@ -238,7 +245,7 @@ Phases:
    batch 128 and tensor-parallel at 128 and 1, route B and Swin-T
    tensor-parallel at 128, every rank's logits bit-equal to phase 4's
    single-process engine and its launches a forward read around its own
-   run (12 K1 + 25 K3; 12 K6 + 12 K5 + 25 K3; 12 K7 + 28 K3), K4 under a
+   run (12 K1 + 25 K3 + 12 K9; 12 K6 + 12 K5 + 25 K3; 12 K7 + 28 K3), K4 under a
    model axis raising; K1, K3, K5, K6 and K7 (each Swin-T stage's first
    block, stage 1 replicated) against their plain versions on each
    rank's own inputs (tolerance 0; timed on rank 0 with its bound, the
@@ -264,8 +271,8 @@ Phases:
    step bit for bit; each rank's ms a step and optimizer-state bytes.
    The TP-trained DeiT-S (sm8, stable) and Swin-T are gathered whole,
    frozen and served by ``shard_infer_tp`` at TPQ_SERVE_BATCH: every
-   rank's logits equal to the single-process engine's, 12 K1 + 25 K3
-   and 12 K7 + 28 K3 a forward, and K3, K1 and K7 (each stage) against
+   rank's logits equal to the single-process engine's, 12 K1 + 25 K3 +
+   12 K9 and 12 K7 + 28 K3 a forward, and K3, K1 and K7 (each stage) against
    their plain versions on each rank's inputs (timed on rank 0: the
    ``tp2_trained`` entries of the kernels line);
 14. the GPipe pipeline on the one card (``parallel.pipeline``), two
@@ -279,7 +286,7 @@ Phases:
    phase 12's bounds; each rank's ms a step and optimizer-state bytes,
    which must be PP_OPT_BYTES. The pipe-trained model is gathered whole,
    frozen and served by ``build_vit_infer`` at PP_SERVE_BATCH: 12 K1 +
-   25 K3 a forward, its logits equal to ``kernels=()``'s, K1 and K3
+   25 K3 + 12 K9 a forward, its logits equal to ``kernels=()``'s, K1 and K3
    against their plain versions on this model's inputs (the
    ``pipe_trained`` entries of the kernels line).
 
@@ -402,6 +409,9 @@ GELU_TABLE_OPS = (REQUANT_OPS[0] + 1, 3)
 # the int -> float step and the r1 requant (float32) and the row max and
 # the lookup (int32)
 K5_TABLE_OPS = (REQUANT_OPS[0] + 1, 2)
+# K9, per element: the requant (its rint a magic-number add) in float32;
+# the int32 bias add, the conversion to float32 and the table byte
+K9_TABLE_OPS = (REQUANT_OPS[0], 3)
 # K6 since its redesign looks the shift-exp up in K1's table of the
 # integral z - zmax and splits sm in integers: per score the int -> float
 # step, the requant, the u32 -> float step, the multiply and the floor
@@ -1609,7 +1619,8 @@ def wrapper_calls(kernels, dev) -> dict:
     ``ivit_tpu_torch.kernels``, this checkout's or another's) as a call on
     seeded inputs at its path's batch-128 shape: K1 and K2 (768, 197,
     64), K3 (25216, 384), K4 (25216, 384) x (384, 1536), K5 (25216,
-    1536), K6 (151296, 197), K7 Swin-T stage 1 masked (24576, 49, 32)."""
+    1536), K6 (151296, 197), K7 Swin-T stage 1 masked (24576, 49, 32),
+    K9 (25216, 1536)."""
     import numpy as np
     import torch
 
@@ -1639,6 +1650,7 @@ def wrapper_calls(kernels, dev) -> dict:
     wbias = t(rng.integers(-40, 40, (3, 49, 49)).astype(np.float32))
     wmask = t(sw_attn_mask(56, 56, 7, 3) / np.float32(0.07))
     r_attn, s_in, r2 = f32(127.0 / (3 * 8 * 74.0**2)), f32(0.031), f32(0.7)
+    table = i8(256)
     return {
         "K1": lambda: kernels.fused_int8_attention(q, k, v, r_attn, f32(0.07), f32(0.05 / 128 / 0.021), 8),
         "K2": lambda: kernels.fused_int8_attention_v2(q, k, v, r_attn, f32(0.021), f32(0.05 / 32768 / 0.021), 197),
@@ -1648,6 +1660,7 @@ def wrapper_calls(kernels, dev) -> dict:
         "K6": lambda: kernels.fused_requant_shiftmax(scores, f32(3.1e-5), f32(0.021), 197),
         "K7": lambda: kernels.fused_int8_window_attention(wq, wk, wv, wbias, wmask, r_attn, f32(0.8), f32(0.07),
                                                           f32(0.05 / 128 / 0.021), 3),
+        "K9": lambda: kernels.fused_requant_stable_gelu(acc, b, r1, table),
     }
 
 
@@ -2224,8 +2237,8 @@ def mesh_phase(smi: str, inputs: dict) -> dict:
                 ranks.append(pickle.load(f))
     print(f"phase 12 mesh: {MESH_LABEL}; {smi}")
     depth, layernorms = 12, 25
-    expect = {"main DP=2 batch 128": {"K1": depth, "K3": layernorms}, "main TP=2 batch 128": {"K1": depth, "K3": layernorms},
-              "main TP=2 batch 1": {"K1": depth, "K3": layernorms},
+    main = {"K1": depth, "K3": layernorms, "K9": depth}  # K9 on each rank's fc1 columns under TP
+    expect = {"main DP=2 batch 128": main, "main TP=2 batch 128": main, "main TP=2 batch 1": main,
               "B TP=2 batch 128": {"K6": depth, "K5": depth, "K3": layernorms},
               "swin TP=2 batch 128": {"K7": 12, "K3": 28}}
     for r, res in enumerate(ranks):
@@ -2552,7 +2565,8 @@ def tpq_phase(smi: str) -> dict:
                     if "TP" in key and "vs_tp" in q:
                         check(q["vs_tp"]["equal"], f"rank {r} {key}: differs from TP without ZeRO-1 and remat")
             for name, sv in res["serve"].items():
-                expect = {"K7": 12, "K3": 28} if name.startswith("swin") else {"K1": 12, "K3": 25}
+                expect = ({"K7": 12, "K3": 28} if name.startswith("swin") else
+                          {"K1": 12, "K3": 25, "K9": 12} if "stable" in name else {"K1": 12, "K3": 25})
                 print(f"rank {r} {name} TP-trained, frozen, served by shard_infer_tp at batch {TPQ_SERVE_BATCH}: "
                       f"logits vs the single-process engine max_abs_err {sv['max_abs_err']} (tolerance 0); launches "
                       f"{sv['launches']}; {sv['ms']:.3f} ms a forward, host clock ({label})")
@@ -2807,7 +2821,7 @@ def pp_phase(smi: str) -> dict:
     check(c["loss_ulps"] <= MESH_LOSS_ULPS, f"pipelined loss off by {c['loss_ulps']} ulps")
     check(c["params1_outside"] == 0, f"{c['params1_outside']} parameters outside the bounds after step 1")
     sv = res["serve"]
-    expect = {"K1": 12, "K3": 25}
+    expect = {"K1": 12, "K3": 25, "K9": 12}  # PP_MODEL has the stable GELU
     print(f"pipe-trained DeiT-S gathered whole, frozen, served by build_vit_infer {sv['kernels']} at batch "
           f"{PP_SERVE_BATCH}: logits vs kernels=() max_abs_err {sv['max_abs_err']} (tolerance 0); launches "
           f"{sv['launches']}")
@@ -2842,6 +2856,7 @@ def main() -> int:
     from ivit_tpu_torch import convert_model
     from ivit_tpu_torch.deploy.engine import attention_half, attention_inputs, build_vit_infer, embed, int8_linear
     from ivit_tpu_torch.deploy.graphs import FORWARDS, capture_infer
+    from ivit_tpu_torch.ops import INT8, requant, shiftgelu
     from ivit_tpu_torch.deploy.swin_engine import (
         build_swin_infer,
         merge_gather,
@@ -2868,6 +2883,9 @@ def main() -> int:
         fused_requant_shiftgelu_reference,
         fused_requant_shiftmax,
         fused_requant_shiftmax_reference,
+        fused_requant_stable_gelu,
+        fused_requant_stable_gelu_reference,
+        stable_gelu_table,
     )
     from ivit_tpu_torch.kernels._gelu_common import gelu_table, gelu_table_on
     from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
@@ -2903,6 +2921,7 @@ def main() -> int:
         ("K5", "shiftgelu_fused.cu", r"(fused_requant_shiftgelu_kernel)", "{}"),
         ("K6", "shiftmax_fused.cu", r"fused_requant_shiftmax_kernelILi(\d+)E", "<copy bytes={}>"),
         ("K7", "window_attention_fused.cu", r"window_attention_kernelILi(\d)ELi(\d+)ELb(\d)E", "<depth={}, key tiles={}, masked={}>"),
+        ("K9", "stable_gelu_fused.cu", r"stable_gelu_table_kernel\D*(\d)", "<channels a thread={}>"),
     )
     for name, source, pattern, form in kernel_names:
         lib = _build.lib_path(source)
@@ -3177,6 +3196,65 @@ def main() -> int:
         check(bool((ref[0] <= 0).all()), "K5 edges: row 0 is not all negative")
         compare("K5", f"({M}, {C}) edge rows", fused_requant_shiftgelu(*args), ref)
 
+    # K9, the main path's fc1 epilogue: block 0's fc1 accumulators of the
+    # sm8 stable path at batch 128 and 1 (also against the plain chain the
+    # engine runs with kernels=()), random accumulators whose ratios spread
+    # q over int8, and edge inputs (|x + b| above 2^24 where the float32
+    # conversion rounds, a bias add that wraps, rows clipping at +127 and
+    # -128) at the path's shapes, a ragged M, a width past 128 words and an
+    # odd C, from 16-byte aligned bases and from bases 4 bytes past one
+    # (the one-channel path); the tables the engine filled on the card
+    # against the CPU's
+    fc1_8, gelu8 = blk8["fc1"], blk8["gelu"]
+
+    def k9_chain(acc, b, r1, table):
+        g, _ = shiftgelu(requant(acc + b, r1, *INT8), gelu8["scale"], out_bits=8, stable=True)
+        return requant(g, gelu8["ratio"], *INT8).to(torch.int8)
+
+    k9_inputs = {}
+    for size, xs in (("b128", x128), ("b1", x1)):
+        with torch.inference_mode():
+            y = fused_layernorm_requant_reference(attention_half(xs, blk8, t8["config"], ()),
+                                                  blk8["norm2"]["bias_int"], blk8["norm2"]["ratio"])
+            acc9 = int8_linear(y, fc1_8, bias=False)
+        M = acc9.shape[0]
+        k9_inputs[size] = (acc9, fc1_8["b"], fc1_8["ratio"], gelu8["table"])
+        racc = torch.randint(-(2**20), 2**20, (M, hidden), generator=gen, dtype=torch.int32).to(dev)
+        rr1 = torch.from_numpy((np.random.default_rng(M).uniform(0.5, 2.0, hidden) * 1e-4).astype(np.float32)).to(dev)
+        for data, args in (("sm8 block0", k9_inputs[size]), ("random", (racc, fc1_8["b"], rr1, gelu8["table"]))):
+            out9 = fused_requant_stable_gelu(*args)
+            compare("K9", f"({M}, {hidden}) {data}", out9, fused_requant_stable_gelu_reference(*args))
+            if data == "sm8 block0":
+                compare("K9", f"({M}, {hidden}) {data} against the plain chain", out9, k9_chain(*args))
+
+    def off16(t):
+        """``t`` on the card from a base 4 bytes past a 16-byte boundary."""
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return out.copy_(t)
+
+    for M, C in ((BATCH * N, hidden), (N, hidden), (BATCH * N - 5, hidden), (37, hidden + 4), (5, 99)):
+        ex = torch.randint(-(2**20), 2**20, (M, C), generator=gen, dtype=torch.int32)
+        eb = torch.randint(-(2**16), 2**16, (C,), generator=gen, dtype=torch.int32)
+        er1 = torch.from_numpy((np.random.default_rng(C).uniform(0.5, 2.0, C) * 1e-4).astype(np.float32))
+        ex[:, ::7] = torch.randint(-(2**27), 2**27, (M, len(range(0, C, 7))), generator=gen, dtype=torch.int32) | 1
+        eb[::7], er1[::7] = 0, float(np.float32(9e-7))
+        ex[1], ex[2] = 2**30, -(2**30)
+        eb[3] = 2**31 - 1
+        ex[:, 3] = ex[:, 3].abs() + 1  # x + b wraps
+        q9 = requant(ex + eb, er1, *INT8)
+        check(bool((q9[1, 4:] == 127).all() and (q9[2, 4:] == -128).all() and (q9[1:, 3] == -128).all()),
+              f"K9 edges ({M}, {C}): rows 1 and 2 do not clip, or channel 3's bias add does not wrap")
+        for base in ("aligned", "offset"):
+            args = (*(off16(a) if base == "offset" else a.to(dev) for a in (ex, eb, er1)), gelu8["table"])
+            ref = fused_requant_stable_gelu_reference(*args)
+            compare("K9", f"({M}, {C}) edges {base}", fused_requant_stable_gelu(*args), ref, quiet=True)
+    for i, blk9 in enumerate(t8["blocks"]):
+        compare("K9", f"table of block {i}", blk9["gelu"]["table"],
+                stable_gelu_table(blk9["gelu"]["scale"].cpu(), blk9["gelu"]["ratio"].cpu()).to(dev), quiet=True)
+    print(f"K9: max_abs_err 0 (tolerance 0) on edge inputs at ({BATCH * N}, {hidden}), ({N}, {hidden}), "
+          f"({BATCH * N - 5}, {hidden}), (37, {hidden + 4}) and (5, 99), aligned and offset bases; the "
+          f"{depth} tables the engine filled on the card equal to the CPU's")
+
     # K7 and K3 on the Swin path's own inputs at batch 128 and batch 1:
     # each stage's block 0 (unshifted) and block 1 (shifted, masked in
     # stages 1-3) window q, k, v, and the norm inputs of each stage's
@@ -3342,7 +3420,8 @@ def main() -> int:
         check(torch.equal(logits[:2].cpu(), cpu2), f"route {name}: differs from the CPU plain engine")
 
     layernorms = 2 * depth + 1
-    logits, main_counts = drive("main", infer, {"K1": depth, "K3": layernorms})
+    main_expect = {"K1": depth, "K3": layernorms, "K9": depth}
+    logits, main_counts = drive("main", infer, main_expect)
     plain8 = build_vit_infer(art8, dev, kernels=())
     against_plain("main", logits, plain8(images_dev), build_vit_infer(art8, "cpu", kernels=())(images[:2]))
     shares = nonzero_probability_share(art8, images[:8], dev)
@@ -3396,7 +3475,7 @@ def main() -> int:
         print(f"engine {name} batch 1: median {lat[len(lat) // 2]} ms/image, min {lat[0]}, max {lat[-1]} "
               f"(host clock, {len(lat)} runs); device {cuda_ms(lambda: fn(images_dev[:1]), 50)} ms/forward")
 
-    engine_times("main (sm8, K1+K3)", infer, plain8)
+    engine_times("main (sm8, K1+K3+K9)", infer, plain8)
     engine_times("A (sm16, K2+K4+K3)", routes16["A"], plain16)
     engine_times("B (sm16, K6+K5+K3)", routes16["B"])
     engine_times("K1 (sm16, K1+K3)", routes16["K1"])
@@ -3471,6 +3550,14 @@ def main() -> int:
                                           elementwise=per_element(M * hidden, K5_TABLE_OPS))
         chain_bounds[("K5", shape5)] = bound_ms(M * hidden * 5 + 4 * hidden,
                                                 elementwise=per_element(M * hidden, GELU_OPS))
+    # K9 beside the plain chain the engine runs with kernels=() (bias add,
+    # requant, stable ShiftGELU, requant)
+    for args9 in k9_inputs.values():
+        M = args9[0].shape[0]
+        shape9 = f"({M}, {hidden})"
+        timings[("K9", shape9)] = paired_ms(lambda: fused_requant_stable_gelu(*args9), lambda: k9_chain(*args9), 10)
+        bounds[("K9", shape9)] = bound_ms(M * hidden * 5 + 8 * hidden + 256,
+                                          elementwise=per_element(M * hidden, K9_TABLE_OPS))
     for key, (k_ms, p_ms, q_ms) in timings.items():
         b, by = bounds[key]
         lib = f", torch._int_mm GEMM alone {library[key]} ms" if key in library else ""
@@ -3480,6 +3567,7 @@ def main() -> int:
     print(f"operation counts per element (float32, int32): K7 WINDOW_TABLE_OPS {WINDOW_TABLE_OPS} + MASK_OPS "
           f"{MASK_OPS} where masked, before: SHIFTMAX_OPS {SHIFTMAX_OPS} + WINDOW_MERGE_OPS {WINDOW_MERGE_OPS}; "
           f"K4 GELU_TABLE_OPS {GELU_TABLE_OPS}, K5 K5_TABLE_OPS {K5_TABLE_OPS}, before: GELU_OPS {GELU_OPS}; "
+          f"K9 K9_TABLE_OPS {K9_TABLE_OPS}; "
           f"K6 K6_TABLE_OPS {K6_TABLE_OPS}, before: SHIFTMAX_OPS {SHIFTMAX_OPS} + SPLIT_OPS {SPLIT_OPS}")
 
     # K3 over one batch-128 forward of each model: each launch's shape
@@ -3533,7 +3621,7 @@ def main() -> int:
     # through the warm-up and both captures, its replay bit-equal to the eager
     # logits above; at batch 1, eager against graphed ms/image and idle
     graph_paths = {
-        "main": (infer, logits, {"K1": depth, "K3": layernorms}),
+        "main": (infer, logits, main_expect),
         "A": (routes16["A"], route_logits["A"], expects["A"]),
         "B": (routes16["B"], route_logits["B"], expects["B"]),
         "K1": (routes16["K1"], route_logits["K1"], expects["K1"]),
@@ -3649,7 +3737,7 @@ def main() -> int:
     ing_cpu = build_vit_infer(ingested, "cpu", kernels=())(images[:2])
     print(f"ingest: kernels {sorted(ing_infer.kernels)}, launches {ing_counts}; logits vs the plain engine on the "
           f"CPU max_abs_err {float((ing_logits.cpu() - ing_cpu).abs().max())} (tolerance 0)")
-    check(ing_counts == {"K1": depth, "K3": layernorms}, f"ingest: launches {ing_counts}")
+    check(ing_counts == main_expect, f"ingest: launches {ing_counts}")
     check(torch.equal(ing_logits.cpu(), ing_cpu), "ingest: the card differs from the CPU plain engine")
 
     # the CLIs as a user runs them
@@ -3658,7 +3746,7 @@ def main() -> int:
     result = json.loads(bench_lines[-1])
     check(set(result) == {"metric", "value", "unit", "vs_baseline"}, f"bench: keys {sorted(result)}")
     check(all(math.isfinite(result[k]) and result[k] > 0 for k in ("value", "vs_baseline")), f"bench: {result}")
-    for args, per_forward in ((["--softmax-bits", "8", "--gelu-stable"], {"K1": depth, "K3": layernorms}),
+    for args, per_forward in ((["--softmax-bits", "8", "--gelu-stable"], main_expect),
                               (["--model", "swin_tiny"], {"K7": swin_blocks, "K3": swin_norms})):
         lines = run_cli(["ivit_tpu_torch.evaluate_latency", *args], 300)
         check(re.match(r"^\S+ int8 batch=1: [0-9.]+ ms/iter, [0-9.]+ img/s$", lines[-1]) is not None,
@@ -3698,7 +3786,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     export_phase(dev, {
-        "main": (infer, {"K1": depth, "K3": layernorms}),
+        "main": (infer, main_expect),
         "A": (routes16["A"], expects["A"]),
         "B": (routes16["B"], expects["B"]),
         "strict": (path_engine("strict", dev), {}),
@@ -3730,25 +3818,27 @@ def main() -> int:
     big = {"K1": f"({BATCH * H}, {N}, {hd})", "K2": f"({BATCH * H}, {N}, {hd})",
            "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",
            "K5": f"({BATCH * N}, {hidden})", "K6": f"({BATCH * H * N}, {N})",
-           "K7": window_shape(window_inputs[("b128", 0, 1)][1][0], window_inputs[("b128", 0, 1)][0]["attn"])}
-    sources = {"K1": ("attention_fused.cu", "attention_fused.py:126"),
-               "K2": ("attention_fused_v2.cu", "attention_fused_v2.py:140"),
-               "K3": ("intnorm_fused.cu", "intnorm_fused.py:74"),
-               "K4": ("linear_gelu_fused.cu", "linear_gelu_fused.py:87"),
-               "K5": ("shiftgelu_fused.cu", "shiftgelu_fused.py:79"),
-               "K6": ("shiftmax_fused.cu", "shiftmax_fused.py:95"),
-               "K7": ("window_attention_fused.cu", "window_attention_fused.py:132")}
+           "K7": window_shape(window_inputs[("b128", 0, 1)][1][0], window_inputs[("b128", 0, 1)][0]["attn"]),
+           "K9": f"({BATCH * N}, {hidden})"}
+    sources = {"K1": ("attention_fused.cu", "kernels/attention_fused.py:126"),
+               "K2": ("attention_fused_v2.cu", "kernels/attention_fused_v2.py:140"),
+               "K3": ("intnorm_fused.cu", "kernels/intnorm_fused.py:74"),
+               "K4": ("linear_gelu_fused.cu", "kernels/linear_gelu_fused.py:87"),
+               "K5": ("shiftgelu_fused.cu", "kernels/shiftgelu_fused.py:79"),
+               "K6": ("shiftmax_fused.cu", "kernels/shiftmax_fused.py:95"),
+               "K7": ("window_attention_fused.cu", "kernels/window_attention_fused.py:132"),
+               "K9": ("stable_gelu_fused.cu", "deploy/engine.py (the stable-GELU epilogue as XLA ops)")}
     launches = {"K1": main_counts["K1"], "K3": main_counts["K3"], "K2": route_counts["A"]["K2"],
                 "K4": route_counts["A"]["K4"], "K5": route_counts["B"]["K5"], "K6": route_counts["B"]["K6"],
-                "K7": swin_counts["K7"]}
-    tp2_launches = {"K1": depth, "K3": layernorms, "K5": depth, "K6": depth, "K7": swin_blocks}
+                "K7": swin_counts["K7"], "K9": main_counts["K9"]}
+    tp2_launches = {"K1": depth, "K3": layernorms, "K5": depth, "K6": depth, "K7": swin_blocks, "K9": depth}
     record = {"kernels": []}
     for name, fn in WRAPPERS.items():
         key = (name, big[name])
         src, tpu = sources[name]
         record["kernels"].append({
             "name": f"{name} {fn.__name__}", "route": "cuda",
-            "source": f"ivit_tpu_torch/csrc/{src}", "replaces": f"ivit_tpu/kernels/{tpu}",
+            "source": f"ivit_tpu_torch/csrc/{src}", "replaces": f"ivit_tpu/{tpu}",
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": timings[key][0], "queued_ms": timings[key][2], "plain_ms": timings[key][1],
             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],

@@ -16,19 +16,28 @@ pure-XLA path's arithmetic, with the JAX engine's kernel selection
 * ``"linear_gelu"``: the fc1 GEMM with the requant → row-max ShiftGELU
   → requant chain as its epilogue, K4 (``kernels.fused_linear_shiftgelu``);
 * ``"gelu"``: the fc1 GEMM, then that chain through K5
-  (``kernels.fused_requant_shiftgelu``).
+  (``kernels.fused_requant_shiftgelu``);
+* ``"gelu_stable"``: the fc1 GEMM, then its bias add → requant → stable
+  ShiftGELU → requant chain through K9
+  (``kernels.fused_requant_stable_gelu``), one lookup an element in the
+  block's 256-entry table (``kernels.stable_gelu_table``, filled at
+  build time by the plain chain on the engine's device). The JAX engine
+  has no such kernel; K9 is the port's own.
 
 Each attention and GELU kernel launches depth times a forward, at every
-batch size. The default is ``("attention", "layernorm")``. Precedence is
+batch size. The default is ``("attention", "layernorm")``. K9 needs no
+name: it runs wherever the model has ``gelu_stable`` and any kernel is
+asked for, and ``infer.kernels`` then holds ``"gelu_stable"``; naming it
+is accepted too. ``kernels=()`` stays the plain path. Precedence is
 the JAX engine's (``ivit_tpu/deploy/engine.py:204-209``): ``attention``
 over ``attention2`` over ``softmax``, and ``linear_gelu`` over ``gelu``.
 Where one of JAX's gates would turn a requested kernel off, the engine
 raises ``ValueError`` at build time instead, so that a launch count
 proves each requested kernel ran: ``softmax`` at 8-bit probabilities
-(it splits 16-bit ones); either GELU kernel under ``gelu_stable`` (they
-run the row-max form only); more than 256 tokens with any attention
-kernel (the exact row-sum bound); and, with ``attention2``, a block
-whose softmax input scale fails K2's gate.
+(it splits 16-bit ones); either row-max GELU kernel under
+``gelu_stable``, and K9's name on a row-max model; more than 256 tokens
+with any attention kernel (the exact row-sum bound); and, with
+``attention2``, a block whose softmax input scale fails K2's gate.
 
 JAX's ``attn_v_mode`` has no counterpart: "f32" and "exact" give the
 same integers (a row's probabilities sum to less than 2^15 and
@@ -74,6 +83,8 @@ from ..kernels import (
     fused_linear_shiftgelu,
     fused_requant_shiftgelu,
     fused_requant_shiftmax,
+    fused_requant_stable_gelu,
+    stable_gelu_table,
 )
 from ..core.dyadic import dyadic_decompose
 from ..kernels.attention_fused import MAX_TOKENS, SHIFTMAX_N
@@ -84,7 +95,7 @@ from ..ops.intmm import int8_matmul
 from ..utils.spans import Span
 from .artifact import artifact_to_torch
 
-KERNEL_NAMES = ("attention", "attention2", "softmax", "gelu", "linear_gelu", "layernorm")
+KERNEL_NAMES = ("attention", "attention2", "softmax", "gelu", "linear_gelu", "layernorm", "gelu_stable")
 DEFAULT_KERNELS = ("attention", "layernorm")
 _ATTENTION_KERNELS = {"attention", "attention2", "softmax"}
 # the stages of a forward (utils/spans.py), shared with deploy/swin_engine.py
@@ -109,6 +120,10 @@ def select_kernels(cfg: dict, kernels=DEFAULT_KERNELS) -> frozenset:
     gelus = sorted(on & {"gelu", "linear_gelu"})
     if gelus and cfg["gelu_stable"]:
         raise ValueError(f"{gelus}: the GELU kernels run the row-max ShiftGELU; this model has gelu_stable=True")
+    if "gelu_stable" in on and not cfg["gelu_stable"]:
+        raise ValueError("gelu_stable: K9 runs the stable ShiftGELU; this model has gelu_stable=False (row max)")
+    if on and cfg["gelu_stable"]:
+        on.add("gelu_stable")
     n_tokens = (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
     if on & _ATTENTION_KERNELS and n_tokens > MAX_TOKENS:
         raise ValueError(
@@ -118,7 +133,7 @@ def select_kernels(cfg: dict, kernels=DEFAULT_KERNELS) -> frozenset:
     return frozenset(on)
 
 
-def int8_linear(x: torch.Tensor, layer: dict) -> torch.Tensor:
+def int8_linear(x: torch.Tensor, layer: dict, bias: bool = True) -> torch.Tensor:
     """(M, K) int8 @ w (K, N) int8 [+ b] → (M, N) int32, exact, through
     ``ops.intmm.int8_matmul``; the bias is added where the layer has one
     (Swin's patch-merging ``reduction`` has none). A ``w`` carried
@@ -129,13 +144,15 @@ def int8_linear(x: torch.Tensor, layer: dict) -> torch.Tensor:
     (``parallel.tp_infer``) may also hold ``cols``, the (start, stop) of
     x's columns its row block multiplies; ``reduce``, which sums the
     partial products over the model group before the bias is added once;
-    and ``gather``, which joins the column blocks of the group after it."""
+    and ``gather``, which joins the column blocks of the group after it.
+    ``bias=False`` leaves the bias to the caller's epilogue (K9), which
+    adds it after any ``reduce``; a ``gather`` needs it added before."""
     if "cols" in layer:
         x = x[:, slice(*layer["cols"])].contiguous()
     acc = int8_matmul(x, layer["w"], layer.get("n"))
     if "reduce" in layer:
         acc = layer["reduce"](acc)
-    if "b" in layer:
+    if "b" in layer and bias:
         acc = acc + layer["b"]
     return layer["gather"](acc) if "gather" in layer else acc
 
@@ -232,6 +249,8 @@ def _mlp_hidden(y: torch.Tensor, blk: dict, cfg: dict, kernels: frozenset) -> to
     fc1, gelu = blk["fc1"], blk["gelu"]
     if "linear_gelu" in kernels:
         return fused_linear_shiftgelu(y, fc1["w_t"].T, fc1["b"], fc1["ratio"], gelu["s_in"], gelu["r2"])
+    if "gelu_stable" in kernels:
+        return fused_requant_stable_gelu(int8_linear(y, fc1, bias=False), fc1["b"], fc1["ratio"], gelu["table"])
     acc = int8_linear(y, fc1)
     if "gelu" in kernels:
         return fused_requant_shiftgelu(acc, fc1["ratio"], gelu["s_in"], gelu["r2"])
@@ -286,7 +305,8 @@ def _strict_ratios(t: dict) -> None:
 
 def engine_tensors(artifact: dict, device, kernels=DEFAULT_KERNELS, strict_dyadic: bool = False,
                    validate: bool = True) -> tuple[dict, frozenset]:
-    """The carried tensors of ``artifact`` on ``device`` and the kernels
+    """The carried tensors of ``artifact`` on ``device`` (with each
+    block's K9 table, ``gelu["table"]``, where K9 runs) and the kernels
     the engine runs, with ``build_vit_infer``'s gates (it raises where
     they refuse); ``validate=False`` carries an artifact whose schema the
     caller has checked (a tensor-parallel shard)."""
@@ -300,6 +320,9 @@ def engine_tensors(artifact: dict, device, kernels=DEFAULT_KERNELS, strict_dyadi
     active = select_kernels(cfg, kernels)
     if strict_dyadic:
         _strict_ratios(t)
+    if "gelu_stable" in active:
+        for blk in t["blocks"]:
+            blk["gelu"]["table"] = stable_gelu_table(blk["gelu"]["scale"], blk["gelu"]["ratio"])
     if "attention2" in active:
         n_tokens = (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
         for i, blk in enumerate(t["blocks"]):

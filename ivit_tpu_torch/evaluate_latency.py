@@ -52,8 +52,8 @@ def main(argv=None):
                    help="elementwise-stable ShiftGELU for the synthetic path")
     p.add_argument("--kernels", default=None,
                    help="comma list of the engine's kernels= names (ViT: attention, attention2, softmax, "
-                        "gelu, linear_gelu, layernorm; Swin: attention, layernorm); default the engine's "
-                        "default, '' the plain ops")
+                        "gelu, linear_gelu, layernorm, gelu_stable; Swin: attention, layernorm); default the "
+                        "engine's default, '' the plain ops")
     p.add_argument("--device", default="cuda", help="cuda (a CUDA graph) or cpu (the eager engine)")
     args = p.parse_args(argv)
 

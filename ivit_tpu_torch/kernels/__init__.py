@@ -19,6 +19,7 @@ from .intnorm_fused import fused_layernorm_requant, fused_layernorm_requant_refe
 from .linear_gelu_fused import fused_linear_shiftgelu, fused_linear_shiftgelu_reference
 from .shiftgelu_fused import fused_requant_shiftgelu, fused_requant_shiftgelu_reference
 from .shiftmax_fused import fused_requant_shiftmax, fused_requant_shiftmax_reference
+from .stable_gelu_fused import fused_requant_stable_gelu, fused_requant_stable_gelu_reference, stable_gelu_table
 from .window_attention_fused import fused_int8_window_attention, fused_int8_window_attention_reference
 
 # every kernel wrapper, by the name of its TPU kernel's number
@@ -30,6 +31,7 @@ WRAPPERS = {
     "K5": fused_requant_shiftgelu,
     "K6": fused_requant_shiftmax,
     "K7": fused_int8_window_attention,
+    "K9": fused_requant_stable_gelu,  # the port's own: no TPU kernel (K8 is the GEMMs' XLA epilogues)
 }
 
 __all__ = [
@@ -48,4 +50,7 @@ __all__ = [
     "fused_requant_shiftgelu_reference",
     "fused_requant_shiftmax",
     "fused_requant_shiftmax_reference",
+    "fused_requant_stable_gelu",
+    "fused_requant_stable_gelu_reference",
+    "stable_gelu_table",
 ]

@@ -61,6 +61,10 @@ _ENTRY_POINTS = {
         # table, s_in, r2, n, stream
         "ivit_gelu_table": (_P, _F, _F, _I, _P),
     },
+    "stable_gelu_fused.cu": {
+        # x, b, r1, table, out, M, C, stream
+        "ivit_fused_requant_stable_gelu": (_P, _P, _P, _P, _P, _I, _I, _P),
+    },
     "shiftmax_fused.cu": {
         # x, hi, lo, M, N, n_valid, r1, scale, n, out_bits, stream
         "ivit_fused_requant_shiftmax": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P),

@@ -22,7 +22,8 @@ collectives held in the shard's layers (``deploy.engine.int8_linear``):
   after the sum; the requant and the residual run on full rows, as does
   every LayerNorm (K3), on every rank.
 * **fc1 column-parallel.** Under ``gelu_stable`` the GELU is
-  elementwise and each rank finishes its own columns. The row-max
+  elementwise and each rank finishes its own columns (through K9, with
+  the bias of its columns, wherever any kernel runs). The row-max
   ShiftGELU (the reference spec and every Swin) needs the whole 4C row:
   the int32 accumulator is all-gathered and the chain (K5 when
   ``"gelu"`` is asked for, else plain) runs on full rows, each rank then

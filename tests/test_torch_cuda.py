@@ -40,6 +40,9 @@ from ivit_tpu_torch.kernels import (
     fused_requant_shiftgelu_reference,
     fused_requant_shiftmax,
     fused_requant_shiftmax_reference,
+    fused_requant_stable_gelu,
+    fused_requant_stable_gelu_reference,
+    stable_gelu_table,
 )
 from ivit_tpu_torch.kernels._gelu_common import gelu_table, gelu_table_on
 from ivit_tpu_torch.kernels.attention_fused import attention_probabilities
@@ -184,11 +187,12 @@ def test_engine_kernel_path_matches_cpu(dev, softmax_bits, gelu_stable):
         img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2, num_classes=16,
     )
     images = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 32, 32, 3)).astype(np.float32))
-    k1, k3 = fused_int8_attention.launches, fused_layernorm_requant.launches
+    k1, k3, k9 = fused_int8_attention.launches, fused_layernorm_requant.launches, fused_requant_stable_gelu.launches
     logits = build_vit_infer(artifact, dev)(images)
     torch.cuda.synchronize()
     assert fused_int8_attention.launches - k1 == 2
     assert fused_layernorm_requant.launches - k3 == 5
+    assert fused_requant_stable_gelu.launches - k9 == (2 if gelu_stable else 0)  # K9: depth, on stable models
     torch.testing.assert_close(logits.cpu(), build_vit_infer(artifact, "cpu")(images), rtol=0, atol=0)
 
 
@@ -332,6 +336,66 @@ def test_linear_gelu_kernel_at_path_and_ragged_shapes(dev, shape):
 def test_gelu_table_on_card_matches_twin(dev, s_in, r2):
     s_in, r2 = float(np.float32(s_in)), float(np.float32(r2))
     torch.testing.assert_close(gelu_table_on(dev, s_in, r2).cpu(), gelu_table(s_in, r2), rtol=0, atol=0)
+
+
+def _stable_gelu_case(M, C, seed):
+    """K9's inputs: int32 accumulators, a bias and per-channel ratios; most
+    q spread over int8, every seventh channel above 2^24 in |x + b| (odd:
+    the float32 conversion rounds) at a ratio that keeps it in range,
+    row 1 clipping at +127 and row 2 at -128, channel 3's bias add
+    wrapping; and the table of a DeiT-like block."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-(2**20), 2**20, (M, C)).astype(np.int32)
+    b = rng.integers(-(2**16), 2**16, (C,)).astype(np.int32)
+    r1 = (rng.uniform(0.5, 2.0, (C,)) * 1e-4).astype(np.float32)
+    x[:, ::7] = rng.integers(-(2**27), 2**27, (M, len(range(0, C, 7)))) | 1
+    b[::7] = 0
+    r1[::7] = np.float32(9e-7)
+    if M > 2:
+        x[1], x[2] = 2**30, -(2**30)
+    if C > 3:
+        b[3] = 2**31 - 1
+        x[:, 3] = np.abs(x[:, 3]) + 1
+    # a DeiT-like output ratio s_in / 2^7 / s_out: outputs spread over int8
+    table = stable_gelu_table(torch.tensor(np.float32(0.031)), torch.tensor(np.float32(0.008)))
+    return [torch.from_numpy(a) for a in (x, b, r1)] + [table]
+
+
+# DeiT-S fc1 at batch 128 and 1, a ragged M, widths that are not
+# multiples of 128 words, a C that is not a multiple of 4 (one channel a
+# thread), and the per-rank width at TP = 2
+@pytest.mark.parametrize("shape", [(25216, 1536), (197, 1536), (1003, 1536), (37, 1540), (5, 99), (25216, 768)])
+def test_stable_gelu_kernel_matches_reference(dev, shape):
+    x, b, r1, table = _stable_gelu_case(*shape, seed=shape[0] + shape[1])
+    args = [a.to(dev) for a in (x, b, r1, table)]
+    before = fused_requant_stable_gelu.launches
+    out = fused_requant_stable_gelu(*args)
+    torch.cuda.synchronize()
+    assert fused_requant_stable_gelu.launches == before + 1
+    torch.testing.assert_close(out.cpu(), fused_requant_stable_gelu_reference(x, b, r1, table), rtol=0, atol=0)
+    assert out.unique().numel() > (50 if shape[0] > 100 else 20)
+
+
+def test_stable_gelu_kernel_off_16_byte_boundaries(dev):
+    """x, b and r1 whose bases lie 4 bytes past a 16-byte boundary take
+    the one-channel path; the result is the same."""
+    x, b, r1, table = _stable_gelu_case(1000, 1536, seed=3)
+
+    def offset(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:].view(t.shape)
+        return out.copy_(t)
+
+    xd, bd, rd = offset(x), offset(b), offset(r1)
+    assert xd.data_ptr() % 16 and bd.data_ptr() % 16 and rd.data_ptr() % 16
+    out = fused_requant_stable_gelu(xd, bd, rd, table.to(dev))
+    torch.testing.assert_close(out.cpu(), fused_requant_stable_gelu_reference(x, b, r1, table), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("s,r", [(1e-4, 0.02), (0.0021, 0.9), (0.031, 0.7), (0.4, 1.3), (1.9, 0.05), (40.0, 0.011)])
+def test_stable_gelu_table_on_card_matches_cpu(dev, s, r):
+    scale, ratio = torch.tensor(np.float32(s)), torch.tensor(np.float32(r))
+    torch.testing.assert_close(stable_gelu_table(scale.to(dev), ratio.to(dev)).cpu(), stable_gelu_table(scale, ratio),
+                               rtol=0, atol=0)
 
 
 # (M, N, n_valid): route B's batch-1 shape, N in (1, 5, 197, 256) with
@@ -558,7 +622,7 @@ def test_engines_at_widths_not_multiples_of_8(dev, model):
 # The paths of deploy/graphs.py at a reduced depth: (model, softmax_bits,
 # gelu_stable, kernels or None for the engine's default, launches a forward)
 GRAPH_PATHS = {
-    "main": ("vit", 8, True, None, {"K1": 2, "K3": 5}),
+    "main": ("vit", 8, True, None, {"K1": 2, "K3": 5, "K9": 2}),
     "A": ("vit", 16, False, ("layernorm", "attention2", "linear_gelu"), {"K2": 2, "K4": 2, "K3": 5}),
     "B": ("vit", 16, False, ("layernorm", "softmax", "gelu"), {"K6": 2, "K5": 2, "K3": 5}),
     "K1_sm16": ("vit", 16, False, None, {"K1": 2, "K3": 5}),
@@ -1143,20 +1207,22 @@ def test_fast_matmul_backward_on_card(dev, monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "kernels,counts",
+    "kernels,counts,stable",
     [
-        (("attention", "layernorm"), {"K1": 2, "K3": 5}),
-        (("layernorm", "attention2", "linear_gelu"), {"K2": 2, "K4": 2, "K3": 5}),
-        (("layernorm", "softmax", "gelu"), {"K6": 2, "K5": 2, "K3": 5}),
+        (("attention", "layernorm"), {"K1": 2, "K3": 5}, False),
+        (("layernorm", "attention2", "linear_gelu"), {"K2": 2, "K4": 2, "K3": 5}, False),
+        (("layernorm", "softmax", "gelu"), {"K6": 2, "K5": 2, "K3": 5}, False),
+        (("attention", "layernorm"), {"K1": 2, "K3": 5, "K9": 2}, True),
     ],
-    ids=["main", "A", "B"],
+    ids=["main", "A", "B", "main_stable"],
 )
-def test_exported_engine_on_card_equals_live(dev, kernels, counts):
+def test_exported_engine_on_card_equals_live(dev, kernels, counts, stable):
     """An engine exported on the card and reloaded from its bytes: the
     live engine's logits (tolerance 0) and its launches, counted by the
-    operators; captured as a CUDA graph, the same again."""
+    operators; captured as a CUDA graph, the same again. ``main_stable``
+    is the benchmark's path: sm8 and the stable GELU, K9 in each block."""
     artifact = synthetic_vit_artifact(
-        "deit_tiny", seed=1, softmax_bits=16, gelu_stable=False,
+        "deit_tiny", seed=1, softmax_bits=8 if stable else 16, gelu_stable=stable,
         img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2, num_classes=16,
     )
     images = torch.from_numpy(np.random.default_rng(2).standard_normal((3, 32, 32, 3)).astype(np.float32)).to(dev)
@@ -1218,7 +1284,7 @@ def _tp_case():
 def test_nccl_world_of_one(dev, tmp_path):
     """A world of one over nccl: the engine on a (1, 1) mesh (its
     all-reduces and gathers over one-rank nccl groups) equal to the plain
-    engine on the CPU with 2 K1 + 5 K3 launches a forward; a ZeRO-1 step
+    engine on the CPU with 2 K1 + 5 K3 + 2 K9 launches a forward; a ZeRO-1 step
     on it equal bit for bit to the single-process step."""
     from torch_parallel_worker import run_ranks, serve_on_card
 
@@ -1229,7 +1295,7 @@ def test_nccl_world_of_one(dev, tmp_path):
             "batches": [(images, targets, 5)]}
     [r] = run_ranks(1, tmp_path, serve_on_card, art, images, (1, 1), spec, backend="nccl", device="cuda")
     np.testing.assert_array_equal(r["logits"], cpu)
-    assert r["launches"] == {"K1": 2, "K3": 5}
+    assert r["launches"] == {"K1": 2, "K3": 5, "K9": 2}
     for name, p in r["plain"].items():
         assert torch.equal(r["zero1"][name], p), name
 
@@ -1237,17 +1303,17 @@ def test_nccl_world_of_one(dev, tmp_path):
 def test_two_gloo_ranks_share_the_card_tp2(dev, tmp_path):
     """Two ranks on cuda:0 over an explicitly named gloo group (the
     collectives staged through the host): tensor-parallel tiny DeiT on
-    K1 + K3, each rank's logits equal to the plain engine on the CPU,
-    each rank launching 2 K1 (on its 2 of 4 heads) + 5 K3 (full rows) a
-    forward."""
+    K1 + K3 + K9, each rank's logits equal to the plain engine on the CPU,
+    each rank launching 2 K1 (on its 2 of 4 heads) + 5 K3 (full rows) +
+    2 K9 (on its half of fc1's columns) a forward."""
     from torch_parallel_worker import run_ranks, serve_on_card
 
     art, images, cpu = _tp_case()
     ranks = run_ranks(2, tmp_path, serve_on_card, art, images, (1, 2), backend="gloo", device="cuda")
     for r in ranks:
-        assert r["device"] == "cuda:0" and r["kernels"] == ["attention", "layernorm"]
+        assert r["device"] == "cuda:0" and r["kernels"] == ["attention", "gelu_stable", "layernorm"]
         np.testing.assert_array_equal(r["logits"], cpu)
-        assert r["launches"] == {"K1": 2, "K3": 5}
+        assert r["launches"] == {"K1": 2, "K3": 5, "K9": 2}
 
 
 # the tiny DeiT of tests/test_torch_parallel_tp_train.py: 17 tokens, 4 heads

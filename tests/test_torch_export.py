@@ -1,7 +1,7 @@
 """Serialized engines (``deploy.export``) on the CPU, against the live
 port engine and against JAX's serialized engine.
 
-For the main path (K1 + K3), route A (K2 + K4 + K3), route B (K6 + K5 +
+For the main path (K1 + K3 + K9), route A (K2 + K4 + K3), route B (K6 + K5 +
 K3), ``strict_dyadic`` (no kernel) and a two-stage Swin (K7 + K3), on
 seeded tiny artifacts (DeiT img 32, patch 8, depth 2; Swin img 16, patch
 2, depths (2, 2), window 4):
@@ -9,7 +9,7 @@ seeded tiny artifacts (DeiT img 32, patch 8, depth 2; Swin img 16, patch
 * the exported graph calls aten operators and ``ivit::`` operators only
   (and ``operator.getitem``, which takes K6's two outputs apart), each
   ``ivit::`` operator as often as the live engine launches its kernel in
-  a forward (K1 + K3 at depth 2: 2 and 5);
+  a forward (K1 + K3 + K9 at depth 2: 2, 5 and 2);
 * reloaded from the bytes in a fresh ``python`` process that builds no
   engine (``scripts/torch_reload_engine.py``), the logits are bit-equal
   (tolerance 0) to the live engine's, and to ``ivit_tpu.deploy.
@@ -57,7 +57,7 @@ SM8 = dict(softmax_bits=8, gelu_stable=True)
 SM16 = dict(softmax_bits=16, gelu_stable=False)
 # path: (model, artifact overrides, engine kwargs, ivit:: operator nodes = launches a forward)
 PATHS = {
-    "main": ("vit", SM8, dict(kernels=("attention", "layernorm")), {"K1": 2, "K3": 5}),
+    "main": ("vit", SM8, dict(kernels=("attention", "layernorm")), {"K1": 2, "K3": 5, "K9": 2}),
     "route-a": ("vit", SM16, dict(kernels=("layernorm", "attention2", "linear_gelu")), {"K2": 2, "K4": 2, "K3": 5}),
     "route-b": ("vit", SM16, dict(kernels=("layernorm", "softmax", "gelu")), {"K6": 2, "K5": 2, "K3": 5}),
     "strict": ("vit", SM8, dict(kernels=(), strict_dyadic=True), {}),

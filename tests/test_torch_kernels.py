@@ -276,7 +276,8 @@ def test_cuda_sources_and_build_line():
         assert os.path.isfile(os.path.join(_build.CSRC, f)), f
     assert set(_build.SOURCES) == {
         "attention_fused.cu", "attention_fused_v2.cu", "intnorm_fused.cu",
-        "linear_gelu_fused.cu", "shiftgelu_fused.cu", "shiftmax_fused.cu", "window_attention_fused.cu",
+        "linear_gelu_fused.cu", "shiftgelu_fused.cu", "shiftmax_fused.cu", "stable_gelu_fused.cu",
+        "window_attention_fused.cu",
     }
     for source in _build.SOURCES:
         cmd = " ".join(_build.nvcc_command(source, "/tmp/x.so", nvcc="nvcc"))
