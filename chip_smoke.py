@@ -117,7 +117,11 @@ Phases:
    keys) and ``python -m ivit_tpu_torch.evaluate_latency`` at batch 1
    (the main path, and ``--model swin_tiny``) run as a user runs them,
    each required to exit 0, their lines printed and their launches a
-   forward checked;
+   forward checked; ViT-L/16 at 384² (577 tokens, ``vit_long_path``) by
+   its default kernels at batch VIT_L384_BATCH, eager and captured, every
+   count set to 0 just before each: 24 K10 + 49 K3 + 24 K9 a forward and
+   no K1, the logits bit-equal to ``kernels=()`` on the card, the replay
+   to the eager forward, and its images/s graphed;
 7. the QAT trainer (``models.create_model``, ``train.create_train_state``,
    ``train.make_train_step``, ``deploy.convert.freeze_vit``) at the full
    width and depth of DeiT-S, on seeded normal images with label-smoothed
@@ -1620,7 +1624,7 @@ def wrapper_calls(kernels, dev) -> dict:
     seeded inputs at its path's batch-128 shape: K1 and K2 (768, 197,
     64), K3 (25216, 384), K4 (25216, 384) x (384, 1536), K5 (25216,
     1536), K6 (151296, 197), K7 Swin-T stage 1 masked (24576, 49, 32),
-    K9 (25216, 1536)."""
+    K9 (25216, 1536), K10 ViT-L/16 at 384² (2048, 577, 64)."""
     import numpy as np
     import torch
 
@@ -1651,6 +1655,7 @@ def wrapper_calls(kernels, dev) -> dict:
     wmask = t(sw_attn_mask(56, 56, 7, 3) / np.float32(0.07))
     r_attn, s_in, r2 = f32(127.0 / (3 * 8 * 74.0**2)), f32(0.031), f32(0.7)
     table = i8(256)
+    lq, lk, lv = i8(2048, 577, 64), i8(2048, 577, 64), i8(2048, 577, 64)
     return {
         "K1": lambda: kernels.fused_int8_attention(q, k, v, r_attn, f32(0.07), f32(0.05 / 128 / 0.021), 8),
         "K2": lambda: kernels.fused_int8_attention_v2(q, k, v, r_attn, f32(0.021), f32(0.05 / 32768 / 0.021), 197),
@@ -1661,7 +1666,69 @@ def wrapper_calls(kernels, dev) -> dict:
         "K7": lambda: kernels.fused_int8_window_attention(wq, wk, wv, wbias, wmask, r_attn, f32(0.8), f32(0.07),
                                                           f32(0.05 / 128 / 0.021), 3),
         "K9": lambda: kernels.fused_requant_stable_gelu(acc, b, r1, table),
+        "K10": lambda: kernels.fused_int8_attention_long(lq, lk, lv, r_attn, f32(0.07), f32(0.05 / 128 / 0.021), 8),
     }
+
+
+VIT_L384_BATCH = 32  # phase 6's ViT-L/16 at 384² batch (the plain path's 577-token attention is the largest part)
+
+
+def vit_long_path(dev, build_vit_infer, capture_infer, forwards: int) -> dict:
+    """Phase 6's ViT-L/16 at 384²: the main path above 256 tokens (K10),
+    its launches counted around its own eager forward and its own
+    capture; returns the launches a forward."""
+    import numpy as np
+    import torch
+
+    from ivit_tpu_torch.deploy import synthetic_vit_artifact
+    from ivit_tpu_torch.kernels import WRAPPERS
+
+    art = synthetic_vit_artifact("vit_large", seed=SEED, img_size=384, softmax_bits=8, gelu_stable=True)
+    cfg = art["config"]
+    depth = cfg["depth"]
+    expect = {"K10": depth, "K3": 2 * depth + 1, "K9": depth}
+    rng = np.random.default_rng(SEED)
+    images = torch.from_numpy(rng.standard_normal((VIT_L384_BATCH, 384, 384, 3), dtype=np.float32)).to(dev)
+    infer = build_vit_infer(art, dev)
+    check(infer.kernels == {"attention", "layernorm", "gelu_stable"}, f"vit_l384: kernels {sorted(infer.kernels)}")
+
+    def counts() -> dict:
+        return {k: w.launches for k, w in WRAPPERS.items() if w.launches}
+
+    for w in WRAPPERS.values():
+        w.launches = 0
+    logits = infer(images)
+    torch.cuda.synchronize()
+    eager = counts()
+    print(f"vit_l384 (ViT-L/16 at 384², {cfg['img_size'] // cfg['patch_size']}² + 1 tokens) batch "
+          f"{VIT_L384_BATCH}: launches a forward {eager}")
+    check(eager == expect, f"vit_l384: launches {eager}, expected {expect}")
+    plain = build_vit_infer(art, dev, kernels=())(images)
+    e_plain = float((logits - plain).abs().max())
+    print(f"vit_l384: logits vs kernels=() on the card: max_abs_err {e_plain} (tolerance 0); distinct argmax "
+          f"{int(logits.argmax(-1).unique().numel())}, logit std {float(logits.std())}")
+    check(torch.equal(logits, plain), "vit_l384: differs from kernels=() on the card")
+    del plain
+    for w in WRAPPERS.values():
+        w.launches = 0
+    graphed = capture_infer(infer, VIT_L384_BATCH, 384, dev)
+    captured = counts()
+    out = graphed(images)
+    torch.cuda.synchronize()
+    print(f"vit_l384 graph: launches through the capture's {forwards} forwards {captured}, in the plain capture "
+          f"{graphed.launches}")
+    check(graphed.launches == expect, f"vit_l384 graph: {graphed.launches} launches a forward")
+    check(captured == {k: forwards * n for k, n in expect.items()}, f"vit_l384 graph: launches {captured}")
+    check(counts() == captured, "vit_l384 graph: a replay counted launches")
+    check(torch.equal(out, logits), "vit_l384 graph: replay differs from eager")
+    ms = cuda_ms(lambda: graphed(images), 5)
+    print(f"vit_l384 graph batch {VIT_L384_BATCH}: replay logits vs eager: max_abs_err "
+          f"{float((out - logits).abs().max())} (tolerance 0); {ms} ms/forward, "
+          f"{VIT_L384_BATCH / ms * 1e3} images/s (CUDA events)")
+    per_forward = dict(graphed.launches)
+    del graphed, out, infer
+    torch.cuda.empty_cache()
+    return per_forward
 
 
 def path_engine(name: str, dev):
@@ -2870,6 +2937,8 @@ def main() -> int:
         WRAPPERS,
         _build,
         fused_int8_attention,
+        fused_int8_attention_long,
+        fused_int8_attention_long_reference,
         fused_int8_attention_reference,
         fused_int8_attention_v2,
         fused_int8_attention_v2_reference,
@@ -3558,6 +3627,23 @@ def main() -> int:
         timings[("K9", shape9)] = paired_ms(lambda: fused_requant_stable_gelu(*args9), lambda: k9_chain(*args9), 10)
         bounds[("K9", shape9)] = bound_ms(M * hidden * 5 + 8 * hidden + 256,
                                           elementwise=per_element(M * hidden, K9_TABLE_OPS))
+    # K10 at ViT-L/16 at 384², batch 128, against its plain version 256
+    # cells at a time
+    G10, N10, hd10 = 2048, 577, 64
+    shape10 = f"({G10}, {N10}, {hd10})"
+    g10 = torch.Generator(device=dev).manual_seed(SEED)
+    qkv10 = [torch.randint(-128, 128, (G10, N10, hd10), generator=g10, device=dev, dtype=torch.int8)
+             for _ in range(3)]
+    ratios10 = (float(np.float32(1 / 2000.0)), float(np.float32(1 / 40.0)), float(np.float32(1 / 300.0)))
+
+    def k10_plain():
+        return torch.cat([fused_int8_attention_long_reference(*(a[i:i + 256] for a in qkv10), *ratios10)
+                          for i in range(0, G10, 256)])
+
+    compare("K10", shape10, fused_int8_attention_long(*qkv10, *ratios10), k10_plain())
+    timings[("K10", shape10)] = paired_ms(lambda: fused_int8_attention_long(*qkv10, *ratios10), k10_plain, 3)
+    bounds[("K10", shape10)] = bound_ms(4 * G10 * N10 * hd10, int8_ops=4 * G10 * N10 * N10 * hd10)
+    del qkv10
     for key, (k_ms, p_ms, q_ms) in timings.items():
         b, by = bounds[key]
         lib = f", torch._int_mm GEMM alone {library[key]} ms" if key in library else ""
@@ -3674,6 +3760,8 @@ def main() -> int:
                 device_profile(f"{name} graphed", 1, graphed, 0)
             del graphed, out
         torch.cuda.empty_cache()
+
+    vit_l384_launches = vit_long_path(dev, build_vit_infer, capture_infer, FORWARDS)
 
     # host synchronisations inside one eager batch-128 forward of each path
     # (after a warm one): none, as a capture needs. The profiled window
@@ -3819,7 +3907,7 @@ def main() -> int:
            "K3": f"({BATCH * N}, {D})", "K4": f"({BATCH * N}, {D}) x ({D}, {hidden})",
            "K5": f"({BATCH * N}, {hidden})", "K6": f"({BATCH * H * N}, {N})",
            "K7": window_shape(window_inputs[("b128", 0, 1)][1][0], window_inputs[("b128", 0, 1)][0]["attn"]),
-           "K9": f"({BATCH * N}, {hidden})"}
+           "K9": f"({BATCH * N}, {hidden})", "K10": "(2048, 577, 64)"}
     sources = {"K1": ("attention_fused.cu", "kernels/attention_fused.py:126"),
                "K2": ("attention_fused_v2.cu", "kernels/attention_fused_v2.py:140"),
                "K3": ("intnorm_fused.cu", "kernels/intnorm_fused.py:74"),
@@ -3827,10 +3915,12 @@ def main() -> int:
                "K5": ("shiftgelu_fused.cu", "kernels/shiftgelu_fused.py:79"),
                "K6": ("shiftmax_fused.cu", "kernels/shiftmax_fused.py:95"),
                "K7": ("window_attention_fused.cu", "kernels/window_attention_fused.py:132"),
-               "K9": ("stable_gelu_fused.cu", "deploy/engine.py (the stable-GELU epilogue as XLA ops)")}
+               "K9": ("stable_gelu_fused.cu", "deploy/engine.py (the stable-GELU epilogue as XLA ops)"),
+               "K10": ("attention_long.cu", "deploy/engine.py:227-237 (the XLA attention above 256 tokens)")}
     launches = {"K1": main_counts["K1"], "K3": main_counts["K3"], "K2": route_counts["A"]["K2"],
                 "K4": route_counts["A"]["K4"], "K5": route_counts["B"]["K5"], "K6": route_counts["B"]["K6"],
-                "K7": swin_counts["K7"], "K9": main_counts["K9"]}
+                "K7": swin_counts["K7"], "K9": main_counts["K9"],
+                "K10": vit_l384_launches["K10"]}  # ViT-L/16 at 384², phase 6
     tp2_launches = {"K1": depth, "K3": layernorms, "K5": depth, "K6": depth, "K7": swin_blocks, "K9": depth}
     record = {"kernels": []}
     for name, fn in WRAPPERS.items():

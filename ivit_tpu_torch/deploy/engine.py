@@ -7,7 +7,11 @@ pure-XLA path's arithmetic, with the JAX engine's kernel selection
 * ``"layernorm"``: every I-LayerNorm → requant runs through K3
   (``kernels.fused_layernorm_requant``), 2·depth + 1 launches a forward;
 * ``"attention"``: every attention (int8 Q·Kᵀ → requant → Shiftmax →
-  @V → requant) runs through K1 (``kernels.fused_int8_attention``);
+  @V → requant) runs through K1 (``kernels.fused_int8_attention``) up
+  to 256 tokens, and through K10 (``kernels.fused_int8_attention_long``,
+  the spec's three-limb row sum) from 257 to 1,024: the port's own
+  kernel where the JAX engine turns its kernels off and runs XLA ops
+  (``ivit_tpu/deploy/engine.py:227-237``);
 * ``"attention2"``: the same chain through K2
   (``kernels.fused_int8_attention_v2``, v2's value semantics);
 * ``"softmax"``: int8 Q·Kᵀ, then K6 (``kernels.fused_requant_shiftmax``)
@@ -36,7 +40,9 @@ raises ``ValueError`` at build time instead, so that a launch count
 proves each requested kernel ran: ``softmax`` at 8-bit probabilities
 (it splits 16-bit ones); either row-max GELU kernel under
 ``gelu_stable``, and K9's name on a row-max model; more than 256 tokens
-with any attention kernel (the exact row-sum bound); and, with
+with ``attention2`` or ``softmax`` (K2's and K6's exact row-sum bound),
+and more than 1,024 with ``attention``, or above 256 a head dim that is
+not a multiple of 4 up to 64 (K10's domain); and, with
 ``attention2``, a block whose softmax input scale fails K2's gate.
 
 JAX's ``attn_v_mode`` has no counterpart: "f32" and "exact" give the
@@ -76,6 +82,7 @@ import torch
 
 from ..kernels import (
     fused_int8_attention,
+    fused_int8_attention_long,
     fused_int8_attention_reference,
     fused_int8_attention_v2,
     fused_layernorm_requant,
@@ -88,6 +95,8 @@ from ..kernels import (
 )
 from ..core.dyadic import dyadic_decompose
 from ..kernels.attention_fused import MAX_TOKENS, SHIFTMAX_N
+from ..kernels.attention_long import MAX_HEAD_DIM as LONG_MAX_HEAD_DIM
+from ..kernels.attention_long import MAX_TOKENS as LONG_MAX_TOKENS
 from ..kernels.attention_fused_v2 import scale_gate
 from ..ops import INT8, INT16, requant, shiftgelu, shiftmax
 from ..ops.interp import div, f32
@@ -100,6 +109,8 @@ DEFAULT_KERNELS = ("attention", "layernorm")
 _ATTENTION_KERNELS = {"attention", "attention2", "softmax"}
 # the stages of a forward (utils/spans.py), shared with deploy/swin_engine.py
 EMBED, ATTENTION, MLP, HEAD = (Span(f"engine.{stage}") for stage in ("embed", "attention", "mlp", "head"))
+# inside engine.attention: the attention core alone (K1, K10 or the plain chain)
+ATTENTION_CORE = Span("engine.attention_core")
 
 def select_kernels(cfg: dict, kernels=DEFAULT_KERNELS) -> frozenset:
     """The kernels a model of config ``cfg`` runs when ``kernels`` are
@@ -125,12 +136,22 @@ def select_kernels(cfg: dict, kernels=DEFAULT_KERNELS) -> frozenset:
     if on and cfg["gelu_stable"]:
         on.add("gelu_stable")
     n_tokens = (cfg["img_size"] // cfg["patch_size"]) ** 2 + 1
-    if on & _ATTENTION_KERNELS and n_tokens > MAX_TOKENS:
-        raise ValueError(
-            f"N={n_tokens} tokens exceeds the fused attention bound of {MAX_TOKENS} "
-            f"(kernels {sorted(on & _ATTENTION_KERNELS)})"
-        )
+    bounded = sorted(on & (_ATTENTION_KERNELS - {"attention"}))
+    if bounded and n_tokens > MAX_TOKENS:
+        raise ValueError(f"N={n_tokens} tokens exceeds the fused attention bound of {MAX_TOKENS} (kernels {bounded})")
+    if "attention" in on and n_tokens > LONG_MAX_TOKENS:
+        raise ValueError(f"N={n_tokens} tokens exceeds K10's bound of {LONG_MAX_TOKENS} (kernel 'attention')")
+    hd = cfg["embed_dim"] // cfg["num_heads"]
+    if "attention" in on and n_tokens > MAX_TOKENS and (hd % 4 or hd > LONG_MAX_HEAD_DIM):
+        raise ValueError(f"head dim {hd}: K10 (kernel 'attention' at N={n_tokens} tokens) takes a multiple of 4 "
+                         f"up to {LONG_MAX_HEAD_DIM}")
     return frozenset(on)
+
+
+def attention_wrapper(n_tokens: int):
+    """The kernel ``"attention"`` runs at ``n_tokens``: K1 up to 256
+    tokens, K10 above."""
+    return fused_int8_attention if n_tokens <= MAX_TOKENS else fused_int8_attention_long
 
 
 def int8_linear(x: torch.Tensor, layer: dict, bias: bool = True) -> torch.Tensor:
@@ -236,7 +257,7 @@ def _attention(q, k, v, a: dict, bits: int, kernels: frozenset) -> torch.Tensor:
     if "dyadic" in a:
         return dyadic_attention(q, k, v, a, bits)
     if "attention" in kernels:
-        return fused_int8_attention(q, k, v, a["r1"], a["scale"], a["r_out"], bits)
+        return attention_wrapper(q.shape[1])(q, k, v, a["r1"], a["scale"], a["r_out"], bits)
     if "attention2" in kernels:
         return fused_int8_attention_v2(q, k, v, a["r1"], a["scale"], a["r_out"], q.shape[1], bits)
     if "softmax" in kernels:
@@ -265,7 +286,8 @@ def attention_half(x: torch.Tensor, blk: dict, cfg: dict, kernels=DEFAULT_KERNEL
     B, N, C = x.shape
     H = blk["heads"]
     q, k, v = attention_inputs(x, blk, H, kernels)
-    ctx = _attention(q, k, v, blk["attn"], int(cfg["softmax_bits"]), kernels)
+    with ATTENTION_CORE:
+        ctx = _attention(q, k, v, blk["attn"], int(cfg["softmax_bits"]), kernels)
     ctx = ctx.reshape(B, H, N, -1).permute(0, 2, 1, 3).reshape(B * N, -1)
     proj = blk["proj"]
     branch = requant(int8_linear(ctx, proj), proj["ratio"], *INT16)
@@ -337,7 +359,8 @@ def engine_tensors(artifact: dict, device, kernels=DEFAULT_KERNELS, strict_dyadi
 def vit_forward(images: torch.Tensor, t: dict, kernels: frozenset) -> torch.Tensor:
     """The engine's forward on carried tensors ``t``: float32 NHWC images
     on ``t``'s device → logits, in the spans ``engine.embed``, then
-    ``engine.attention`` and ``engine.mlp`` a block, then ``engine.head``."""
+    ``engine.attention`` (holding ``engine.attention_core``) and
+    ``engine.mlp`` a block, then ``engine.head``."""
     cfg = t["config"]
     with EMBED:
         x = embed(images, t)

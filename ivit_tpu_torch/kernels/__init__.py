@@ -14,6 +14,7 @@ at the first CUDA launch.
 """
 
 from .attention_fused import fused_int8_attention, fused_int8_attention_reference
+from .attention_long import fused_int8_attention_long, fused_int8_attention_long_reference
 from .attention_fused_v2 import fused_int8_attention_v2, fused_int8_attention_v2_reference
 from .intnorm_fused import fused_layernorm_requant, fused_layernorm_requant_reference
 from .linear_gelu_fused import fused_linear_shiftgelu, fused_linear_shiftgelu_reference
@@ -32,11 +33,14 @@ WRAPPERS = {
     "K6": fused_requant_shiftmax,
     "K7": fused_int8_window_attention,
     "K9": fused_requant_stable_gelu,  # the port's own: no TPU kernel (K8 is the GEMMs' XLA epilogues)
+    "K10": fused_int8_attention_long,  # the port's own: the JAX engine runs XLA ops above 256 tokens
 }
 
 __all__ = [
     "WRAPPERS",
     "fused_int8_attention",
+    "fused_int8_attention_long",
+    "fused_int8_attention_long_reference",
     "fused_int8_attention_reference",
     "fused_int8_attention_v2",
     "fused_int8_attention_v2_reference",

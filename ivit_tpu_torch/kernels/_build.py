@@ -43,6 +43,10 @@ _ENTRY_POINTS = {
         # q, k, v, out, G, N, hd, r1, scale, r_out, n, out_bits, stream
         "ivit_fused_int8_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P),
     },
+    "attention_long.cu": {
+        # q, k, v, out, G, N, hd, r1, scale, r_out, n, out_bits, stream
+        "ivit_fused_int8_attention_long": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P),
+    },
     "attention_fused_v2.cu": {
         # q, k, v, out, G, N, hd, r1, scale, r_out, n, out_bits, stream
         "ivit_fused_int8_attention_v2": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _P),

@@ -6,7 +6,9 @@ with ``with``: ``engine.embed``, ``engine.attention``, ``engine.mlp``,
 (``deploy/engine.py``, ``deploy/swin_engine.py``), ``train.forward``,
 ``train.backward`` and ``train.optimizer`` in the train step
 (``train/steps.py``). The spans of one level tile their forward or step:
-each kernel it launches is launched inside exactly one of them.
+each kernel it launches is launched inside exactly one of them. A span
+may lie inside another: the ViT engine's ``engine.attention_core`` (the
+attention kernel or its plain chain) inside ``engine.attention``.
 
 Tracing is on exactly while ``torch.profiler`` records: a span reads
 ``torch.autograd.profiler._is_profiler_enabled``, the flag the profiler
@@ -73,17 +75,20 @@ class Trace:
 
 
 class Marks:
-    """The stages of a forward captured under ``marking()``: ``(name,
-    start event, end event)`` in the order the spans closed."""
+    """The stages of a forward captured under ``marking()``: ``[name,
+    start event, end event]`` in the order the spans opened, as the host
+    records of an eager forward lie; ``last`` is the end event of the
+    span that closed last."""
 
     def __init__(self):
         self.stages: list = []
+        self.last = None
         self.replayed = False  # a replay whose sample is not read yet
 
     def ready(self) -> bool:
         """Whether the graph holds stages and its last replay has finished
         (``Event.query``, no wait)."""
-        return bool(self.stages) and (not self.replayed or self.stages[-1][2].query())
+        return bool(self.stages) and (not self.replayed or self.last.query())
 
     def replay(self, graph: torch.cuda.CUDAGraph) -> None:
         """Read the previous replay's stage times into the recorder, then
@@ -98,7 +103,7 @@ class Marks:
 _spans: list[Record] = []
 _samples: list[tuple] = []
 _replayed: list[Marks] = []  # marks whose last replay's sample is not read yet
-_open: list = []  # (span, record or None, record_function or start event) of each open span
+_open: list = []  # (span, record or None, record_function or marked stage) of each open span
 _marks: Marks | None = None  # set inside marking()
 
 
@@ -118,7 +123,9 @@ class Span:
         if _marks is not None:
             start = torch.cuda.Event(enable_timing=True, external=True)
             start.record()
-            _open.append((self, None, start))
+            stage = [self.name, start, None]
+            _marks.stages.append(stage)
+            _open.append((self, None, stage))
             return self
         parent = next((r.name for _, r, _ in reversed(_open) if r is not None), None)
         record = Record(self.name, parent, time.perf_counter_ns())
@@ -139,7 +146,7 @@ class Span:
         if record is None:
             end = torch.cuda.Event(enable_timing=True, external=True)
             end.record()
-            _marks.stages.append((self.name, held, end))
+            held[2] = _marks.last = end
             return False
         if record.events is not None:
             end = torch.cuda.Event(enable_timing=True)
@@ -193,7 +200,7 @@ def _read(marks: Marks) -> None:
 def _resolve() -> None:
     """Read every pending device time, waiting for its end event."""
     for marks in list(_replayed):
-        marks.stages[-1][2].synchronize()
+        marks.last.synchronize()
         _read(marks)
     for r in _spans:
         if r.events is not None and len(r.events) == 2:

@@ -27,6 +27,8 @@ from ivit_tpu_torch.deploy.synthetic import synthetic_vit_artifact
 from ivit_tpu_torch.kernels import (
     WRAPPERS,
     fused_int8_attention,
+    fused_int8_attention_long,
+    fused_int8_attention_long_reference,
     fused_int8_attention_reference,
     fused_int8_attention_v2,
     fused_int8_attention_v2_reference,
@@ -1388,3 +1390,70 @@ def test_int_mm_on_a_dropped_graphs_stream_stays_exact(dev):
             for (M, K, N), g, want in zip(shapes, got, exact):
                 assert torch.equal(g, want), (rep, M, K, N, (g != want).nonzero().tolist()[:20])
         del noise
+
+
+# ---- K10: the fused attention over rows of 257 to 1,024 tokens ------------------------------------
+
+
+def _long_edge_case(N, hd=64):
+    """int8 q, k, v of three cells whose every row's exp sum passes 2^24 at
+    r1 = 1 and scale 1/3: all-equal rows (every score 100), and rows whose
+    last (or first) 177 scores are 69 and the rest 100, a sum whose low
+    bits float32 rounds away (``tests/test_torch_attention_long.py``)."""
+    q = torch.ones((3, N, hd), dtype=torch.int8)
+    k = torch.tensor([2] * 36 + [1] * 28, dtype=torch.int8)[:hd].repeat(3, N, 1)
+    low = torch.tensor([2] * 5 + [1] * 59, dtype=torch.int8)[:hd]
+    k[1, N - 177:] = low
+    k[2, :177] = low
+    v = torch.randint(-128, 128, (3, N, hd), generator=torch.Generator().manual_seed(N), dtype=torch.int8)
+    return q, k, v
+
+
+@pytest.mark.parametrize("N", [257, 290, 577, 1024])
+@pytest.mark.parametrize("out_bits", [8, 16])
+def test_long_attention_kernel_matches_reference(dev, N, out_bits):
+    """K10 equals its plain version and K1's bit for bit: random cells at
+    four ratio pairs, a tied and a saturated row, and the edge rows."""
+    cases = [(_attention_case(12, N, 64, out_bits, seed=N)[0], ratios)
+             for ratios in ((1 / 2000.0, 1 / 40.0, 1 / 300.0), (1 / 400.0, 1 / 8.0, 1 / 300.0),
+                            (1 / 100.0, 1 / 300.0, 1 / 300.0), (1e-5, 1 / 600.0, 1 / 300.0))]
+    cases.append((list(_long_edge_case(N)), (1.0, 1 / 3.0, 1 / 300.0)))
+    for qkv, ratios in cases:
+        before = fused_int8_attention_long.launches
+        out = fused_int8_attention_long(*(a.to(dev) for a in qkv), *ratios, out_bits)
+        torch.cuda.synchronize()
+        assert fused_int8_attention_long.launches == before + 1
+        ref = fused_int8_attention_long_reference(*qkv, *ratios, out_bits)
+        torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=0)
+        torch.testing.assert_close(ref, fused_int8_attention_reference(*qkv, *ratios, out_bits), rtol=0, atol=0)
+
+
+def test_long_attention_kernel_at_vit_l384_batch_128(dev):
+    """K10 at ViT-L/16 at 384², batch 128: (2048, 577, 64), against the
+    plain version on the card, 256 cells at a time."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randint(-128, 128, (2048, 577, 64), generator=g, device=dev, dtype=torch.int8) for _ in range(3))
+    ratios = (1 / 2000.0, 1 / 40.0, 1 / 300.0)
+    out = fused_int8_attention_long(q, k, v, *ratios)
+    for i in range(0, 2048, 256):
+        ref = fused_int8_attention_long_reference(q[i:i + 256], k[i:i + 256], v[i:i + 256], *ratios)
+        torch.testing.assert_close(out[i:i + 256], ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name, overrides, counts", [
+    ("vit_large", dict(img_size=384), {"K10": 24, "K3": 49, "K9": 24}),
+    ("deit_small", {}, {"K1": 12, "K3": 25, "K9": 12}),
+], ids=["vit_l384", "deit_s"])
+def test_attention_kernel_by_row_length(dev, name, overrides, counts):
+    """ViT-L/16 at 384² (577 tokens) runs K10 in every block and no K1;
+    DeiT-S (197) runs K1 and no K10; both equal ``kernels=()`` on the card."""
+    artifact = synthetic_vit_artifact(name, seed=3, **overrides)
+    size = artifact["config"]["img_size"]
+    images = torch.from_numpy(np.random.default_rng(3).standard_normal((2, size, size, 3)).astype(np.float32))
+    infer = build_vit_infer(artifact, dev)
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    logits = infer(images)
+    torch.cuda.synchronize()
+    assert {n: fn.launches for n, fn in WRAPPERS.items() if fn.launches} == counts
+    torch.testing.assert_close(logits, build_vit_infer(artifact, dev, kernels=())(images), rtol=0, atol=0)

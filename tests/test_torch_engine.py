@@ -171,12 +171,17 @@ def test_broken_artifact_raises(jax_frozen):
 
 
 def test_more_than_256_tokens_raises():
+    """Over 256 tokens ``attention2`` and ``softmax`` raise (K2's and K6's
+    row-sum bound); ``attention``, the default, runs K10 there."""
     synth = synthetic_vit_artifact("deit_tiny", img_size=136, patch_size=8, embed_dim=64,
-                                   depth=1, num_heads=2, num_classes=8)  # N = 290
-    with pytest.raises(ValueError, match="256"):
-        build_vit_infer(synth, "cpu")
+                                   depth=1, num_heads=2, num_classes=8, softmax_bits=16,
+                                   gelu_stable=False)  # N = 290
+    for kernels in (("attention2", "layernorm"), ("softmax",)):
+        with pytest.raises(ValueError, match="256"):
+            build_vit_infer(synth, "cpu", kernels=kernels)
+    assert build_vit_infer(synth, "cpu").kernels == {"attention", "layernorm"}
     # the plain path has no such bound
-    assert build_vit_infer(synth, "cpu", kernels=("layernorm",)).kernels == {"layernorm", "gelu_stable"}
+    assert build_vit_infer(synth, "cpu", kernels=("layernorm",)).kernels == {"layernorm"}
 
 
 def test_engine_defaults_to_the_card():

@@ -275,7 +275,7 @@ def test_cuda_sources_and_build_line():
     for f in _build.SOURCES + _build.HEADERS:
         assert os.path.isfile(os.path.join(_build.CSRC, f)), f
     assert set(_build.SOURCES) == {
-        "attention_fused.cu", "attention_fused_v2.cu", "intnorm_fused.cu",
+        "attention_fused.cu", "attention_fused_v2.cu", "attention_long.cu", "intnorm_fused.cu",
         "linear_gelu_fused.cu", "shiftgelu_fused.cu", "shiftmax_fused.cu", "stable_gelu_fused.cu",
         "window_attention_fused.cu",
     }

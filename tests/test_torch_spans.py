@@ -68,12 +68,18 @@ def test_vit_engine_records_its_stages_in_order(vit):
     images = _images(VIT["img_size"])
     logits, prof = _profiled(lambda: vit(images))
     records = spans.take().spans
-    names = [r.name for r in records]
+    top = [r for r in records if r.parent is None]
+    names = [r.name for r in top]
     assert names == ["engine.embed"] + ["engine.attention", "engine.mlp"] * VIT["depth"] + ["engine.head"]
-    assert all(r.parent is None and r.device_ms is None and r.end_ns >= r.start_ns for r in records)
-    assert all(a.end_ns <= b.start_ns for a, b in zip(records, records[1:]))  # they tile, in order
+    assert all(r.device_ms is None and r.end_ns >= r.start_ns for r in records)
+    assert all(a.end_ns <= b.start_ns for a, b in zip(top, top[1:]))  # they tile, in order
+    # the attention core lies inside each attention half, once a block
+    cores = [r for r in records if r.parent is not None]
+    assert [(r.name, r.parent) for r in cores] == [("engine.attention_core", "engine.attention")] * VIT["depth"]
+    halves = [r for r in top if r.name == "engine.attention"]
+    assert all(h.start_ns <= c.start_ns and c.end_ns <= h.end_ns for h, c in zip(halves, cores))
     events = {e.name for e in prof.events()}
-    assert set(names) <= events
+    assert set(names) | {"engine.attention_core"} <= events
     torch.testing.assert_close(logits, vit(images), rtol=0, atol=0)
 
 
@@ -148,7 +154,7 @@ def test_train_step_records_its_phases_and_computes_the_same():
 
 def test_take_clears_and_peek_keeps(vit):
     _profiled(lambda: vit(_images(VIT["img_size"])))
-    n = 2 + 2 * VIT["depth"]
+    n = 2 + 3 * VIT["depth"]  # embed, head; attention, its core and mlp a block
     assert len(spans.peek().spans) == n
     assert len(spans.take().spans) == n
     assert spans.take().spans == [] and spans.peek().spans == []
