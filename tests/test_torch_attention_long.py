@@ -28,15 +28,7 @@ from ivit_tpu_torch.kernels._shiftmax_common import shift_exp_table
 from ivit_tpu_torch.kernels.attention_fused import SHIFTMAX_N
 from ivit_tpu_torch.kernels.attention_long import limb_tree_sum
 from ivit_tpu_torch.ops.shiftmax import _exact_sum_lastdim
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: these small float64 products and elementwise
-    chains run tens of times slower split over contended cores."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 # (r1, softmax input scale): small, middling and large shift-exps; at

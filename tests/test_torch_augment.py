@@ -17,6 +17,7 @@ from ivit_tpu.train.augment import MixupConfig as JaxMixupConfig
 from ivit_tpu.train.augment import mixup_cutmix as jax_mixup_cutmix
 from ivit_tpu_torch.train import MixupConfig, mixup_cutmix
 from ivit_tpu_torch.train.augment import MixupDraws, apply_mixup, cutmix_box, draw_mixup
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _jax_draws(key, cfg, h, w):

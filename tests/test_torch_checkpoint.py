@@ -32,21 +32,11 @@ from ivit_tpu_torch.models import create_model
 from ivit_tpu_torch.nn.flax_state import flatten
 from ivit_tpu_torch.train import SGD, AdamW, cosine_schedule, create_train_state, make_train_step
 from ivit_tpu_torch.utils import load_checkpoint, load_checkpoint_raw, save_checkpoint
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(img_size=16, patch_size=8, num_classes=8, embed_dim=32, depth=2, num_heads=4)
 SCHED = dict(base_lr=1e-3, steps_per_epoch=2, epochs=4, warmup_epochs=1, warmup_lr=5e-4)
 WD, MOMENTUM, EMA = 0.05, 0.9, 0.9
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the models here are small, and the default
-    pool's spinning threads would take the cores of the other test
-    workers."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _optax(opt):

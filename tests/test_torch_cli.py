@@ -42,10 +42,12 @@ from ivit_tpu_torch.ops.interp import f32
 from tests.test_torch_convert_checkpoint import META as CKPT_META
 from tests.test_torch_convert_checkpoint import _checkpoint as _qat_checkpoint
 from tests.test_torch_ingest import SWIN_TINY, assert_same, reference_swin_state, reference_vit_state
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # bench.py's JSON keys (bench.py:213-222)
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
 LATENCY_LINE = re.compile(r"^(\S+) int8 batch=(\d+): ([0-9.]+) ms/iter, ([0-9.]+) img/s$")
+TINY_VIT = dict(img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2)
 
 
 def _save_checkpoint(tmp_path, sd):
@@ -142,8 +144,7 @@ FP32_RTOL = 1e-6
 
 @pytest.mark.parametrize("bits", [8, 16])
 def test_bench_float_leg_matches_jax_bench(bits, jax_bench):
-    art = synthetic_vit_artifact("deit_tiny", seed=0, softmax_bits=bits, gelu_stable=bits == 8,
-                                 img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2)
+    art = synthetic_vit_artifact("deit_tiny", seed=0, softmax_bits=bits, gelu_stable=bits == 8, **TINY_VIT)
     images = np.random.default_rng(3).standard_normal((2, 32, 32, 3)).astype(np.float32)
     ours = bench._float_vit_infer(art, "cpu")(torch.from_numpy(images)).numpy()
     theirs = np.asarray(jax_bench._float_vit_infer(art)(jnp.asarray(images)))
@@ -173,7 +174,7 @@ def test_bench_without_a_card_raises():
 
 
 def test_capture_infer_raises_on_cpu():
-    art = synthetic_vit_artifact("deit_tiny", seed=0, img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2)
+    art = synthetic_vit_artifact("deit_tiny", seed=0, **TINY_VIT)
     with pytest.raises(RuntimeError, match="CUDA graphs need a CUDA device"):
         capture_infer(build_vit_infer(art, "cpu"), 1, 32, device="cpu")
 
@@ -182,8 +183,7 @@ def test_forward_scalars_are_carried_as_tensors():
     """Route B's context ratio and Swin's pool 1/L are carried tensors
     holding the kernel arguments' float32 values; the carried 1/L gives
     the pool the value it divides for itself."""
-    art = synthetic_vit_artifact("deit_tiny", seed=0, softmax_bits=16, gelu_stable=False,
-                                 img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=2)
+    art = synthetic_vit_artifact("deit_tiny", seed=0, softmax_bits=16, gelu_stable=False, **TINY_VIT)
     for blk in build_vit_infer(art, "cpu", kernels=()).tensors["blocks"]:
         a = blk["attn"]
         assert a["ratio_out"].dtype == torch.float32 and float(a["ratio_out"]) == a["r_out"]

@@ -25,21 +25,11 @@ from ivit_tpu_torch import convert_model
 from ivit_tpu_torch.models import create_model
 from ivit_tpu_torch.train import AdamW, create_train_state
 from ivit_tpu_torch.utils import save_checkpoint
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 META = {"model": "deit_tiny", "input_size": 32, "nb_classes": 10, "softmax_bits": 8, "gelu_stable": True}
 SWIN_META = {"model": "swin_tiny", "input_size": 32, "nb_classes": 10, "softmax_bits": 8, "gelu_stable": False,
              "window_size": 2}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the models here are small, and the default
-    pool's spinning threads would take the cores of the other test
-    workers."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _checkpoint(tmp_path, meta, name="ckpt.pkl"):

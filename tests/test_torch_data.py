@@ -23,6 +23,7 @@ from ivit_tpu.data import loader as jax_loader
 from ivit_tpu.data import transforms as jax_transforms
 from ivit_tpu_torch.data import datasets, loader, transforms
 from ivit_tpu_torch.data.transforms import resize_bicubic
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

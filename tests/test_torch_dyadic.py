@@ -28,6 +28,7 @@ from ivit_tpu.native import dyadic_decompose_oracle, dyadic_mul_oracle, oracle_a
 from ivit_tpu_torch.core.dyadic import Dyadic, dyadic_decompose, dyadic_mul_exact, dyadic_requant, requant_f32
 from ivit_tpu_torch.deploy.engine import build_vit_infer
 from ivit_tpu_torch.ops import INT8, requant
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 I32_MIN, I32_MAX = -(2**31), 2**31 - 1
 # 2^-30 to 2^4: powers of two (every odd z is a tie at 2^-1 .. 2^-30) and

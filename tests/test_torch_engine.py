@@ -23,6 +23,7 @@ from ivit_tpu_torch.deploy.artifact import artifact_spec, artifact_to_torch, val
 from ivit_tpu_torch.deploy.engine import KERNEL_NAMES, build_vit_infer, select_kernels
 from ivit_tpu_torch.deploy.synthetic import nonzero_probability_share, synthetic_vit_artifact
 from ivit_tpu_torch.utils import load_artifact, save_artifact
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(img_size=16, patch_size=8, embed_dim=128, depth=2, num_heads=4)
 # (softmax_bits, gelu_stable, JAX engine kwargs): the shipped sm8 +

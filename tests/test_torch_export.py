@@ -48,6 +48,7 @@ from ivit_tpu_torch.deploy import (
     synthetic_vit_artifact,
 )
 from ivit_tpu_torch.kernels import WRAPPERS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 2

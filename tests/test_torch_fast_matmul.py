@@ -35,6 +35,7 @@ from ivit_tpu_torch.core.qtensor import QTensor
 from ivit_tpu_torch.models import create_model
 from ivit_tpu_torch.nn import QuantConv2d, exact_int8_dot_bias, exact_int_matmul, load_flax_variables, quant
 from ivit_tpu_torch.train import soft_target_cross_entropy
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SUM_ORDER_ULPS = 2  # in units of (K − 1)·2^-24·Σ|aᵢ·bᵢ| (module docstring)
 FAST_GRAD_RTOL = 2.0**-5

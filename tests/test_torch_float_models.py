@@ -49,6 +49,7 @@ from ivit_tpu_torch.nn import flax_variables, load_flax_variables
 import test_import
 from test_import import fake_torch_sd
 from test_import_swin import _torch_swin_forward, fake_swin_sd
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 VIT = dict(img_size=16, patch_size=8, num_classes=8, embed_dim=32, depth=2, num_heads=4)
 SWIN = dict(img_size=32, patch_size=2, num_classes=8, embed_dim=16, depths=(2, 2), num_heads=(2, 4), window_size=4)

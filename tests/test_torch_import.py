@@ -34,6 +34,7 @@ from ivit_tpu_torch.models import import_swin, import_torch
 from ivit_tpu_torch.nn import flax_variables, load_flax_variables
 from test_import import fake_torch_sd
 from test_import_swin import fake_swin_sd
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 VIT = dict(img_size=16, patch_size=8, num_classes=10, embed_dim=32, depth=2, num_heads=4)
 SWIN = dict(img_size=16, patch_size=2, num_classes=10, embed_dim=16, depths=(2, 2), num_heads=(2, 4), window_size=4)

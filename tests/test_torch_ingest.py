@@ -29,6 +29,7 @@ from ivit_tpu_torch.deploy.swin_artifact import validate_swin_artifact
 from ivit_tpu_torch.deploy.swin_engine import build_swin_infer
 from ivit_tpu_torch.deploy.swin_synthetic import synthetic_swin_artifact
 from ivit_tpu_torch.deploy.synthetic import synthetic_vit_artifact
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # tiny sizes with the head counts of deit_tiny and swin_tiny (the
 # converter takes them from the registered configs); Swin: stages 1-2

@@ -52,6 +52,7 @@ from ivit_tpu_torch.kernels import (
     fused_requant_shiftmax,
     fused_requant_shiftmax_reference,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a):

@@ -20,6 +20,7 @@ from ivit_tpu.ops.shiftexp import int_exp_shift as jax_int_exp_shift
 from ivit_tpu_torch.core import quantize, weight_scale
 from ivit_tpu_torch.ops import int_exp_shift, int_layernorm, requantize, shiftgelu, shiftmax
 from ivit_tpu_torch.ops.interp import exp2_int
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # softmax input scales: p = |⌊−1/s⌋| from 1 to 200
 SM_SCALES = (0.9, 0.31, 0.07, 0.05, 0.033, 0.0123, 0.005)

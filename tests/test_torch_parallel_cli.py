@@ -52,6 +52,7 @@ from ivit_tpu_torch import convert_model, evaluate_accuracy, quant_train
 from ivit_tpu_torch import utils as port_utils
 from ivit_tpu_torch.nn.flax_state import flatten
 from ivit_tpu_torch.utils import load_checkpoint_raw
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-4
@@ -92,14 +93,9 @@ def _single_run(argv: list) -> None:
         if path.endswith("checkpoint.pkl"):
             real(path.replace(".pkl", f".e{extra['epoch']}.pkl"), state, extra)
 
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(port_utils, "save_checkpoint", keep_each_epoch)
-            quant_train.main(argv)
-    finally:
-        torch.set_num_threads(prev)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_utils, "save_checkpoint", keep_each_epoch)
+        quant_train.main(argv)
 
 
 @pytest.fixture(scope="module")

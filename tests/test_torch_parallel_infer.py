@@ -39,6 +39,7 @@ from ivit_tpu_torch.parallel import Mesh, shard_infer, shard_infer_tp, tp_weight
 from ivit_tpu_torch.parallel.tp_infer import shard_artifact
 
 from torch_parallel_worker import run_ranks, serve
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 VIT = dict(img_size=16, patch_size=8, embed_dim=32, depth=2, num_heads=4, num_classes=10)
 SWIN = dict(img_size=16, patch_size=2, embed_dim=16, depths=(2, 2), num_heads=(1, 2), window_size=4, num_classes=8)

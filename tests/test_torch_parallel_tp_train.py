@@ -67,6 +67,7 @@ from ivit_tpu_torch.train import MixupConfig, mixup_cutmix
 from ivit_tpu_torch.train.augment import one_hot_smooth
 
 from torch_parallel_worker import as_numpy, run_ranks, tp_variant, train_tp
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 VIT = dict(img_size=16, patch_size=4, num_classes=8, embed_dim=32, depth=2, num_heads=4)
 SWIN = dict(img_size=16, patch_size=2, num_classes=16, embed_dim=16, depths=(2, 2), num_heads=(2, 4), window_size=4)

@@ -42,6 +42,7 @@ from ivit_tpu_torch.train import MixupConfig, mixup_cutmix
 from ivit_tpu_torch.train.augment import one_hot_smooth
 
 from torch_parallel_worker import as_numpy, run_ranks, train, train_variant
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(img_size=16, patch_size=8, num_classes=8, embed_dim=32, depth=2, num_heads=4)
 GLOBAL_BATCH = 8

@@ -21,6 +21,7 @@ import pytest
 
 from ivit_tpu_torch import quant_train
 from ivit_tpu_torch.utils import load_checkpoint_raw
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["--model", "deit_tiny", "--data-set", "SYNTHETIC", "--nb-classes", "10", "--input-size", "32",

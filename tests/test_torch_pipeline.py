@@ -40,6 +40,7 @@ from ivit_tpu_torch.train import soft_target_cross_entropy
 from test_pipeline import calibrated, small_model
 
 from torch_parallel_worker import pipeline_run, run_ranks
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(img_size=16, patch_size=8, num_classes=8, embed_dim=32, depth=4, num_heads=4)
 CASES = [(1, 2, 2), (2, 2, 2), (1, 4, 4), (2, 1, 2)]

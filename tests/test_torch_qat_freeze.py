@@ -23,6 +23,7 @@ from ivit_tpu_torch.nn import flax_variables, load_flax_variables
 from ivit_tpu_torch.train import AdamW, create_train_state
 
 from test_torch_qat_model import CONFIGS, TINY, _flat, _images, _pair
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROUTE_A = ("layernorm", "attention2", "linear_gelu")
 

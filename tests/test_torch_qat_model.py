@@ -26,6 +26,7 @@ from ivit_tpu.train.losses import soft_target_cross_entropy as jax_soft_ce
 from ivit_tpu_torch.models import create_model
 from ivit_tpu_torch.nn import flax_variables, load_flax_variables
 from ivit_tpu_torch.train import soft_target_cross_entropy
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(img_size=16, patch_size=8, num_classes=8, embed_dim=32, depth=2, num_heads=4)
 CONFIGS = {"sm16-rowmax": (16, False), "sm8-rowmax": (8, False), "sm8-stable": (8, True)}

@@ -32,6 +32,7 @@ from ivit_tpu_torch.nn.quant import exact_int8_dot, exact_int8_dot_bias, exact_i
 from ivit_tpu_torch.ops import int_exp_shift, int_layernorm, requantize, shiftgelu, shiftmax
 from ivit_tpu_torch.ops.interp import SIM
 from ivit_tpu_torch.ops.intmm import int8_matmul
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-5, 1e-7  # tests/test_ref_grad_differential.py:139, 171
 # The products' gradients are float32 matmuls summed in other orders: an

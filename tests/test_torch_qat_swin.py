@@ -43,6 +43,7 @@ from ivit_tpu_torch.nn import flax_variables, load_flax_variables
 from ivit_tpu_torch.train import soft_target_cross_entropy
 
 from test_torch_qat_model import LOSS_ULPS, _flat
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CONFIGS = {
     "a": dict(img_size=16, patch_size=2, num_classes=8, embed_dim=16, depths=(2, 2), num_heads=(2, 4), window_size=4),

@@ -22,6 +22,7 @@ from ivit_tpu_torch.nn import flax_variables
 from ivit_tpu_torch.train import MixupConfig, mixup_cutmix
 
 from test_torch_qat_swin import CONFIGS, _images, _pair
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _trained(config, steps=2):

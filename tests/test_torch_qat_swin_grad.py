@@ -24,6 +24,7 @@ from ivit_tpu_torch.train import soft_target_cross_entropy
 
 from test_torch_qat_model import GRAD_RTOL, _flat
 from test_torch_qat_swin import CONFIGS, _images, _pair, _targets
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("config", sorted(CONFIGS))

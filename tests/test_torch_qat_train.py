@@ -53,6 +53,7 @@ from ivit_tpu_torch.train import (
 )
 
 from test_torch_qat_model import TINY, _flat, _images, _pair
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LOSS_ULPS = 2
 F32_ULPS2 = 2.0**-22  # two float32 ulps, relative: XLA fuses the EMA's e·d + p·(1−d)

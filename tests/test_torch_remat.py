@@ -33,6 +33,7 @@ from ivit_tpu_torch.train import soft_target_cross_entropy
 
 from test_torch_qat_model import GRAD_RTOL, _flat
 from test_torch_qat_swin import CONFIGS as SWIN_CONFIGS
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 DEIT = dict(img_size=32, patch_size=8, num_classes=8, embed_dim=32, depth=2, num_heads=4)
 MODELS = {"deit": ("deit_tiny", DEIT), "swin": ("swin_tiny", SWIN_CONFIGS["a"])}
@@ -109,7 +110,8 @@ def _jax_pair(model_key):
 def test_remat_matches_jax_remat(model_key):
     """One train step from the same variables: the forward and the moved
     ranges against JAX's eager ``apply``, the gradients against JAX's
-    eager ``jax.grad`` (jitted, XLA contracts multiply-adds)."""
+    eager ``jax.grad`` (not jitted: under ``jax.jit`` XLA contracts
+    multiply-adds, as ``tests/test_torch_qat_swin_grad.py`` sets out)."""
     jm, v, tm = _jax_pair(model_key)
     x, t = _batch(MODELS[model_key][1]["img_size"], 21)
     xj, tj = jnp.asarray(x.numpy()), jnp.asarray(t.numpy())

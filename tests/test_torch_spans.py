@@ -22,6 +22,7 @@ from ivit_tpu_torch.deploy.synthetic import synthetic_vit_artifact
 from ivit_tpu_torch.models import create_model
 from ivit_tpu_torch.train import AdamW, create_train_state, make_train_step
 from ivit_tpu_torch.utils import spans
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 VIT = dict(img_size=16, patch_size=8, num_classes=8, embed_dim=32, depth=3, num_heads=4)
 # tests/test_torch_swin.py's TINY

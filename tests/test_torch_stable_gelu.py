@@ -29,6 +29,7 @@ from ivit_tpu.ops import shiftgelu as jax_shiftgelu
 from ivit_tpu_torch.deploy.engine import _mlp_hidden, select_kernels
 from ivit_tpu_torch.kernels import fused_requant_stable_gelu, fused_requant_stable_gelu_reference, stable_gelu_table
 from ivit_tpu_torch.ops import INT8, requant, shiftgelu
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # (GELU input scale, output ratio): a very small scale (the shift-exp's
 # p·2^n far above 2^31), DeiT-like ones, a scale whose −1/(1.702·s) is

@@ -33,6 +33,7 @@ from ivit_tpu_torch.kernels import fused_int8_window_attention, fused_int8_windo
 from ivit_tpu_torch.kernels.window_attention_fused import window_attention_through_tables
 from ivit_tpu_torch.models import create_config
 from ivit_tpu_torch.models import swin
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(img_size=16, patch_size=2, num_classes=8, embed_dim=16, depths=(2, 2), num_heads=(2, 4), window_size=4)
 KERNEL_SETS = {"plain": (), "default": DEFAULT_KERNELS, "attention": ("attention",), "layernorm": ("layernorm",)}

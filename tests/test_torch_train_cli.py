@@ -44,23 +44,13 @@ from ivit_tpu_torch.nn import quant
 from ivit_tpu_torch.nn.flax_state import flatten
 from ivit_tpu_torch.utils import load_checkpoint_raw
 from test_import import fake_torch_sd
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 3
 BASE = ["--model", "deit_tiny", "--data-set", "SYNTHETIC", "--input-size", "32", "--nb-classes", "10",
         "--batch-size", "8", "--max-steps-per-epoch", str(STEPS), "--aa", "none", "--color-jitter", "0",
         "--num-workers", "2", "--device", "cpu", "--lr", "1e-4", "--best-acc1", "-1", "--model-ema",
         "--model-ema-decay", "0.9"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread: the models here are small, and the default
-    pool's spinning threads would take the cores of the other test
-    workers."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _losses(out_dir, epoch):
