@@ -67,8 +67,8 @@ def clip_ste(x: torch.Tensor, lo, hi) -> torch.Tensor:
     for finite ``x``), as ``round_ste``, ``floor_ste`` and ``SIM.exp2``
     are their plain ops: with the residue form and the Functions on
     every call a DeiT-S SIM eval forward at batch 128 took 16% longer
-    on an H100, with the Functions alone 5%
-    (``scripts/torch_train_turns.py``)."""
+    on an H100, with the Functions alone 5% (paired trainer turns; the
+    benchmark's ``deit_s.train_b128`` cell now times the QAT step)."""
     clipped = torch.clamp(x, lo, hi)
     if not x.requires_grad:
         return clipped

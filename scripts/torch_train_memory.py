@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Does a QAT train step fit on the card at a given batch?
 
-Runs two train steps of the port's trainer (``ivit_tpu_torch.train``,
-``chip_smoke.py`` phase 7's configuration: drop-path 0.1, AdamW, the
-EMA; DeiT-S unless ``--model`` names another registered model) at 224²
-with 1000 classes at each batch given (default 64 and 128) on seeded
-normal images, and prints one JSON line per batch: the model, whether
+Runs two train steps of the port's trainer (``ivit_tpu_torch.train``:
+drop-path 0.1, AdamW at lr 1e-6, the EMA at decay 0.99996, smoothed
+one-hot targets; DeiT-S unless ``--model`` names another registered
+model) at 224² with 1000 classes at each batch given (default 64 and
+128) on seeded normal images, and prints one JSON line per batch: the model, whether
 it fit, the peak ``torch.cuda.max_memory_allocated`` in bytes, the
 card's name and total memory, and the second step's ms (CUDA events),
 or the out-of-memory message. One model and train state serve the

@@ -35,6 +35,7 @@ from ivit_tpu_torch.nn import flax_variables, load_flax_variables
 from test_import import fake_torch_sd
 from test_import_swin import fake_swin_sd
 from tests.torch_threads import one_torch_thread  # noqa: F401
+from torch_reference_state import augreg_npz
 
 VIT = dict(img_size=16, patch_size=8, num_classes=10, embed_dim=32, depth=2, num_heads=4)
 SWIN = dict(img_size=16, patch_size=2, num_classes=10, embed_dim=16, depths=(2, 2), num_heads=(2, 4), window_size=4)
@@ -50,40 +51,6 @@ def _assert_trees_equal(ours, theirs):
     for name, value in theirs.items():
         assert ours[name].dtype == value.dtype, name
         np.testing.assert_array_equal(ours[name], value, err_msg=name)
-
-
-def augreg_npz(sd, heads):
-    """``sd``'s weights in the augreg ``.npz`` layout (as
-    ``tests/test_import.py``'s npz-agreement test builds it)."""
-    D = sd["cls_token"].shape[-1]
-    hd = D // heads
-    depth = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
-    g = {
-        "cls": sd["cls_token"],
-        "Transformer/posembed_input/pos_embedding": sd["pos_embed"],
-        "embedding/kernel": sd["patch_embed.proj.weight"].transpose(2, 3, 1, 0),
-        "embedding/bias": sd["patch_embed.proj.bias"],
-        "Transformer/encoder_norm/scale": sd["norm.weight"],
-        "Transformer/encoder_norm/bias": sd["norm.bias"],
-        "head/kernel": sd["head.weight"].T,
-        "head/bias": sd["head.bias"],
-    }
-    for i in range(depth):
-        src, b = f"Transformer/encoderblock_{i}", f"blocks.{i}"
-        att = f"{src}/MultiHeadDotProductAttention_1"
-        w, bias = sd[f"{b}.attn.qkv.weight"], sd[f"{b}.attn.qkv.bias"]
-        for j, n in enumerate(("query", "key", "value")):
-            g[f"{att}/{n}/kernel"] = w[j * D:(j + 1) * D].T.reshape(D, heads, hd)
-            g[f"{att}/{n}/bias"] = bias[j * D:(j + 1) * D].reshape(heads, hd)
-        g[f"{att}/out/kernel"] = sd[f"{b}.attn.proj.weight"].T.reshape(heads, hd, D)
-        g[f"{att}/out/bias"] = sd[f"{b}.attn.proj.bias"]
-        g[f"{src}/LayerNorm_0/scale"], g[f"{src}/LayerNorm_0/bias"] = sd[f"{b}.norm1.weight"], sd[f"{b}.norm1.bias"]
-        g[f"{src}/LayerNorm_2/scale"], g[f"{src}/LayerNorm_2/bias"] = sd[f"{b}.norm2.weight"], sd[f"{b}.norm2.bias"]
-        g[f"{src}/MlpBlock_3/Dense_0/kernel"] = sd[f"{b}.mlp.fc1.weight"].T
-        g[f"{src}/MlpBlock_3/Dense_0/bias"] = sd[f"{b}.mlp.fc1.bias"]
-        g[f"{src}/MlpBlock_3/Dense_1/kernel"] = sd[f"{b}.mlp.fc2.weight"].T
-        g[f"{src}/MlpBlock_3/Dense_1/bias"] = sd[f"{b}.mlp.fc2.bias"]
-    return g
 
 
 @pytest.mark.parametrize("qkv_bias", [True, False], ids=["qkv-bias", "no-qkv-bias"])

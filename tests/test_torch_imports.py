@@ -89,13 +89,60 @@ def test_modules_import_without_pillow():
     assert int(run.stdout) == len(modules) > 60
 
 
-@pytest.mark.parametrize("relpath", ["chip_smoke.py", "scripts/torch_engine_turns.py",
-                                     "scripts/torch_int_mm_domain.py", "scripts/torch_train_memory.py",
-                                     "scripts/torch_reload_engine.py", "scripts/torch_repeat_qat_forward.py"])
+# the card's tests: the port's one proof on the card, run there with
+# --noconftest (tests/conftest.py imports JAX)
+_CARD_TESTS = sorted(f"tests/{f}" for f in os.listdir(os.path.join(_REPO, "tests"))
+                     if f.startswith("test_torch_cuda") and f.endswith(".py"))
+
+
+@pytest.mark.parametrize("relpath", ["scripts/torch_int_mm_domain.py", "scripts/torch_train_memory.py",
+                                     "scripts/torch_reload_engine.py", "scripts/torch_repeat_qat_forward.py",
+                                     *_CARD_TESTS])
 def test_card_scripts_import_no_jax(relpath):
-    """The scripts that run on the card's machine import no JAX either."""
+    """The scripts and tests that run on the card's machine import no JAX
+    either."""
     roots = set(_imported_roots(os.path.join(_REPO, relpath)))
     assert not roots & set(_FORBIDDEN), f"{relpath} imports {sorted(roots & set(_FORBIDDEN))}"
+
+
+def _card_test_calls() -> dict:
+    """{test name: every name it calls} of each test in the card's files
+    that the ``cuda`` marker covers (the file's ``pytestmark`` or its own
+    decorator)."""
+    out = {}
+    for relpath in _CARD_TESTS:
+        tree = ast.parse(open(os.path.join(_REPO, relpath)).read(), filename=relpath)
+        file_marked = any(isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "pytestmark"
+                                                                for t in node.targets)
+                          and "mark.cuda" in ast.unparse(node.value) for node in tree.body)
+        for node in tree.body:
+            if not (isinstance(node, ast.FunctionDef) and node.name.startswith("test_")):
+                continue
+            if file_marked or any("mark.cuda" in ast.unparse(d) for d in node.decorator_list):
+                out[f"{relpath}::{node.name}"] = {
+                    getattr(call.func, "id", None) or getattr(call.func, "attr", None)
+                    for call in ast.walk(node) if isinstance(call, ast.Call)}
+    return out
+
+
+def _wrappers() -> dict:
+    """``kernels.WRAPPERS`` as the package writes it: {kernel: its
+    wrapper's name}."""
+    tree = ast.parse(open(os.path.join(_PKG, "kernels", "__init__.py")).read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", None) == "WRAPPERS":
+            return {k.value: v.id for k, v in zip(node.value.keys, node.value.values)}
+    raise AssertionError("kernels/__init__.py defines no WRAPPERS")
+
+
+@pytest.mark.parametrize("name", sorted(_wrappers()))
+def test_every_kernel_meets_its_plain_version_on_the_card(name):
+    """Some test of the card's files calls both the kernel's wrapper and
+    its plain version (``<wrapper>_reference``): every hand-written kernel
+    is held to its plain version on the card."""
+    wrapper = _wrappers()[name]
+    tests = [t for t, calls in _card_test_calls().items() if {wrapper, f"{wrapper}_reference"} <= calls]
+    assert tests, f"{name}: no card test calls both {wrapper} and {wrapper}_reference"
 
 
 def test_rank_worker_imports_no_jax():
@@ -105,19 +152,3 @@ def test_rank_worker_imports_no_jax():
     roots = set(_imported_roots(os.path.join(_REPO, "tests", "torch_parallel_worker.py")))
     assert not roots & set(_FORBIDDEN), sorted(roots & set(_FORBIDDEN))
     assert not {r for r in roots if r.startswith("test_")}
-
-
-@pytest.mark.parametrize("root", [_REPO, os.path.join(_REPO, "no_such_checkout")], ids=["checkout", "missing"])
-def test_engine_turns_refuses_without_card(root):
-    """scripts/torch_engine_turns.py prints no result and exits nonzero
-    without a CUDA device, or for a directory without the package."""
-    import subprocess
-    import sys
-
-    import torch
-
-    if torch.cuda.is_available() and root == _REPO:
-        pytest.skip("a CUDA device is present: the script would time the engines")
-    run = subprocess.run([sys.executable, os.path.join(_REPO, "scripts", "torch_engine_turns.py"), root],
-                         capture_output=True, text=True, timeout=120)
-    assert run.returncode != 0 and run.stdout == ""

@@ -30,6 +30,7 @@ from ivit_tpu_torch.deploy.swin_engine import build_swin_infer
 from ivit_tpu_torch.deploy.swin_synthetic import synthetic_swin_artifact
 from ivit_tpu_torch.deploy.synthetic import synthetic_vit_artifact
 from tests.torch_threads import one_torch_thread  # noqa: F401
+from torch_reference_state import act, linear, mlp, norm, patch_embed, vit_state
 
 # tiny sizes with the head counts of deit_tiny and swin_tiny (the
 # converter takes them from the registered configs); Swin: stages 1-2
@@ -39,72 +40,11 @@ SWIN_TINY = dict(img_size=32, patch_size=2, num_classes=8, embed_dim=12, depths=
                  window_size=4)
 
 
-def _act(sd, name, scale):
-    sd[f"{name}.act_scaling_factor"] = np.array([scale], np.float32)
-
-
-def _linear(sd, prefix, layer, s_in):
-    """A QuantLinear's buffers: (out, in) float-held integer weights, the
-    integer bias and the per-channel weight scale out_scale / s_in."""
-    sd[f"{prefix}.weight_integer"] = layer["w"].T.astype(np.float32)
-    if "b" in layer:
-        sd[f"{prefix}.bias_integer"] = layer["b"].astype(np.float32)
-    sd[f"{prefix}.fc_scaling_factor"] = (layer["out_scale"] / np.float32(s_in)).astype(np.float32)
-
-
-def _norm(sd, prefix, norm):
-    sd[f"{prefix}.bias_integer"] = norm["bias_int"]
-    sd[f"{prefix}.norm_scaling_factor"] = norm["out_scale"]
-
-
-def _patch_embed(sd, a):
-    p, D = a["config"]["patch_size"], a["config"]["embed_dim"]
-    pe = a["patch_embed"]
-    _act(sd, "qact_input", a["input_scale"])
-    sd["patch_embed.proj.weight_integer"] = pe["w"].reshape(p, p, 3, D).transpose(3, 2, 0, 1).astype(np.float32)
-    sd["patch_embed.proj.bias_integer"] = pe["b"].astype(np.float32)
-    sd["patch_embed.proj.conv_scaling_factor"] = (pe["out_scale"] / np.float32(a["input_scale"])).astype(np.float32)
-
-
-def _mlp(sd, b, blk):
-    _norm(sd, f"{b}.norm2", blk["norm2"])
-    _act(sd, f"{b}.qact3", blk["s_qact3"])
-    _linear(sd, f"{b}.mlp.fc1", blk["fc1"], blk["s_qact3"])
-    _act(sd, f"{b}.mlp.qact_gelu", blk["s_gelu_in"])
-    _act(sd, f"{b}.mlp.qact1", blk["s_gelu_out"])
-    _linear(sd, f"{b}.mlp.fc2", blk["fc2"], blk["s_gelu_out"])
-    _act(sd, f"{b}.mlp.qact2", blk["s_mlp_out"])
-    _act(sd, f"{b}.qact4", blk["s_res2"])
-
-
 def reference_vit_state(seed=0, softmax_bits=16, gelu_stable=False, **cfg):
     """A reference ViT/DeiT QAT state dict (numpy) holding the integers
     and scales of a seeded synthetic artifact."""
-    a = synthetic_vit_artifact("deit_tiny", seed=seed, softmax_bits=softmax_bits, gelu_stable=gelu_stable,
-                               **{**VIT_TINY, **cfg})
-    sd = {}
-    _patch_embed(sd, a)
-    _act(sd, "patch_embed.qact", a["embed_scale"])
-    sd["cls_token"] = (a["cls_q"] * a["embed_scale"]).astype(np.float32)
-    _act(sd, "qact_pos", a["pos_scale"])
-    sd["pos_embed"] = (a["pos_q"] * a["pos_scale"]).astype(np.float32)
-    _act(sd, "qact1", a["tokens_scale"])
-    for i, blk in enumerate(a["blocks"]):
-        b = f"blocks.{i}"
-        _norm(sd, f"{b}.norm1", blk["norm1"])
-        _act(sd, f"{b}.qact1", blk["s_qact1"])
-        _linear(sd, f"{b}.attn.qkv", blk["qkv"], blk["s_qact1"])
-        _act(sd, f"{b}.attn.qact1", blk["s_attn_qact1"])
-        _act(sd, f"{b}.attn.qact_attn1", blk["s_attn_sm_in"])
-        _act(sd, f"{b}.attn.qact2", blk["s_attn_out"])
-        _linear(sd, f"{b}.attn.proj", blk["proj"], blk["s_attn_out"])
-        _act(sd, f"{b}.attn.qact3", blk["s_attn_proj"])
-        _act(sd, f"{b}.qact2", blk["s_res1"])
-        _mlp(sd, b, blk)
-    _norm(sd, "norm", a["norm"])
-    _act(sd, "qact2", a["head_in_scale"])
-    _linear(sd, "head", a["head"], a["head_in_scale"])
-    return sd
+    return vit_state(synthetic_vit_artifact("deit_tiny", seed=seed, softmax_bits=softmax_bits,
+                                            gelu_stable=gelu_stable, **{**VIT_TINY, **cfg}))
 
 
 def reference_swin_state(seed=0, with_index=True):
@@ -115,43 +55,43 @@ def reference_swin_state(seed=0, with_index=True):
     a = synthetic_swin_artifact("swin_tiny", seed=seed, **SWIN_TINY)
     rng = np.random.default_rng(seed + 100)
     sd = {}
-    _patch_embed(sd, a)
-    _act(sd, "patch_embed.qact_before_norm", a["s_before_norm"])
-    _norm(sd, "patch_embed.norm", a["patch_norm"])
-    _act(sd, "patch_embed.qact", a["embed_scale"])
-    _act(sd, "qact1", a["tokens_scale"])
+    patch_embed(sd, a)
+    act(sd, "patch_embed.qact_before_norm", a["s_before_norm"])
+    norm(sd, "patch_embed.norm", a["patch_norm"])
+    act(sd, "patch_embed.qact", a["embed_scale"])
+    act(sd, "qact1", a["tokens_scale"])
     for i, stage in enumerate(a["stages"]):
         for j, blk in enumerate(stage["blocks"]):
             b = f"layers.{i}.blocks.{j}"
             ws, heads = blk["ws"], blk["heads"]
             table = (rng.standard_normal(((2 * ws - 1) ** 2, heads)) * 0.02).astype(np.float32)
             sd[f"{b}.attn.relative_position_bias_table"] = table
-            _act(sd, f"{b}.attn.qact_table", np.abs(table).max() / 127)
+            act(sd, f"{b}.attn.qact_table", np.abs(table).max() / 127)
             if with_index:
                 sd[f"{b}.attn.relative_position_index"] = relative_position_index(ws).astype(np.int64)
             if blk["shift"]:
                 sd[f"{b}.attn_mask"] = sw_attn_mask(blk["res"], blk["res"], ws, blk["shift"])
-            _norm(sd, f"{b}.norm1", blk["norm1"])
-            _act(sd, f"{b}.qact1", blk["s_qact1"])
-            _linear(sd, f"{b}.attn.qkv", blk["qkv"], blk["s_qact1"])
-            _act(sd, f"{b}.attn.qact1", blk["s_attn_qact1"])
-            _act(sd, f"{b}.attn.qact_attn1", blk["s_attn1"])
-            _act(sd, f"{b}.attn.qact2", blk["s_bias"])
-            _act(sd, f"{b}.attn.qact3", blk["s_attn_out"])
-            _linear(sd, f"{b}.attn.proj", blk["proj"], blk["s_attn_out"])
-            _act(sd, f"{b}.attn.qact4", blk["s_attn_proj"])
-            _act(sd, f"{b}.qact2", blk["s_res1"])
-            _mlp(sd, b, blk)
+            norm(sd, f"{b}.norm1", blk["norm1"])
+            act(sd, f"{b}.qact1", blk["s_qact1"])
+            linear(sd, f"{b}.attn.qkv", blk["qkv"], blk["s_qact1"])
+            act(sd, f"{b}.attn.qact1", blk["s_attn_qact1"])
+            act(sd, f"{b}.attn.qact_attn1", blk["s_attn1"])
+            act(sd, f"{b}.attn.qact2", blk["s_bias"])
+            act(sd, f"{b}.attn.qact3", blk["s_attn_out"])
+            linear(sd, f"{b}.attn.proj", blk["proj"], blk["s_attn_out"])
+            act(sd, f"{b}.attn.qact4", blk["s_attn_proj"])
+            act(sd, f"{b}.qact2", blk["s_res1"])
+            mlp(sd, b, blk)
         if "downsample" in stage:
             ds, d = stage["downsample"], f"layers.{i}.downsample"
-            _act(sd, f"{d}.qact1", ds["s_qact1"])
-            _norm(sd, f"{d}.norm", ds["norm"])
-            _linear(sd, f"{d}.reduction", ds["reduction"], ds["s_qact1"])
-            _act(sd, f"{d}.qact2", ds["s_out"])
-    _norm(sd, "norm", a["norm"])
-    _act(sd, "qact2", a["s_qact2"])
-    _act(sd, "qact3", a["s_qact3"])
-    _linear(sd, "head", a["head"], a["s_qact3"])
+            act(sd, f"{d}.qact1", ds["s_qact1"])
+            norm(sd, f"{d}.norm", ds["norm"])
+            linear(sd, f"{d}.reduction", ds["reduction"], ds["s_qact1"])
+            act(sd, f"{d}.qact2", ds["s_out"])
+    norm(sd, "norm", a["norm"])
+    act(sd, "qact2", a["s_qact2"])
+    act(sd, "qact3", a["s_qact3"])
+    linear(sd, "head", a["head"], a["s_qact3"])
     return sd
 
 

@@ -15,8 +15,9 @@ The single-process step on the global batch runs in this process.
 Every ``QuantAct`` range and every logit of the data-parallel step equal
 it bit for bit: at the first step by design (the same parameters), and
 here at the second too, because the first step's parameter difference
-moved no weight's per-channel scale (at DeiT-S on the card it does,
-``chip_smoke.py`` phase 12). The loss, the gradients and the parameters
+moved no weight's per-channel scale (at DeiT-S's width on the card it
+can: ``tests/test_torch_cuda_ranks.py`` bounds the pipelined DeiT-S
+step 1 and compares no later step). The loss, the gradients and the parameters
 agree to within float32 rounding only: the gradient is the mean of the
 two shards' gradients (the all-reduce), summed in another order than
 one backward over the whole batch sums it. ZeRO-1 equals the replicated

@@ -11,7 +11,7 @@ from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # files whose torch runs only on the card, where the CPU side of a test
 # may use every core
-ON_THE_CARD = {"test_torch_cuda.py"}
+ON_THE_CARD = {"test_torch_cuda.py", "test_torch_cuda_ranks.py"}
 
 
 def test_a_port_test_runs_at_one_torch_thread():

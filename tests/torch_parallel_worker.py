@@ -1,4 +1,6 @@
-"""Rank workers of the port's multi-process CPU tests.
+"""Rank workers of the port's multi-process tests, on the CPU and on the
+card (``tests/test_torch_cuda_ranks.py``, the exports of
+``tests/test_torch_cuda.py``).
 
 ``run_ranks(world, tmp_path, task, *args)`` spawns ``world`` processes
 (``torch.multiprocessing``, spawn) that join a ``gloo`` group through a
@@ -120,19 +122,13 @@ def serve_on_card(artifact: dict, images, mesh_shape: tuple, zero1_spec: dict | 
     forward, every count set to 0 just before it and read just after;
     with ``zero1_spec`` also the parameters after one step of the
     single-process trainer and after one ZeRO-1 step on the mesh."""
-    from ivit_tpu_torch.kernels import WRAPPERS
-
     mesh = make_mesh(*mesh_shape)
     infer = shard_infer_tp(artifact, mesh)
     x = torch.from_numpy(images).to(mesh.device)
     infer(x)  # builds and loads the kernels
-    torch.cuda.synchronize()
-    for w in WRAPPERS.values():
-        w.launches = 0
-    logits = infer(x)
-    torch.cuda.synchronize()
-    out = {"logits": logits.cpu().numpy(), "launches": {k: w.launches for k, w in WRAPPERS.items() if w.launches},
-           "device": str(mesh.device), "kernels": sorted(infer.kernels)}
+    logits, launches = count_launches(infer, x)
+    out = {"logits": logits.cpu().numpy(), "launches": launches, "device": str(mesh.device),
+           "kernels": sorted(infer.kernels)}
     if zero1_spec is not None:  # the single-process step, then the ZeRO-1 step on the mesh
         images, targets, seed = zero1_spec["batches"][0]
         images, targets = torch.from_numpy(images).to(mesh.device), torch.from_numpy(targets).to(mesh.device)
@@ -236,9 +232,9 @@ def tp_variant(spec: dict, mesh_shape) -> dict:
     ``spec["remat"]`` recompute, on ``spec["device"]`` (the CPU by
     default; a card shared over ``gloo``). Returns step 1's weight scales
     and the first batch's gradient (whole), each step's logits (this data
-    rank's rows), ranges and metrics, and the final parameters, EMA and
-    moments gathered whole, with this rank's moment shapes, all on the
-    host."""
+    rank's rows), ranges and metrics, the parameters after step 1 and the
+    final parameters, EMA and moments gathered whole, with this rank's
+    moment shapes, all on the host."""
     from ivit_tpu_torch.parallel import tensor_parallel
 
     dev = torch.device(spec.get("device", "cpu"))
@@ -293,12 +289,16 @@ def tp_variant(spec: dict, mesh_shape) -> dict:
                       torch.Generator(device=dev).manual_seed(gen_seed))
         out["steps"].append({"logits": seen[-1].cpu(), "ranges": {n: b.cpu().clone() for n, b in model.named_buffers()},
                              "loss": float(met["loss"]), "acc1": float(met["acc1"])})
+        if len(out["steps"]) == 1:  # the parameters after step 1, whole
+            out["params1"] = {n: p.detach().cpu().clone()
+                              for n, p in gather_train_state(state).model.named_parameters()}
     hook.remove()
     out["scales"] = {n: s.cpu() for n, s in out["scales"].items()}
     out["local_mu"] = {n: tuple(m.shape) for n, m in zip(names, state.opt_state.mu)}
     whole = gather_train_state(state)
     wnames = [n for n, _ in whole.model.named_parameters()]
     out["params"] = {n: p.detach().cpu().clone() for n, p in whole.model.named_parameters()}
+    out["buffers"] = {n: b.cpu().clone() for n, b in whole.model.named_buffers()}
     out["ema"] = {n: whole.ema_params[n].cpu().clone() for n in wnames} if whole.ema_params is not None else None
     out["mu"] = dict(zip(wnames, [m.cpu().clone() for m in whole.opt_state.mu]))
     out["nu"] = dict(zip(wnames, [m.cpu().clone() for m in whole.opt_state.nu]))
@@ -410,3 +410,275 @@ def pipeline_run(spec: dict) -> dict:
             out["errors"][key] = str(e)
     out["rank"] = rank
     return out
+
+
+# ---- ranks sharing the card over gloo (tests/test_torch_cuda_ranks.py) ----------------------------
+
+ROUTE_B = ("layernorm", "softmax", "gelu")
+
+
+def count_launches(fn, *args):
+    """``fn(*args)`` and the kernel launches it made, every count set to 0
+    just before it and read just after."""
+    from ivit_tpu_torch.kernels import WRAPPERS
+
+    for w in WRAPPERS.values():
+        w.launches = 0
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in WRAPPERS.items() if w.launches}
+
+
+def _max_err(out, ref) -> float:
+    pairs = zip(out, ref) if isinstance(out, tuple) else [(out, ref)]  # K6: (hi, lo)
+    return max(float((a.double() - b.double()).abs().max()) for a, b in pairs)
+
+
+def vit_kernel_errors(infer, images) -> dict:
+    """K3 on block 0's norm1 input (full rows) and K1 on its q, k, v (this
+    rank's heads under tensor parallelism) of a ViT engine, each against
+    its plain version: the largest difference by kernel."""
+    from ivit_tpu_torch.deploy.engine import attention_inputs, embed
+    from ivit_tpu_torch.kernels import (
+        fused_int8_attention,
+        fused_int8_attention_reference,
+        fused_layernorm_requant,
+        fused_layernorm_requant_reference,
+    )
+
+    t, cfg = infer.tensors, infer.tensors["config"]
+    x = embed(images, t)
+    blk = t["blocks"][0]
+    norm = (x.reshape(-1, cfg["embed_dim"]), blk["norm1"]["bias_int"], blk["norm1"]["ratio"])
+    a = blk["attn"]
+    attn = (*attention_inputs(x, blk, blk.get("heads", cfg["num_heads"])), a["r1"], a["scale"], a["r_out"],
+            int(cfg["softmax_bits"]))
+    return {"K3": _max_err(fused_layernorm_requant(*norm), fused_layernorm_requant_reference(*norm)),
+            "K1": _max_err(fused_int8_attention(*attn), fused_int8_attention_reference(*attn))}
+
+
+def swin_kernel_errors(infer, images) -> dict:
+    """K3 on stage 1 block 0's norm1 input and K7 on the first two blocks
+    of every stage (this rank's heads under tensor parallelism; a shifted
+    block's key says ``masked``) of a Swin engine, each against its plain
+    version: the largest difference by kernel. The trunk runs the blocks'
+    collectives."""
+    from ivit_tpu_torch.deploy.swin_engine import patch_embed, swin_trunk, window_attention_inputs
+    from ivit_tpu_torch.kernels import (
+        fused_int8_window_attention,
+        fused_int8_window_attention_reference,
+        fused_layernorm_requant,
+        fused_layernorm_requant_reference,
+    )
+
+    ts = infer.tensors
+    where = {id(b): (i, j) for i, stage in enumerate(ts["stages"]) for j, b in enumerate(stage["blocks"][:2])}
+    errs = {}
+
+    def visit(layer, x):
+        if id(layer) not in where:
+            return
+        i, j = where[id(layer)]
+        if (i, j) == (0, 0):
+            norm = (x.reshape(-1, x.shape[-1]), layer["norm1"]["bias_int"], layer["norm1"]["ratio"])
+            errs["K3 stage 1"] = _max_err(fused_layernorm_requant(*norm), fused_layernorm_requant_reference(*norm))
+        a = layer["attn"]
+        args = (*window_attention_inputs(x, layer, kernels=()), a["bias"], a["mask"], a["r1"], a["rb"], a["scale"],
+                a["r_out"], layer["heads"])
+        key = f"K7 stage {i + 1} block {j}" + (" masked" if a["mask"] is not None else "")
+        errs[key] = _max_err(fused_int8_window_attention(*args), fused_int8_window_attention_reference(*args))
+
+    swin_trunk(patch_embed(images, ts), ts, infer.kernels, on_layer=visit)
+    return errs
+
+
+def serve_paths_on_card(art8: dict, art16: dict, swin: dict, images) -> dict:
+    """The published paths on this rank of a world sharing the card: the
+    DeiT-S main path data-parallel at the images' batch and
+    tensor-parallel at that batch and at 1, route B and Swin-T
+    tensor-parallel, each forward's logits and launches; whether route A
+    (K4) under a model axis raises; K1, K3, K5, K6 and K7 (each stage's
+    first two blocks) against their plain versions on this rank's own
+    inputs."""
+    from ivit_tpu_torch.deploy.engine import _layernorm, attention_half, attention_inputs, embed, int8_linear
+    from ivit_tpu_torch.kernels import (
+        fused_requant_shiftgelu,
+        fused_requant_shiftgelu_reference,
+        fused_requant_shiftmax,
+        fused_requant_shiftmax_reference,
+    )
+
+    world = dist.get_world_size()
+    dp, tp = make_mesh(world, 1), make_mesh(1, world)
+    dev = tp.device
+    x = torch.from_numpy(images).to(dev)
+    main_tp = shard_infer_tp(art8, tp)
+    b_tp = shard_infer_tp(art16, tp, kernels=ROUTE_B)
+    swin_tp = shard_infer_tp(swin, tp, build_fn=build_swin_infer)
+    main_tp(x[:1])  # builds and loads the kernels
+    out = {"device": str(dev), "paths": {}}
+    for label, fn, xs in (("main DP", shard_infer(build_vit_infer(art8, dev), dp), x), ("main TP", main_tp, x),
+                          ("main TP batch 1", main_tp, x[:1]), ("B TP", b_tp, x), ("swin TP", swin_tp, x)):
+        logits, launches = count_launches(fn, xs)
+        out["paths"][label] = (logits.cpu(), launches)
+    try:
+        shard_infer_tp(art16, tp, kernels=("layernorm", "attention2", "linear_gelu"))
+        out["k4_raises"] = False
+    except ValueError:
+        out["k4_raises"] = True
+    with torch.inference_mode():
+        errs = vit_kernel_errors(main_tp, x)
+        t = b_tp.tensors
+        N = (t["config"]["img_size"] // t["config"]["patch_size"]) ** 2 + 1
+        xb = embed(x, t)
+        blk = t["blocks"][0]
+        q, k, _ = attention_inputs(xb, blk, blk["heads"], b_tp.kernels)
+        scores = torch.matmul(q.double(), k.double().transpose(-1, -2)).to(torch.int32).view(-1, N)
+        a = blk["attn"]
+        errs["K6"] = _max_err(fused_requant_shiftmax(scores, a["r1"], a["scale"], N),
+                              fused_requant_shiftmax_reference(scores, a["r1"], a["scale"], N))
+        h = attention_half(xb, blk, t["config"], b_tp.kernels)  # proj's all-reduce
+        acc = int8_linear(_layernorm(h, blk["norm2"], b_tp.kernels), blk["fc1"])  # fc1's all-gather
+        gelu = (acc, blk["fc1"]["ratio"], blk["gelu"]["s_in"], blk["gelu"]["r2"])
+        errs["K5"] = _max_err(fused_requant_shiftgelu(*gelu), fused_requant_shiftgelu_reference(*gelu))
+        errs.update(swin_kernel_errors(swin_tp, x))
+    out["kernel_errors"] = errs
+    return out
+
+
+def serve_tp_trained_on_card(spec: dict, mesh_shape: tuple, images) -> dict:
+    """``tp_variant`` of ``spec`` on this rank (its steps, first gradient
+    and parameters after step 1 returned), then the trained whole
+    parameters and ranges frozen and served by ``shard_infer_tp`` on the
+    same mesh: its logits and launches, the single-process engine's
+    logits, and the kernels (K1 and K3; K3 and K7 by stage) on this rank's
+    own inputs against their plain versions."""
+    from ivit_tpu_torch.deploy import freeze_vit
+    from ivit_tpu_torch.deploy.swin_engine import freeze_swin
+
+    rec = tp_variant(spec, mesh_shape)
+    mesh = make_mesh(*mesh_shape)
+    dev = mesh.device
+    swin = spec["model"].startswith("swin")
+    model = create_model(spec["model"], dev, seed=0, **spec["model_kw"])
+    variables = {"params": {n: p.to(dev) for n, p in rec["params"].items()},
+                 "quant_stats": {n: b.to(dev) for n, b in rec["buffers"].items()}}
+    art = (freeze_swin if swin else freeze_vit)(model, variables, dev)
+    build = build_swin_infer if swin else build_vit_infer
+    x = torch.from_numpy(images).to(dev)
+    with torch.inference_mode():
+        single = build(art, dev)(x).cpu()
+        infer = shard_infer_tp(art, mesh, build_fn=build)
+        infer(x[:1])  # builds and loads the kernels
+        logits, launches = count_launches(infer, x)
+        logits = logits.cpu()
+        errs = (swin_kernel_errors if swin else vit_kernel_errors)(infer, x)
+    return {"device": str(dev), "logits": logits, "single": single, "launches": launches, "kernel_errors": errs,
+            "steps": rec["steps"], "grads": rec["grads"], "params1": rec["params1"]}
+
+
+def _pp_run(model, dev, mesh, batches: list, n_micro: int) -> dict:
+    """One pipelined QAT run on ``mesh`` (a ``Mesh`` of one rank without a
+    process group: the single-stage step): the frozen logits of the first
+    batch (the global batch's), its whole gradient, the steps' losses,
+    the whole parameters after step 1, this rank's optimizer-state bytes
+    and the whole EMA variables after the last step, on the host."""
+    from ivit_tpu_torch.models.model_utils import eval_variables
+    from ivit_tpu_torch.parallel import (
+        from_pp_state,
+        from_pp_variables,
+        make_pp_train_step,
+        pipeline_vit_forward,
+        pp_gather,
+        pp_rows,
+        to_pp_state,
+    )
+    from ivit_tpu_torch.parallel.pipeline import pp_reduce_grads
+
+    state = to_pp_state(create_train_state(model, AdamW(1e-3, weight_decay=0.05), ema_decay=0.9, device=dev), mesh)
+    x, t = batches[0]
+    with torch.no_grad():
+        logits = pp_gather(pipeline_vit_forward(model, x, mesh, n_micro), mesh, n_micro)
+    names, params = zip(*model.named_parameters())
+    loss = soft_target_cross_entropy(pipeline_vit_forward(model, x, mesh, n_micro), pp_rows(t, mesh, n_micro))
+    grads = list(torch.autograd.grad(loss, params, materialize_grads=True))
+    model.pp.wait()
+    grads = data_mean(pp_reduce_grads(grads, list(names), mesh), mesh)
+    grads = from_pp_variables({"params": dict(zip(names, grads))}, model.pp.depth, mesh)["params"]
+    rec = {"logits": logits.cpu(), "grads": {n: g.cpu() for n, g in grads.items()}, "loss": []}
+    del grads, loss
+    step = make_pp_train_step(model, mesh, n_micro, grad_clip=1.0, ema_decay=0.9)
+    for i, (x, t) in enumerate(batches):
+        _, met = step(state, x, t)
+        rec["loss"].append(float(met["loss"]))
+        if i == 0:
+            rec["params1"] = {n: p.cpu().clone() for n, p in from_pp_state(state).model.named_parameters()}
+    local = list(state.opt_state.mu) + list(state.opt_state.nu) + list(state.ema_params.values())
+    rec["opt_bytes"] = sum(a.numel() * a.element_size() for a in local)
+    variables = eval_variables(from_pp_state(state))
+    rec["variables"] = {col: {n: v.cpu().clone() for n, v in tree.items()} for col, tree in variables.items()}
+    return rec
+
+
+def pipeline_on_card(name: str, model_kw: dict, batches: list, calib, images, n_micro: int) -> dict:
+    """GPipe on two ranks sharing the card, a stage each: rank 0 first runs
+    the single-process frozen forward and the single-stage step (pipe = 1;
+    the other rank waits), then both run the pipeline on a ``(1, 2)``
+    mesh from the same calibrated model. Rank 0 returns both runs and
+    the pipe-trained model's EMA weights frozen and served whole by
+    ``build_vit_infer`` at ``images``: its logits and launches, the plain
+    engine's logits, and K1 and K3 on its inputs against their plain
+    versions; every rank its optimizer-state bytes."""
+    from ivit_tpu_torch.deploy import freeze_vit
+    from ivit_tpu_torch.parallel import Mesh, make_pp_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batches = [(torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)) for x, t in batches]
+
+    def calibrated():  # one train-mode forward sets every range; the pipeline keeps them frozen
+        model = create_model(name, dev, seed=0, **model_kw)
+        with torch.no_grad():
+            model(torch.from_numpy(calib).to(dev), train=True)
+        return model
+
+    out = {"device": str(dev)}
+    if dist.get_rank() == 0:
+        model = calibrated()
+        with torch.no_grad():
+            out["forward"] = model(batches[0][0], train=False).cpu()
+        out["single"] = _pp_run(model, dev, Mesh(1, 1, 0, dev, {}, axis="pipe"), batches, n_micro)
+        del model
+        torch.cuda.empty_cache()
+    dist.barrier()
+    rec = _pp_run(calibrated(), dev, make_pp_mesh(1, 2, device=dev), batches, n_micro)
+    out["opt_bytes"] = rec["opt_bytes"]
+    if dist.get_rank() == 0:
+        out["pipe"] = rec
+        variables = {col: {n: v.to(dev) for n, v in tree.items()} for col, tree in rec["variables"].items()}
+        art = freeze_vit(create_model(name, dev, seed=0, **model_kw), variables, dev)
+        infer = build_vit_infer(art, dev)
+        x = torch.from_numpy(images).to(dev)
+        with torch.inference_mode():
+            infer(x[:1])  # builds and loads the kernels
+            logits, launches = count_launches(infer, x)
+            out["served"] = {"logits": logits.cpu(), "plain": build_vit_infer(art, dev, kernels=())(x).cpu(),
+                             "launches": launches, "kernel_errors": vit_kernel_errors(infer, x)}
+    dist.barrier()
+    return out
+
+
+
+def export_engines(groups: list) -> list:
+    """This rank's group of ``groups``, each ``(artifact, build options,
+    [(batch, file), ...])``: the artifact's engine built once on the card
+    (``build_swin_infer`` for a Swin artifact, else ``build_vit_infer``,
+    given the options) and exported at each batch to its file by
+    ``deploy.export_engine``. Returns the files written."""
+    from ivit_tpu_torch.deploy.export import export_engine
+
+    artifact, options, files = groups[dist.get_rank()]
+    build = build_swin_infer if "depths" in artifact["config"] else build_vit_infer
+    fn = build(artifact, torch.device("cuda", torch.cuda.current_device()), **options)
+    for batch, path in files:
+        export_engine(fn, batch, artifact["config"]["img_size"], path=path)
+    return [path for _, path in files]
